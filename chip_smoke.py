@@ -8,17 +8,36 @@ Run from the repository root, with no arguments:
 Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. device: a CUDA card is required; prints its name and power limit;
-2. build: compiles the fused trajectory kernel from
-   ``mcmc_tpu_torch/csrc`` (nvcc, sm_90a) and prints the build time;
-3. kernel against its plain PyTorch version at the flagship shapes (16384
-   chains, 100 dims, 1000 observations, 4 leapfrogs at step 0.01) for each
-   built-in link: max errors against the stated tolerances, padded columns
-   exactly zero, and the median time of each;
+2. build: compiles the kernels of ``mcmc_tpu_torch/csrc`` (nvcc, sm_90a,
+   one compiler per source, together) and prints the build time;
+3. the GLM trajectory kernel against its plain PyTorch version at the
+   flagship shapes (16384 chains, 100 dims, 1000 observations, 4 leapfrogs
+   at step 0.01) for each built-in link, Student-t included: max errors
+   against the stated tolerances, padded columns exactly zero, and the
+   median time of each;
 4. the fused main path: ``fused_glm_hmc`` at 16384 chains for 600
-   transitions, with the kernel's launch count, acceptance, leapfrog
+   transitions, from numpy data with no ``device=`` (so it must put itself
+   on the card), with the kernel's launch count, acceptance, leapfrog
    steps/s, max split R-hat and min ESS;
 5. the generic ``hmc`` at 1024 chains over the same transitions, whose
-   posterior mean must agree with the fused run's within 0.3.
+   posterior mean must agree with the fused run's within 0.3;
+6. the run-time-parameter entry of the GLM kernel at the flagship shapes
+   (step size as a 0-d tensor on the card, a diagonal inverse mass):
+   against its plain version, bit-equal to phase 3's kernel at inverse
+   mass 1, and driven through its factory ``make_fused_trajectory_rt``;
+7. the Gaussian trajectory kernel against its plain version at the suite's
+   shapes (2048 chains, 100 dims, 157 leapfrogs at step 0.9, condition
+   number 1e4), on the suite's diagonal precision and on a dense one of
+   the same spectrum; two launches bit-equal;
+8. the Gaussian main path: ``fused_gaussian_hmc`` at 2048 chains, 2400
+   transitions of 157 leapfrogs, from a numpy precision with no
+   ``device=``: launch count, acceptance, and mean and variance against
+   the analytic answer; rank R-hat, min ESS and leapfrog steps/s printed;
+9. printed and not gated: the Gaussian kernel's time at other chain counts,
+   and for both transitions (``make_fused_hmc_step``,
+   ``make_fused_gaussian_hmc_step``) the time per steady transition, the
+   card's busy share of it and the device time of each kernel by name,
+   under ``torch.profiler``.
 
 The last two lines of output are the kernels' JSON record and the result
 line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -38,7 +57,8 @@ N_DATA = 1000
 N_LEAP = 4
 STEP_SIZE = 0.01
 PRIOR_SCALE = 10.0
-LINKS = ("logistic", "poisson", "linear", "probit")
+LINKS = ("logistic", "poisson", "linear", "probit", "studentt")
+STUDENTT_NU = 4.0
 # kernel vs plain version: only the summation order differs, but at these
 # shapes the two f32 sums round z to different bf16 neighbours at a few of
 # the ~8M rounding points, and the chain where that happens then differs by
@@ -52,6 +72,35 @@ TOL_MAX = 1e-2
 N_BURNIN, N_KEEP, STEPS_PER_DRAW = 100, 200, 2
 HMC_CHAINS = 1024
 MEAN_ATOL = 0.3
+RT_CALLS = 10
+PROFILE_WARM, PROFILE_STEPS = 50, 200
+
+# the suite's ill-conditioned row (benchmarks/suite.py
+# hmc_ill_conditioned_100d_fused): 100-d Gaussian, variances logspace(0, 4)
+G_CHAINS, G_DIM, G_COND = 2048, 100, 1e4
+G_STEP, G_LEAP, G_JITTER, G_INIT_SCALE = 0.9, 157, 0.3, 1.0
+G_BURNIN, G_KEEP, G_STEPS_PER_DRAW = 600, 600, 2
+# Gaussian kernel vs plain version: both f32, the same roundings in the
+# update; only the summation order of the 158 dependent products (and of
+# U's row sum) differs, and that difference grows about linearly over the
+# steps. Per chain, relative to each output's scale as above: 99% of chains
+# within G_TOL_BULK, every chain within G_TOL_MAX. On the diagonal precision
+# every product has one non-zero term, so z and p must be bit-equal.
+# Measured on the dense precision: 1.1e-5 and 2.4e-5.
+G_TOL_BULK = 5e-5
+G_TOL_MAX = 2e-4
+# the path against the analytic answer (mean 0, variances logspace(0, 4))
+# over 600 x 2048 draws: max |mean| / sd and max |var / variance - 1|
+# (measured 0.003 and 0.005 at a min ESS of 4e5; a kernel that integrates
+# another precision, or a biased accept test, misses by far more)
+G_MEAN_TOL = 0.02
+G_VAR_TOL = 0.03
+G_SWEEP_CHAINS = (256, 1024, 4096, 16384)
+
+# peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds below are
+# the larger of operations over the peak of their type and bytes over the
+# memory rate, each input read once and each output written once
+PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 
 def check(ok, what):
@@ -88,6 +137,88 @@ def median_ms(fns, reps=10, calls=10):
     return [float(np.median(t)) for t in times]
 
 
+def bound_ms(flop, peak, n_bytes):
+    """``(ms, "operations" or "bytes")``: the least time the card could
+    take for ``flop`` operations at ``peak`` and ``n_bytes`` of traffic."""
+    ops, mem = 1e3 * flop / peak, 1e3 * n_bytes / PEAK_BYTES
+    return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
+def glm_bound_ms(n_chains, dim, n_rows, n_leap, rt):
+    """The GLM trajectory on ``dim`` columns and ``n_rows`` data rows:
+    n_leap + 1 gradients of two bf16 products each; z, p in, z, p, U out, X
+    in bf16, y and mask (and eps, inv_mass for the run-time entry). With the
+    model's own sizes this is the work the function needs; with the padded
+    ones, the work the kernel is handed."""
+    flop = (n_leap + 1) * 2 * 2 * n_chains * dim * n_rows
+    n_bytes = 4 * (4 * n_chains * dim + n_chains) + 2 * n_rows * dim \
+        + 4 * 2 * n_rows + (4 * (dim + 1) if rt else 0)
+    return bound_ms(flop, PEAK_BF16, n_bytes)
+
+
+def gaussian_bound_ms(n_chains, dim, n_leap):
+    """The Gaussian trajectory on ``dim`` columns: n_leap + 1 f32 products
+    of the chain block with P (the potential reuses the last one); z, p in,
+    z, p, U out, P, mean and eps. Model's or padded size, as above."""
+    flop = (n_leap + 1) * 2 * n_chains * dim * dim
+    n_bytes = 4 * (4 * n_chains * dim + n_chains + dim * dim + dim + 1)
+    return bound_ms(flop, PEAK_FP32, n_bytes)
+
+
+def profile_transitions(paths):
+    """Print, for each ``(name, step, gen, state)`` of ``paths``, over
+    ``PROFILE_STEPS`` steady transitions after ``PROFILE_WARM`` warm ones:
+    the wall time of each without and with ``torch.profiler``, the card's
+    busy share, and the device time of each kernel by name. Every path is
+    timed before any is profiled: once the profiler has run in a process,
+    launches stay slower."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(step, gen, state, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for _ in range(n):
+                state, _info = step(gen, state)
+        torch.cuda.synchronize()
+        return state, time.perf_counter() - t0
+
+    timed = []
+    for name, step, gen, state in paths:
+        state, _ = run(step, gen, state, PROFILE_WARM)
+        timed.append(run(step, gen, state, PROFILE_STEPS))
+    n = PROFILE_STEPS
+    for (name, step, gen, _), (state, plain_s) in zip(paths, timed):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, prof_s = run(step, gen, state, n)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in events)
+        print(f"{name}: {n} steady transitions, {1e3 * plain_s / n:.4f} ms "
+              f"each without the profiler, {1e3 * prof_s / n:.4f} ms with "
+              f"it; device time {device_us / n:.1f} us per transition, busy "
+              f"{100 * device_us / (1e6 * prof_s):.1f}% of the profiled wall "
+              f"time ({100 * device_us / (1e6 * plain_s):.1f}% of the "
+              f"unprofiled); {sum(e.count for e in events) / n:.1f} device "
+              f"operations per transition")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"  {e.self_device_time_total / n:9.2f} us/transition "
+                  f"{e.count / n:5.1f} launches  {e.key[:90]}")
+
+
+def scaled_errors(got, want):
+    """Per-chain error of ``(z, p, U)`` relative to each output's scale,
+    and the max absolute error of z and p."""
+    (zk, pk, uk), (zp, pp, up) = got, want
+    per_chain = torch.stack([
+        (zk - zp).abs().amax(dim=1) / zp.abs().max().clamp_min(1),
+        (pk - pp).abs().amax(dim=1) / pp.abs().max().clamp_min(1),
+        (uk - up).abs() / up.abs().max()]).amax(dim=0)
+    abs_err = max(float((zk - zp).abs().max()), float((pk - pp).abs().max()))
+    return per_chain, abs_err
+
+
 def link_data(name, X, beta, rng):
     """Responses of each family for the data ``X`` and coefficients
     ``beta`` (logistic uses the data's own)."""
@@ -96,6 +227,8 @@ def link_data(name, X, beta, rng):
         y = rng.uniform(size=N_DATA) < torch.special.ndtr(eta).numpy()
     elif name == "poisson":
         y = rng.poisson(np.exp(eta.numpy()))
+    elif name == "studentt":
+        y = eta.numpy() + 0.5 * rng.standard_t(STUDENTT_NU, size=N_DATA)
     else:
         y = eta.numpy() + 0.5 * rng.standard_normal(N_DATA)
     return torch.tensor(np.asarray(y, np.float64), dtype=torch.float32,
@@ -106,8 +239,10 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from mcmc_tpu_torch import diagnostics, fused_glm_hmc, hmc, HMCSettings
-    from mcmc_tpu_torch.models import (logistic_regression_model,
+    from mcmc_tpu_torch import (diagnostics, fused_gaussian_hmc,
+                                fused_glm_hmc, hmc, HMCSettings)
+    from mcmc_tpu_torch.models import (ill_conditioned_gaussian,
+                                       logistic_regression_model,
                                        make_logistic_regression_data)
     from mcmc_tpu_torch.ops import _cuda
     from mcmc_tpu_torch.ops import fused_logreg as fl
@@ -125,18 +260,20 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_cuda.build_seconds and round(_cuda.build_seconds, 1)} s)")
     for line in _cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
     # --- kernel vs plain version, flagship shapes
-    X, y, beta = make_logistic_regression_data(0, N_DATA, DIM, device=dev)
+    X, y, beta = make_logistic_regression_data(0, N_DATA, DIM)
+    check(X.is_cuda and y.is_cuda, "data made with no device= is on the card")
     rng = np.random.default_rng(1)
     gen = torch.Generator(device=dev).manual_seed(2)
     max_abs_err, max_scaled_err, timing = 0.0, 0.0, {}
     for name in LINKS:
         yl = y if name == "logistic" else link_data(name, X, beta, rng)
+        link = fl.studentt_link(STUDENTT_NU) if name == "studentt" else name
         traj = fl.make_fused_trajectory(X, yl, PRIOR_SCALE, STEP_SIZE, N_LEAP,
-                                        link=name, device=dev)
+                                        link=link)
         dp = traj.dim_padded
         z = torch.zeros((N_CHAINS, dp), device=dev)
         p = torch.zeros((N_CHAINS, dp), device=dev)
@@ -144,18 +281,13 @@ def main():
                                               device=dev)
         p[:, :DIM] = torch.randn((N_CHAINS, DIM), generator=gen, device=dev)
         args = (traj.Xb, traj.y, traj.mask, traj.inv_pv, STEP_SIZE, N_LEAP,
-                name)
+                link)
         zk, pk, uk = fl.fused_trajectory_cuda(z, p, *args)
         zp, pp, up = fl._fused_trajectory_plain(z, p, *args)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(zk).all() and torch.isfinite(uk).all()),
               f"{name}: kernel output finite")
-        abs_err = max(float((zk - zp).abs().max()),
-                      float((pk - pp).abs().max()))
-        per_chain = torch.stack([
-            (zk - zp).abs().amax(dim=1) / zp.abs().max().clamp_min(1),
-            (pk - pp).abs().amax(dim=1) / pp.abs().max().clamp_min(1),
-            (uk - up).abs() / up.abs().max()]).amax(dim=0)
+        per_chain, abs_err = scaled_errors((zk, pk, uk), (zp, pp, up))
         err_q99 = float(torch.quantile(per_chain, 0.99))
         err_max = float(per_chain.max())
         n_off = int((per_chain > TOL_BULK).sum())
@@ -176,22 +308,27 @@ def main():
         check(pad_zero, f"{name}: padded columns exactly zero")
         max_abs_err = max(max_abs_err, abs_err)
         max_scaled_err = max(max_scaled_err, err_max)
+        if name == "logistic":   # kept for the run-time entry's phase
+            k1_inputs, k1_outputs = (z, p, args), (zk, pk, uk)
         del z, p, zk, pk, uk, zp, pp, up
 
     # --- the fused main path at full width
     n_trans = (N_BURNIN + N_KEEP) * STEPS_PER_DRAW
+    X_np, y_np = X.cpu().numpy(), y.cpu().numpy()
     fl.fused_trajectory_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = fused_glm_hmc(X, y, prior_scale=PRIOR_SCALE, step_size=STEP_SIZE,
-                        n_leap=N_LEAP, n_chains=N_CHAINS,
+    out = fused_glm_hmc(X_np, y_np, prior_scale=PRIOR_SCALE,
+                        step_size=STEP_SIZE, n_leap=N_LEAP, n_chains=N_CHAINS,
                         n_burnin_draws=N_BURNIN, n_keep_draws=N_KEEP,
-                        steps_per_draw=STEPS_PER_DRAW, key=11, device=dev)
+                        steps_per_draw=STEPS_PER_DRAW, key=11)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = fl.fused_trajectory_cuda.launches
     check(launches == n_trans, f"{launches} kernel launches for {n_trans} "
           "transitions")
+    check(out.draws.is_cuda, "draws of numpy inputs with no device= are on "
+          "the card")
     check(tuple(out.draws.shape) == (N_KEEP, N_CHAINS, DIM), "draws shape")
     check(bool(torch.isfinite(out.draws).all()), "draws finite")
     accept = float(out.diagnostics["accept_rate_per_chain"].mean())
@@ -224,15 +361,215 @@ def main():
           f"{diff:.4f} (tol {MEAN_ATOL})")
     check(diff <= MEAN_ATOL, f"hmc mean within {MEAN_ATOL} of the fused mean")
 
+    del ref
+
+    # --- the run-time-parameter entry of the GLM kernel, flagship shapes
+    (z, p, args), k1_out = k1_inputs, k1_outputs
+    Xb, yr, mask, inv_pv = args[:4]
+    dp = z.shape[1]
+    eps_t = torch.tensor(STEP_SIZE, dtype=torch.float32, device=dev)
+    im = torch.ones((dp,), device=dev)
+    im[:DIM] = torch.linspace(0.5, 2.0, DIM, device=dev)
+    rt_args = (Xb, yr, mask, inv_pv, eps_t, N_LEAP, "logistic", im)
+    got = fl.fused_trajectory_rt_cuda(z, p, *rt_args)
+    want = fl._fused_trajectory_plain(z, p, Xb, yr, mask, inv_pv, eps_t,
+                                      N_LEAP, "logistic", im)
+    one = fl.fused_trajectory_rt_cuda(z, p, Xb, yr, mask, inv_pv, eps_t,
+                                      N_LEAP, "logistic", torch.ones_like(im))
+    torch.cuda.synchronize()
+    per_chain, rt_abs_err = scaled_errors(got, want)
+    rt_q99 = float(torch.quantile(per_chain, 0.99))
+    rt_max = float(per_chain.max())
+    pad_zero = bool((got[0][:, DIM:] == 0).all() and
+                    (got[1][:, DIM:] == 0).all())
+    same = all(torch.equal(a, b) for a, b in zip(one, k1_out))
+    rt_ms, rt_plain_ms, k1_ms_again = median_ms([
+        lambda: fl.fused_trajectory_rt_cuda(z, p, *rt_args),
+        lambda: fl._fused_trajectory_plain(z, p, Xb, yr, mask, inv_pv, eps_t,
+                                           N_LEAP, "logistic", im),
+        lambda: fl.fused_trajectory_cuda(z, p, *args)])
+    print(f"K3 logistic, eps on the card, inverse mass 0.5..2: max abs error "
+          f"of z, p {rt_abs_err:.3e}; per-chain scaled error: 99th percentile "
+          f"{rt_q99:.3e} (tol {TOL_BULK:g}), max {rt_max:.3e} (tol "
+          f"{TOL_MAX:g}); padded columns zero: {pad_zero}; at inverse mass 1 "
+          f"bit-equal to K1: {same}; kernel {rt_ms:.3f} ms, plain "
+          f"{rt_plain_ms:.3f} ms, K1 beside it {k1_ms_again:.3f} ms")
+    check(rt_q99 <= TOL_BULK, f"K3: 99% of chains within {TOL_BULK}")
+    check(rt_max <= TOL_MAX, f"K3: every chain within {TOL_MAX}")
+    check(pad_zero, "K3: padded columns exactly zero")
+    check(same, "K3 at inverse mass 1 and K1's step is bit-equal to K1")
+    # its path is its factory function: a step size that lives on the card and
+    # changes between calls, no host synchronisation
+    traj_rt = fl.make_fused_trajectory_rt(X_np, y_np, PRIOR_SCALE, N_LEAP)
+    fl.fused_trajectory_rt_cuda.launches = 0
+    zc, pc = z, p
+    for _ in range(RT_CALLS):
+        zc, pc, uc = traj_rt(zc, pc, eps_t, im)
+        eps_t = eps_t * 1.01
+    torch.cuda.synchronize()
+    rt_launches = fl.fused_trajectory_rt_cuda.launches
+    check(rt_launches == RT_CALLS, f"{rt_launches} launches of K3 for "
+          f"{RT_CALLS} calls of its factory's trajectory")
+    check(bool(zc.is_cuda and torch.isfinite(zc).all() and
+               torch.isfinite(uc).all()), "K3 path output finite, on the card")
+    print(f"make_fused_trajectory_rt: {RT_CALLS} chained trajectories, "
+          f"{rt_launches} launches of K3")
+    del z, p, zc, pc, got, want, one, k1_inputs, k1_outputs, k1_out
+
+    # --- the Gaussian kernel vs its plain version, the suite's shapes
+    variances = ill_conditioned_gaussian(G_DIM, G_COND).variances
+    check(variances.is_cuda, "target made with no device= is on the card")
+    prec_np = (1.0 / variances).cpu().numpy()
+    rng = np.random.default_rng(3)
+    Q, _ = np.linalg.qr(rng.standard_normal((G_DIM, G_DIM)))
+    dense_np = (Q * prec_np.astype(np.float64)) @ Q.T
+    dense_np = 0.5 * (dense_np + dense_np.T)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g_eps = torch.tensor(G_STEP, dtype=torch.float32, device=dev)
+    g_abs_err, g_scaled_err = 0.0, 0.0
+    for name, P_np, m_np in (("diagonal", prec_np, None),
+                             ("dense", dense_np, rng.standard_normal(G_DIM))):
+        traj = fl.make_fused_gaussian_trajectory(P_np, m_np, G_STEP, G_LEAP)
+        dp = traj.dim_padded
+        z = torch.zeros((G_CHAINS, dp), device=dev)
+        p = torch.zeros((G_CHAINS, dp), device=dev)
+        z[:, :G_DIM] = G_INIT_SCALE * torch.randn((G_CHAINS, G_DIM),
+                                                  generator=gen, device=dev)
+        p[:, :G_DIM] = torch.randn((G_CHAINS, G_DIM), generator=gen,
+                                   device=dev)
+        gargs = (z, p, traj.P, traj.mean, g_eps, G_LEAP)
+        got = fl.fused_gaussian_trajectory_cuda(*gargs)
+        again = fl.fused_gaussian_trajectory_cuda(*gargs)
+        want = fl._fused_gaussian_trajectory_plain(*gargs)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in got),
+              f"K2 {name}: kernel output finite")
+        per_chain, abs_err = scaled_errors(got, want)
+        err_q99 = float(torch.quantile(per_chain, 0.99))
+        err_max = float(per_chain.max())
+        pad_zero = bool((got[0][:, G_DIM:] == 0).all() and
+                        (got[1][:, G_DIM:] == 0).all())
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        zp_equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        ms, plain_ms = median_ms([
+            lambda: fl.fused_gaussian_trajectory_cuda(*gargs),
+            lambda: fl._fused_gaussian_trajectory_plain(*gargs)])
+        print(f"K2 {name} precision: max abs error of z, p {abs_err:.3e}; "
+              f"per-chain scaled error: 99th percentile {err_q99:.3e} (tol "
+              f"{G_TOL_BULK:g}), max {err_max:.3e} (tol {G_TOL_MAX:g}); z, p "
+              f"bit-equal to plain: {zp_equal}; padded columns zero: "
+              f"{pad_zero}; two launches bit-equal: {repeat}; kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms per trajectory (median "
+              f"of 10 windows of 10 calls)")
+        check(err_q99 <= G_TOL_BULK, f"K2 {name}: 99% within {G_TOL_BULK}")
+        check(err_max <= G_TOL_MAX, f"K2 {name}: every chain within {G_TOL_MAX}")
+        check(pad_zero, f"K2 {name}: padded columns exactly zero")
+        check(repeat, f"K2 {name}: two launches bit-equal")
+        if name == "diagonal":
+            check(zp_equal, "K2 diagonal: z, p bit-equal to the plain version")
+            g_ms, g_plain_ms = ms, plain_ms
+            sweep = {}
+            for n in G_SWEEP_CHAINS:   # printed, not gated
+                zs, ps = z.repeat(-(-n // G_CHAINS), 1)[:n].contiguous(), \
+                    p.repeat(-(-n // G_CHAINS), 1)[:n].contiguous()
+                (sweep[n],) = median_ms(
+                    [lambda: fl.fused_gaussian_trajectory_cuda(
+                        zs, ps, *gargs[2:])])
+            print("K2 diagonal precision, ms per trajectory by chain count: "
+                  + ", ".join(f"{n}: {t:.4f}" for n, t in sweep.items()))
+            del zs, ps
+        g_abs_err = max(g_abs_err, abs_err)
+        g_scaled_err = max(g_scaled_err, err_max)
+        del z, p, got, again, want
+
+    # --- the Gaussian main path at full width, numpy in, no device=
+    g_trans = (G_BURNIN + G_KEEP) * G_STEPS_PER_DRAW
+    fl.fused_gaussian_trajectory_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fused_gaussian_hmc(prec_np, step_size=G_STEP, n_leap=G_LEAP,
+                             n_chains=G_CHAINS, n_burnin_draws=G_BURNIN,
+                             n_keep_draws=G_KEEP, init_scale=G_INIT_SCALE,
+                             step_jitter=G_JITTER,
+                             steps_per_draw=G_STEPS_PER_DRAW, key=20)
+    torch.cuda.synchronize()
+    g_seconds = time.perf_counter() - t0
+    g_launches = fl.fused_gaussian_trajectory_cuda.launches
+    check(g_launches == g_trans, f"{g_launches} launches of K2 for {g_trans} "
+          "transitions")
+    check(out.draws.is_cuda, "Gaussian draws are on the card")
+    check(tuple(out.draws.shape) == (G_KEEP, G_CHAINS, G_DIM),
+          "Gaussian draws shape")
+    check(bool(torch.isfinite(out.draws).all()), "Gaussian draws finite")
+    g_accept = float(out.diagnostics["accept_rate_per_chain"].mean())
+    check(0.5 < g_accept <= 1.0, f"Gaussian accept rate {g_accept} in (0.5, 1]")
+    flat = out.draws.reshape(-1, G_DIM).double()
+    mean_err = float((flat.mean(dim=0).abs() / variances.double().sqrt()).max())
+    var_err = float((flat.var(dim=0) / variances.double() - 1.0).abs().max())
+    del flat
+    g_rhat = float(diagnostics.rank_normalized_rhat(out.draws).max())
+    g_ess = float(diagnostics.ess(out.draws, chain_chunk=256).min())
+    g_rate = g_trans * G_LEAP * G_CHAINS / g_seconds
+    print(f"fused_gaussian_hmc: {G_CHAINS} chains, {g_trans} transitions of "
+          f"{G_LEAP} leapfrogs in {g_seconds:.3f} s, {g_launches} launches of "
+          f"K2; accept {g_accept:.4f}; {g_rate:.4e} leapfrog steps/s; max "
+          f"|mean|/sd {mean_err:.4f} (tol {G_MEAN_TOL}); max |var/variance "
+          f"- 1| {var_err:.4f} (tol {G_VAR_TOL}); max rank R-hat "
+          f"{g_rhat:.4f}; min ESS {g_ess:.1f} (of {G_KEEP * G_CHAINS} draws)")
+    check(mean_err <= G_MEAN_TOL, f"Gaussian mean within {G_MEAN_TOL} sd")
+    check(var_err <= G_VAR_TOL, f"Gaussian variance within {G_VAR_TOL}")
+    del out
+
+    # --- where the time of a steady transition goes (printed, not gated)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    glm_step = fl.make_fused_hmc_step(X_np, y_np, PRIOR_SCALE, STEP_SIZE,
+                                      N_LEAP)
+    g_step = fl.make_fused_gaussian_hmc_step(
+        prec_np, step_size=G_STEP, n_leap=G_LEAP, step_jitter=G_JITTER)
+    profile_transitions([   # the launch-bound one first
+        ("Gaussian transition", g_step, gen, g_step.init(
+            G_INIT_SCALE * torch.randn((G_CHAINS, G_DIM), generator=gen,
+                                       device=dev))),
+        ("GLM transition", glm_step, gen, glm_step.init(0.05 * torch.randn(
+            (N_CHAINS, DIM), generator=gen, device=dev)))])
+
+    # bounds from the model's own sizes (the work the function needs); the
+    # padded shapes the kernels are handed give the *_padded figures
     ms, plain_ms = timing["logistic"]
+    dp, n_rows = Xb.shape[1], Xb.shape[0]
+    k1_bound = glm_bound_ms(N_CHAINS, DIM, N_DATA, N_LEAP, False)
+    k3_bound = glm_bound_ms(N_CHAINS, DIM, N_DATA, N_LEAP, True)
+    k2_bound = gaussian_bound_ms(G_CHAINS, G_DIM, G_LEAP)
+    k1_padded = glm_bound_ms(N_CHAINS, dp, n_rows, N_LEAP, False)[0]
+    k3_padded = glm_bound_ms(N_CHAINS, dp, n_rows, N_LEAP, True)[0]
+    k2_padded = gaussian_bound_ms(G_CHAINS, 128, G_LEAP)[0]
+    src = "mcmc_tpu_torch/csrc/"
     print(json.dumps({"kernels": [{
         "name": "fused_glm_trajectory", "route": "cuda",
-        "source": "mcmc_tpu_torch/csrc/fused_glm_trajectory.cu",
+        "source": src + "fused_glm_trajectory.cu",
         "replaces": "mcmc_tpu/ops/fused_logreg.py:163",
         "launches": launches, "max_abs_err": max_abs_err,
         "max_scaled_err": max_scaled_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
+        "bound_ms_padded": k1_padded,
         "ms_by_link": {k: v[0] for k, v in timing.items()},
         "plain_ms_by_link": {k: v[1] for k, v in timing.items()},
+    }, {
+        "name": "fused_glm_trajectory_rt", "route": "cuda",
+        "source": src + "fused_glm_trajectory.cu",
+        "replaces": "mcmc_tpu/ops/fused_logreg.py:498",
+        "launches": rt_launches, "max_abs_err": rt_abs_err,
+        "max_scaled_err": rt_max, "ms": rt_ms, "plain_ms": rt_plain_ms,
+        "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
+        "bound_ms_padded": k3_padded,
+    }, {
+        "name": "fused_gaussian_trajectory", "route": "cuda",
+        "source": src + "fused_gaussian_trajectory.cu",
+        "replaces": "mcmc_tpu/ops/fused_logreg.py:330",
+        "launches": g_launches, "max_abs_err": g_abs_err,
+        "max_scaled_err": g_scaled_err, "ms": g_ms, "plain_ms": g_plain_ms,
+        "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None,
+        "bound_ms_padded": k2_padded,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

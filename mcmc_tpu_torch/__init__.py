@@ -10,11 +10,16 @@ One API difference: user log-kernels are batched,
 ``log_kernel(theta: (n_chains, d)) -> (n_chains,)``; gradients come from
 ``torch.autograd.grad`` of the sum.
 
-Ported so far: the fused-HMC logistic-regression path (``fused_glm_hmc``,
-``ops.make_fused_hmc_step``, whose trajectory is one hand-written CUDA
-kernel on the card), the generic ``hmc`` it is checked against, and the
-R-hat/ESS diagnostics. The CUDA kernel is built at its first launch, so this
-package imports without CUDA, nvcc or Triton.
+Ported so far: the fused-HMC paths (``fused_glm_hmc`` on GLM posteriors,
+``fused_gaussian_hmc`` on multivariate Gaussians, and the ``ops.make_fused_*``
+factories, whose trajectories are hand-written CUDA kernels on the card), the
+generic ``hmc`` they are checked against, and the R-hat/ESS diagnostics.
+The CUDA kernels are built at their first launch, so this package imports
+without CUDA, nvcc or Triton.
+
+Entry points run on the card: with no ``device=`` and no tensor argument
+they allocate on ``torch.device("cuda")`` and raise where there is none.
+Pass ``device="cpu"`` (or CPU tensors) to run on the CPU.
 """
 
 from mcmc_tpu_torch.settings import (
@@ -45,7 +50,7 @@ from mcmc_tpu_torch.settings import (
 )
 from mcmc_tpu_torch.results import SamplerResult
 from mcmc_tpu_torch.samplers.hmc import hmc
-from mcmc_tpu_torch.ops.fused_sampler import fused_glm_hmc
+from mcmc_tpu_torch.ops.fused_sampler import fused_glm_hmc, fused_gaussian_hmc
 from mcmc_tpu_torch import diagnostics, models
 
 __all__ = [
@@ -55,5 +60,6 @@ __all__ = [
     "SMCSettings", "StretchSettings", "SGLDSettings", "SGHMCSettings",
     "EllipticalSettings", "SliceSettings", "GibbsSettings", "MCLMCSettings",
     "MAMSSettings", "EvidenceSettings", "BarkerSettings", "MMALASettings",
-    "SamplerResult", "hmc", "fused_glm_hmc", "diagnostics", "models",
+    "SamplerResult", "hmc", "fused_glm_hmc", "fused_gaussian_hmc",
+    "diagnostics", "models",
 ]

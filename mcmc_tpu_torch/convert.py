@@ -2,7 +2,8 @@
 
 Each function takes arrays as the JAX package holds them — any object
 ``numpy.asarray`` accepts, so a JAX array works without this package
-importing JAX — and returns the port's tensors on ``device``.
+importing JAX — and returns the port's tensors on ``device`` (default: the
+card; the CPU for callers that pass ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -12,15 +13,18 @@ import torch
 
 from mcmc_tpu_torch import adaptation
 from mcmc_tpu_torch.ops.fused_logreg import FusedHMCState
+from mcmc_tpu_torch.samplers._resolve import resolve_device
 from mcmc_tpu_torch.samplers.hmc import HMCState
 
-__all__ = ["to_tensor", "glm_data", "fused_state", "hmc_state"]
+__all__ = ["to_tensor", "glm_data", "gaussian_target", "fused_state",
+           "hmc_state"]
 
 
 def to_tensor(a, device=None, dtype=None):
     """One array as a tensor on ``device``, keeping its dtype unless
     ``dtype`` is given."""
-    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    return torch.tensor(np.asarray(a), dtype=dtype,
+                        device=resolve_device(device))
 
 
 def glm_data(X, y, device=None):
@@ -29,10 +33,26 @@ def glm_data(X, y, device=None):
             to_tensor(y, device, torch.float32))
 
 
+def gaussian_target(precision, mean=None, device=None):
+    """A Gaussian target ``N(mean, P^{-1})`` as float32 tensors ``(precision,
+    mean)`` for the fused Gaussian factories: ``precision`` ``(dim, dim)`` or
+    a ``(dim,)`` diagonal, kept in the shape given (the factories pad it);
+    ``mean`` ``(dim,)``, or ``None``, which stays ``None`` (zero mean)."""
+    P = to_tensor(precision, device, torch.float32)
+    if P.ndim not in (1, 2) or (P.ndim == 2 and P.shape[0] != P.shape[1]):
+        raise ValueError(f"precision must be (dim, dim) or (dim,), got "
+                         f"{tuple(P.shape)}")
+    m = None if mean is None else to_tensor(mean, device, torch.float32)
+    if m is not None and tuple(m.shape) != (P.shape[0],):
+        raise ValueError(f"mean must be ({P.shape[0]},), got {tuple(m.shape)}")
+    return P, m
+
+
 def fused_state(position, potential, dim_padded, device=None) -> FusedHMCState:
     """A fused HMC state from positions ``(n_chains, dim)`` or already
     padded ``(n_chains, dim_padded)`` and potentials ``(n_chains,)``; the
     position is zero-padded to ``dim_padded`` columns."""
+    device = resolve_device(device)
     pos = to_tensor(position, device, torch.float32)
     if pos.shape[1] > dim_padded:
         raise ValueError(f"position has {pos.shape[1]} columns, more than "

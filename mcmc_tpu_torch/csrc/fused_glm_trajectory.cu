@@ -1,8 +1,18 @@
 // Fused HMC leapfrog trajectory on a GLM posterior, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel of mcmc_tpu/ops/fused_logreg.py
-// (make_fused_trajectory: kernel body :163-199, pallas_call :215). It
-// computes exactly what that kernel computes, for each chain: n_leap
+// Replaces two TPU kernels of mcmc_tpu/ops/fused_logreg.py with one body:
+// make_fused_trajectory (kernel body :163-199, pallas_call :215), and
+// make_fused_trajectory_rt (kernel body :498-535, pallas_call :551), which
+// is the same trajectory with the step size read at run time and a
+// diagonal inverse mass in the drift, z += eps * (inv_mass * p). The
+// template flag RT selects the second: eps then comes from a device
+// pointer, so a caller that adapts it on the device never synchronises
+// with the host, and inv_mass is a (dim_padded,) row. Without the flag the
+// step size is a launch argument and the drift is z += eps * p; since
+// 1.0f * p is exact, the RT kernel at inv_mass = 1 and the same eps gives
+// the same bits.
+//
+// It computes exactly what those kernels compute, for each chain: n_leap
 // leapfrog steps with a N(0, s^2) prior, the boundary gradient carried
 // between steps (n_leap + 1 gradient evaluations), each gradient
 //     eta = bf16(z) . X^T          (f32 accumulation)
@@ -55,7 +65,9 @@ constexpr int kRowTile = 64;  // data rows per streamed tile of X
 constexpr int kSkewH = 8;     // bf16 row padding (16 B) against bank conflicts
 constexpr int kSkewF = 4;     // f32 row padding (16 B)
 
-enum Link : int { kLogistic = 0, kPoisson = 1, kLinear = 2, kProbit = 3 };
+enum Link : int {
+  kLogistic = 0, kPoisson = 1, kLinear = 2, kProbit = 3, kStudentT = 4
+};
 
 // Shared-memory layout and work split of one block: BC chains, DP padded
 // dimensions. Every region starts on a 32-byte boundary, as WMMA requires.
@@ -110,9 +122,10 @@ __device__ __forceinline__ float erf_poly(float x) {
 }
 
 // y - mu_eff of the link, and the per-datum log-likelihood in *ll
-// (fused_logreg.py _link_eval_fns: d ll / d eta = y - mu_eff).
-__device__ __forceinline__ float link_residual(int link, float eta, float y,
-                                               float* ll) {
+// (fused_logreg.py _link_eval_fns: d ll / d eta = y - mu_eff). `nu` is the
+// Student-t link's degrees of freedom and unused by the others.
+__device__ __forceinline__ float link_residual(int link, float nu, float eta,
+                                               float y, float* ll) {
   if (link == kLogistic) {
     const float mu = 1.0f / (1.0f + expf(-eta));
     const float softplus = fmaxf(eta, 0.0f) + log1pf(expf(-fabsf(eta)));
@@ -136,6 +149,14 @@ __device__ __forceinline__ float link_residual(int link, float eta, float y,
     const float mu = y - score;
     return y - mu;
   }
+  if (link == kStudentT) {
+    // y | eta ~ t_nu(eta, 1) (fused_logreg.py studentt_link :119-123)
+    const float r = y - eta;
+    const float score = (nu + 1.0f) * r / (nu + r * r);
+    *ll = -0.5f * (nu + 1.0f) * log1pf(r * r / nu);
+    const float mu = y - score;
+    return y - mu;
+  }
   const float d = y - eta;  // linear
   *ll = -0.5f * (d * d);
   return d;
@@ -147,7 +168,8 @@ template <int BC, int DP>
 __device__ void gradient(const bf16* __restrict__ X,
                          const float* __restrict__ y,
                          const float* __restrict__ mask, int n_rows, int link,
-                         bool want_u, unsigned char* smem, float* ll_part) {
+                         float nu, bool want_u, unsigned char* smem,
+                         float* ll_part) {
   using C = Cfg<BC, DP>;
   const bf16* zb_s = reinterpret_cast<const bf16*>(smem + C::ZB);
   bf16* x_s = reinterpret_cast<bf16*>(smem + C::XT);
@@ -215,7 +237,8 @@ __device__ void gradient(const bf16* __restrict__ X,
       const int col = lq + i * C::TPC;
       const float mv = m_s[col];
       float ll;
-      const float r = link_residual(link, e_s[lc * C::LDE + col], y_s[col], &ll);
+      const float r =
+          link_residual(link, nu, e_s[lc * C::LDE + col], y_s[col], &ll);
       r_s[lc * C::LDR + col] = __float2bfloat16_rn(r * mv);
       if (want_u) *ll_part += mv * ll;
     }
@@ -246,18 +269,22 @@ __device__ void gradient(const bf16* __restrict__ X,
   __syncthreads();
 }
 
-template <int BC, int DP>
+// RT: eps is read from eps_ptr and the drift carries inv_mass; otherwise
+// both pointers are unused and half_eps, eps are the launch's own.
+template <int BC, int DP, bool RT>
 __global__ void __launch_bounds__(kThreads, (Cfg<BC, DP>::BLOCKS_PER_SM))
     fused_glm_trajectory_kernel(const float* __restrict__ z_in,
                                 const float* __restrict__ p_in,
                                 const bf16* __restrict__ X,
                                 const float* __restrict__ y,
                                 const float* __restrict__ mask,
+                                const float* __restrict__ eps_ptr,
+                                const float* __restrict__ inv_mass,
                                 float* __restrict__ z_out,
                                 float* __restrict__ p_out,
                                 float* __restrict__ u_out, int n_chains,
                                 int n_rows, int n_leap, float half_eps,
-                                float eps, float inv_pv, int link) {
+                                float eps, float inv_pv, int link, float nu) {
   using C = Cfg<BC, DP>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* z_s = reinterpret_cast<float*>(smem + C::Z);
@@ -268,6 +295,10 @@ __global__ void __launch_bounds__(kThreads, (Cfg<BC, DP>::BLOCKS_PER_SM))
   const int tid = threadIdx.x;
   const int c0 = blockIdx.x * BC;
   const int n_here = min(BC, n_chains - c0);
+  if (RT) {
+    eps = *eps_ptr;
+    half_eps = 0.5f * eps;
+  }
 
   for (int e = tid; e < BC * DP; e += kThreads) {
     const int r = e / DP, c = e % DP;
@@ -281,20 +312,20 @@ __global__ void __launch_bounds__(kThreads, (Cfg<BC, DP>::BLOCKS_PER_SM))
   __syncthreads();
 
   float ll_part = 0.0f;
-  gradient<BC, DP>(X, y, mask, n_rows, link, false, smem, &ll_part);
+  gradient<BC, DP>(X, y, mask, n_rows, link, nu, false, smem, &ll_part);
   for (int k = 0; k < n_leap; ++k) {
     // half kick with the carried gradient, then drift
     for (int e = tid; e < BC * DP; e += kThreads) {
       const int r = e / DP, c = e % DP;
       const float g = g_s[r * C::LDG + c] - z_s[e] * inv_pv;
       const float p = p_s[e] + half_eps * g;
-      const float z = z_s[e] + eps * p;
+      const float z = z_s[e] + eps * (RT ? inv_mass[c] * p : p);
       p_s[e] = p;
       z_s[e] = z;
       zb_s[r * C::LDZ + c] = __float2bfloat16_rn(z);
     }
     __syncthreads();
-    gradient<BC, DP>(X, y, mask, n_rows, link, k == n_leap - 1, smem,
+    gradient<BC, DP>(X, y, mask, n_rows, link, nu, k == n_leap - 1, smem,
                      &ll_part);
     // second half kick; each thread touches only its own elements
     for (int e = tid; e < BC * DP; e += kThreads) {
@@ -329,13 +360,14 @@ __global__ void __launch_bounds__(kThreads, (Cfg<BC, DP>::BLOCKS_PER_SM))
   }
 }
 
-template <int BC, int DP>
+template <int BC, int DP, bool RT>
 cudaError_t launch(const void* z, const void* p, const void* X, const void* y,
-                   const void* mask, void* z_out, void* p_out, void* u_out,
-                   int n_chains, int n_rows, int n_leap, float half_eps,
-                   float eps, float inv_pv, int link, cudaStream_t stream) {
+                   const void* mask, const void* eps_ptr, const void* inv_mass,
+                   void* z_out, void* p_out, void* u_out, int n_chains,
+                   int n_rows, int n_leap, float half_eps, float eps,
+                   float inv_pv, int link, float nu, cudaStream_t stream) {
   using C = Cfg<BC, DP>;
-  auto kernel = fused_glm_trajectory_kernel<BC, DP>;
+  auto kernel = fused_glm_trajectory_kernel<BC, DP, RT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::BYTES);
   if (err != cudaSuccess) return err;
@@ -343,10 +375,33 @@ cudaError_t launch(const void* z, const void* p, const void* X, const void* y,
   kernel<<<grid, kThreads, C::BYTES, stream>>>(
       static_cast<const float*>(z), static_cast<const float*>(p),
       static_cast<const bf16*>(X), static_cast<const float*>(y),
-      static_cast<const float*>(mask), static_cast<float*>(z_out),
+      static_cast<const float*>(mask), static_cast<const float*>(eps_ptr),
+      static_cast<const float*>(inv_mass), static_cast<float*>(z_out),
       static_cast<float*>(p_out), static_cast<float*>(u_out), n_chains, n_rows,
-      n_leap, half_eps, eps, inv_pv, link);
+      n_leap, half_eps, eps, inv_pv, link, nu);
   return cudaGetLastError();
+}
+
+template <bool RT>
+int dispatch(const void* z, const void* p, const void* X, const void* y,
+             const void* mask, const void* eps_ptr, const void* inv_mass,
+             void* z_out, void* p_out, void* u_out, int n_chains, int n_rows,
+             int dim_padded, int n_leap, float half_eps, float eps,
+             float inv_pv, int link, float nu, void* stream) {
+  if (n_chains < 1 || n_rows < kRowTile || n_rows % kRowTile != 0 ||
+      n_leap < 1 || link < kLogistic || link > kStudentT ||
+      (link == kStudentT && !(nu > 0.0f)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dim_padded == 128)
+    return (int)launch<32, 128, RT>(z, p, X, y, mask, eps_ptr, inv_mass, z_out,
+                                    p_out, u_out, n_chains, n_rows, n_leap,
+                                    half_eps, eps, inv_pv, link, nu, s);
+  if (dim_padded == 256)
+    return (int)launch<32, 256, RT>(z, p, X, y, mask, eps_ptr, inv_mass, z_out,
+                                    p_out, u_out, n_chains, n_rows, n_leap,
+                                    half_eps, eps, inv_pv, link, nu, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -354,25 +409,29 @@ cudaError_t launch(const void* z, const void* p, const void* X, const void* y,
 // Launch one fused trajectory on `stream`. z, p, z_out, p_out:
 // (n_chains, dim_padded) f32; X: (n_rows, dim_padded) bf16; y, mask:
 // (n_rows,) f32; u_out: (n_chains,) f32; all contiguous on the device.
-// Returns the CUDA error code of the launch (0 on success).
+// link_param is nu for the Student-t link (link 4). Returns the CUDA error
+// code of the launch (0 on success).
 extern "C" int fused_glm_trajectory_launch(
     const void* z, const void* p, const void* X, const void* y,
     const void* mask, void* z_out, void* p_out, void* u_out, int n_chains,
     int n_rows, int dim_padded, int n_leap, float half_eps, float eps,
-    float inv_pv, int link, void* stream) {
-  if (n_chains < 1 || n_rows < kRowTile || n_rows % kRowTile != 0 ||
-      n_leap < 1 || link < kLogistic || link > kProbit)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dim_padded == 128)
-    return (int)launch<32, 128>(z, p, X, y, mask, z_out, p_out, u_out,
-                                n_chains, n_rows, n_leap, half_eps, eps,
-                                inv_pv, link, s);
-  if (dim_padded == 256)
-    return (int)launch<32, 256>(z, p, X, y, mask, z_out, p_out, u_out,
-                                n_chains, n_rows, n_leap, half_eps, eps,
-                                inv_pv, link, s);
-  return (int)cudaErrorInvalidValue;
+    float inv_pv, int link, float link_param, void* stream) {
+  return dispatch<false>(z, p, X, y, mask, nullptr, nullptr, z_out, p_out,
+                         u_out, n_chains, n_rows, dim_padded, n_leap, half_eps,
+                         eps, inv_pv, link, link_param, stream);
+}
+
+// The same with run-time parameters: eps points to one f32 on the device,
+// inv_mass to a (dim_padded,) f32 row; the drift is z += eps * (inv_mass * p).
+extern "C" int fused_glm_trajectory_rt_launch(
+    const void* z, const void* p, const void* X, const void* y,
+    const void* mask, void* z_out, void* p_out, void* u_out, const void* eps,
+    const void* inv_mass, int n_chains, int n_rows, int dim_padded, int n_leap,
+    float inv_pv, int link, float link_param, void* stream) {
+  if (eps == nullptr || inv_mass == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch<true>(z, p, X, y, mask, eps, inv_mass, z_out, p_out, u_out,
+                        n_chains, n_rows, dim_padded, n_leap, 0.0f, 0.0f,
+                        inv_pv, link, link_param, stream);
 }
 
 extern "C" const char* fused_glm_error_string(int code) {

@@ -7,10 +7,15 @@ Log-kernels here are batched: ``log_kernel(theta: (n_chains, d)) ->
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
-__all__ = ["make_logistic_regression_data", "logistic_regression_model"]
+from mcmc_tpu_torch.samplers._resolve import resolve_device
+
+__all__ = ["make_logistic_regression_data", "logistic_regression_model",
+           "ill_conditioned_gaussian"]
 
 
 def make_logistic_regression_data(seed: int, n_data: int, dim: int,
@@ -19,8 +24,9 @@ def make_logistic_regression_data(seed: int, n_data: int, dim: int,
     made with numpy from ``seed`` so that both packages can be handed the
     same data: ``X ~ N(0, 1/dim)``, ``beta_true ~ N(0, 1)``,
     ``y ~ Bernoulli(sigmoid(X beta_true))``. Returns ``(X, y, beta_true)``
-    as tensors on ``device``. (The JAX package draws the same
+    as tensors on ``device`` (default: the card). (The JAX package draws the same
     distributions from a JAX key, so its numbers differ.)"""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     X = rng.standard_normal((n_data, dim)) / np.sqrt(dim)
     beta_true = rng.standard_normal(dim)
@@ -43,4 +49,20 @@ def logistic_regression_model(X, y, prior_scale=10.0):
         lp = -0.5 * (beta ** 2).sum(dim=-1) / prior_scale ** 2
         return ll + lp
 
+    return log_kernel
+
+
+def ill_conditioned_gaussian(dim: int, condition_number: float = 1e4,
+                             dtype=torch.float32, device=None):
+    """Zero-mean Gaussian with log-spaced marginal variances spanning the
+    given condition number, the suite's stress target. The batched
+    log-kernel carries them as ``.variances`` (on ``device``, default: the
+    card)."""
+    variances = torch.logspace(0.0, math.log10(condition_number), dim,
+                               dtype=dtype, device=resolve_device(device))
+
+    def log_kernel(x):
+        return -0.5 * (x * x / variances).sum(dim=-1)
+
+    log_kernel.variances = variances
     return log_kernel

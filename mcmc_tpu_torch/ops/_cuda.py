@@ -1,12 +1,13 @@
 """Build and bind the package's CUDA kernels.
 
-The sources under ``mcmc_tpu_torch/csrc`` are compiled with ``nvcc`` for
-Hopper (``sm_90a``) into a shared library with a plain C interface, at first
-use, into ``build/mcmc_tpu_torch/`` beside the package (a directory
-``.gitignore`` lists). The library's file name carries a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
-loaded as built. The library is bound with ``ctypes``: pointers and the
-stream travel as ``c_void_p``.
+Every source under ``mcmc_tpu_torch/csrc`` is compiled with ``nvcc`` for
+Hopper (``sm_90a``), one compiler process per source and all started
+together, and the objects are linked into one shared library with a plain C
+interface, at first use, into ``build/mcmc_tpu_torch/`` beside the package
+(a directory ``.gitignore`` lists). The library's file name carries a hash
+of all sources and the flags, so an edited source is rebuilt and an
+unchanged tree is loaded as built. The library is bound with ``ctypes``:
+pointers and the stream travel as ``c_void_p``.
 
 Nothing here runs at import: :func:`load` builds and loads on first call.
 """
@@ -22,15 +23,18 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["load", "build", "DIM_PADDED", "build_seconds", "build_log"]
+__all__ = ["load", "build", "sources", "DIM_PADDED", "GAUSSIAN_DIM_PADDED",
+           "build_seconds", "build_log"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fused_glm_trajectory.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "mcmc_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v"]
-# padded model widths the kernel is instantiated for (csrc: launch)
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v"]
+# padded model widths the GLM kernel is instantiated for (csrc: launch)
 DIM_PADDED = (128, 256)
+# padded width the Gaussian kernel is instantiated for
+GAUSSIAN_DIM_PADDED = (128,)
 
 _lib = None
 build_seconds = None   # wall time of the build this process ran, if any
@@ -50,32 +54,48 @@ def _nvcc() -> str:
     return found
 
 
+def sources():
+    """The kernel sources, in a fixed order."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def build() -> Path:
-    """Compile the kernel library if no build of this source exists;
-    return its path. The compile writes to a temporary name and renames,
-    so a concurrent process never loads a half-written library."""
+    """Compile the kernel library if no build of these sources exists;
+    return its path. The link writes to a temporary name and renames, so a
+    concurrent process never loads a half-written library."""
     global build_seconds, build_log
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"fused_glm_trajectory-{tag}.so"
+    srcs = sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in srcs:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    out = BUILD_DIR / f"kernels-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in srcs]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        for src, p, log in zip(srcs, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}) on "
+                                   f"{src.name}:\n{log}")
+        lib = Path(tmp) / "kernels.so"
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(lib),
+             *map(str, objs)],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(lib, out)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(logs)
     return out
 
 
@@ -85,8 +105,20 @@ def load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # z, p, X, y, mask, z_out, p_out, u_out; n_chains, n_rows,
+        # dim_padded, n_leap; half_eps, eps, inv_pv; link, link_param; stream
         fn = lib.fused_glm_trajectory_launch
-        fn.argtypes = [vp] * 8 + [ci] * 4 + [cf] * 3 + [ci, vp]
+        fn.argtypes = [vp] * 8 + [ci] * 4 + [cf] * 3 + [ci, cf, vp]
+        fn.restype = ci
+        # the same with eps and inv_mass as device pointers in place of
+        # half_eps, eps
+        fn = lib.fused_glm_trajectory_rt_launch
+        fn.argtypes = [vp] * 8 + [vp, vp] + [ci] * 4 + [cf] + [ci, cf, vp]
+        fn.restype = ci
+        # z, p, P, mean, eps, z_out, p_out, u_out; n_chains, dim_padded,
+        # n_leap; stream
+        fn = lib.fused_gaussian_trajectory_launch
+        fn.argtypes = [vp] * 8 + [ci] * 3 + [vp]
         fn.restype = ci
         lib.fused_glm_error_string.argtypes = [ci]
         lib.fused_glm_error_string.restype = ctypes.c_char_p

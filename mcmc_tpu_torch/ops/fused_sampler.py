@@ -1,14 +1,15 @@
-"""Sampler-surface entry points for the fused HMC step (PyTorch port of
+"""Sampler-surface entry points for the fused HMC steps (PyTorch port of
 ``mcmc_tpu.ops.fused_sampler``).
 
-:mod:`mcmc_tpu_torch.ops.fused_logreg` provides a batched HMC transition
-whose whole leapfrog trajectory runs in one kernel. These wrappers put it
+:mod:`mcmc_tpu_torch.ops.fused_logreg` provides batched HMC transitions
+whose whole leapfrog trajectory runs in one kernel. These wrappers put them
 behind the standard entry-point contract — burn-in + keep loop,
 ``SamplerResult`` with draws ``(n_keep, n_chains, dim)`` and acceptance.
 
-The fused step is fixed-step/fixed-trajectory (reference src/hmc.cpp
+The fused steps are fixed-step/fixed-trajectory (reference src/hmc.cpp
 semantics: constant ``step_size``/``n_leap_steps``); there is no warmup
-adaptation here.
+adaptation here. They run on the card unless the caller passes
+``device="cpu"`` or CPU tensors.
 """
 
 from __future__ import annotations
@@ -17,16 +18,17 @@ import torch
 
 from mcmc_tpu_torch.results import SamplerResult
 from mcmc_tpu_torch.settings import AlgoSettings
-from mcmc_tpu_torch.samplers._resolve import resolve_key
-from mcmc_tpu_torch.ops.fused_logreg import make_fused_hmc_step
+from mcmc_tpu_torch.samplers._resolve import resolve_device, resolve_key
+from mcmc_tpu_torch.ops.fused_logreg import (
+    make_fused_hmc_step, make_fused_gaussian_hmc_step)
 
-__all__ = ["fused_glm_hmc", "run_fused_step"]
+__all__ = ["fused_glm_hmc", "fused_gaussian_hmc", "run_fused_step"]
 
 
 def run_fused_step(step, positions, n_burnin, n_keep, gen,
                    steps_per_draw: int = 1) -> SamplerResult:
     """Loop a fused batched HMC ``step`` (``step(gen, state)``, the
-    ``make_fused_hmc_step`` contract) over ``n_burnin`` discarded +
+    ``make_fused_*_hmc_step`` contract) over ``n_burnin`` discarded +
     ``n_keep`` kept draws; ``steps_per_draw=k`` thins by k transitions per
     stored row (acceptance is that of each row's last transition). Returns
     draws trimmed to the model dim (padding columns dropped)."""
@@ -63,18 +65,44 @@ def fused_glm_hmc(X, y, *, link="logistic", prior_scale=10.0, step_size=0.05,
     """Fused-trajectory HMC on a GLM posterior ``y | X beta ~ family(link)``
     with a ``N(0, prior_scale^2)`` prior — logistic / poisson / linear /
     probit built in, :func:`mcmc_tpu_torch.ops.fused_logreg.studentt_link`
-    (or any callable link) pluggable on CPU tensors. ``key`` is a
+    built in as well; any other callable link pluggable on CPU tensors.
+    ``key`` is a
     ``torch.Generator`` or an integer seed (``None``: seed 0); it draws the
     initial positions ``init_scale * N(0, 1)`` and then every transition.
-    ``device`` defaults to ``X``'s; on a CUDA device every trajectory is one
-    launch of the fused kernel."""
-    if device is None:
-        device = X.device if torch.is_tensor(X) else "cpu"
+    ``device`` defaults to ``X``'s when it is a tensor, else the card; on a
+    CUDA device every trajectory is one launch of the fused kernel."""
+    device = resolve_device(device, X)
     gen = resolve_key(key, AlgoSettings(), device)
     step = make_fused_hmc_step(X, y, prior_scale=prior_scale,
                                step_size=step_size, n_leap=n_leap,
                                block_chains=block_chains, link=link,
                                device=device)
+    pos0 = init_scale * torch.randn((n_chains, step.dim), generator=gen,
+                                    dtype=torch.float32, device=device)
+    return run_fused_step(step, pos0, n_burnin_draws, n_keep_draws, gen,
+                          steps_per_draw)
+
+
+def fused_gaussian_hmc(precision, mean=None, *, step_size=0.5, n_leap=32,
+                       n_chains=2048, n_burnin_draws=500, n_keep_draws=1000,
+                       init_scale=0.05, key=None, block_chains=256,
+                       steps_per_draw=1, step_jitter=0.2,
+                       device=None) -> SamplerResult:
+    """Fused-trajectory HMC on a multivariate Gaussian ``N(mean, P^{-1})``
+    given the precision ``P`` (dense or diagonal), all f32: the engine for
+    the ill-conditioned stress target, where long jittered-step trajectories
+    carry the slow directions (``step_jitter`` breaks the fixed-angle
+    resonances an exactly quadratic target otherwise hits, see
+    :func:`mcmc_tpu_torch.ops.fused_logreg.make_fused_gaussian_hmc_step`).
+    ``key`` and ``device`` as in :func:`fused_glm_hmc` (``device`` defaults
+    to ``precision``'s when it is a tensor, else the card)."""
+    device = resolve_device(device, precision)
+    gen = resolve_key(key, AlgoSettings(), device)
+    step = make_fused_gaussian_hmc_step(precision, mean, step_size=step_size,
+                                        n_leap=n_leap,
+                                        block_chains=block_chains,
+                                        step_jitter=step_jitter,
+                                        device=device)
     pos0 = init_scale * torch.randn((n_chains, step.dim), generator=gen,
                                     dtype=torch.float32, device=device)
     return run_fused_step(step, pos0, n_burnin_draws, n_keep_draws, gen,

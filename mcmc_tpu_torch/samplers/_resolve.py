@@ -6,7 +6,21 @@ import torch
 
 from mcmc_tpu_torch.settings import AlgoSettings
 
-__all__ = ["resolve_settings", "resolve_key"]
+__all__ = ["resolve_settings", "resolve_key", "resolve_device"]
+
+
+def resolve_device(device, *args) -> torch.device:
+    """The device an entry point runs on: an explicit ``device`` wins; else
+    the device of the first of ``args`` that is a tensor; else the card,
+    ``torch.device("cuda")``. The CPU is never a default: callers ask for it
+    with ``device="cpu"`` or by passing CPU tensors, and on a machine
+    without a card the first allocation raises torch's own error."""
+    if device is not None:
+        return torch.device(device)
+    for a in args:
+        if torch.is_tensor(a):
+            return a.device
+    return torch.device("cuda")
 
 
 def resolve_settings(settings, attr_name, per_algo_cls):

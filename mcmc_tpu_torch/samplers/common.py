@@ -18,6 +18,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from mcmc_tpu_torch import bounds as bounds_mod
+from mcmc_tpu_torch.samplers._resolve import resolve_device
 
 __all__ = ["SPD", "make_spd", "Problem", "setup_problem", "run_sampler_loop",
            "tally_accepts", "thin_step", "attach_resume", "finalize_draws"]
@@ -111,7 +112,7 @@ def setup_problem(initial_vals, log_kernel, algo, n_chains: Optional[int],
 
     ``log_kernel`` is batched: ``(n_chains, n_vals) -> (n_chains,)``.
     ``device`` defaults to that of ``initial_vals`` when it is a tensor,
-    else the CPU; ``dtype`` defaults to float32 unless ``initial_vals`` is
+    else the card (:func:`resolve_device`); ``dtype`` defaults to float32 unless ``initial_vals`` is
     already a floating tensor."""
     if callable(initial_vals) and not hasattr(initial_vals, "__array__"):
         raise TypeError(
@@ -125,9 +126,7 @@ def setup_problem(initial_vals, log_kernel, algo, n_chains: Optional[int],
         dtype = initial_vals.dtype if (torch.is_tensor(initial_vals) and
                                        initial_vals.is_floating_point()) \
             else torch.float32
-    if device is None:
-        device = initial_vals.device if torch.is_tensor(initial_vals) else "cpu"
-    device = torch.device(device)
+    device = resolve_device(device, initial_vals)
     try:
         x0 = torch.as_tensor(initial_vals, dtype=dtype, device=device)
     except (TypeError, ValueError, RuntimeError) as e:

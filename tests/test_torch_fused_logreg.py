@@ -14,6 +14,11 @@ more in p, so these tolerances catch it where 1e-3 would not.
 
 The CUDA kernel itself is held against this plain version on the card in
 tests/test_torch_kernels_cuda.py.
+
+The run-time-parameter trajectory (``make_fused_trajectory_rt``: step size
+and diagonal inverse mass at call time) is held to the same tolerances
+against the JAX package's, and at inverse mass 1 to the bits of the
+fixed-step trajectory.
 """
 
 import jax.numpy as jnp
@@ -66,7 +71,7 @@ def test_trajectory_matches_pallas(name):
     jlink, tlink = _links(name)
     jtraj = jfl.make_fused_trajectory(X, y, 10.0, EPS, L, block_chains=8,
                                       interpret=True, link=jlink)
-    Xt, yt = convert.glm_data(X, y)
+    Xt, yt = convert.glm_data(X, y, "cpu")
     ttraj = tfl.make_fused_trajectory(Xt, yt, 10.0, EPS, L, block_chains=8,
                                       link=tlink)
     assert ttraj.dim_padded == jtraj.dim_padded
@@ -93,12 +98,12 @@ def test_init_matches_reference_potential(name):
     pos = pos.astype(np.float32)
     jstep = jfl.make_fused_hmc_step(X, y, step_size=EPS, n_leap=L,
                                     block_chains=8, interpret=True, link=jlink)
-    Xt, yt = convert.glm_data(X, y)
+    Xt, yt = convert.glm_data(X, y, "cpu")
     tstep = tfl.make_fused_hmc_step(Xt, yt, step_size=EPS, n_leap=L,
                                     block_chains=8, link=tlink)
     js = jstep.init(jnp.asarray(pos))
     carried = convert.fused_state(js.position, js.potential,
-                                  tstep.dim_padded)
+                                  tstep.dim_padded, "cpu")
     ts = tstep.init(torch.from_numpy(pos))
     np.testing.assert_allclose(ts.potential.numpy(), np.asarray(js.potential),
                                rtol=1e-5)
@@ -106,18 +111,23 @@ def test_init_matches_reference_potential(name):
 
 
 def test_callable_link_has_no_kernel():
-    """A callable link raises on the kernel path instead of falling back."""
-    X, y = convert.glm_data(*_data("linear"))
+    """A callable link the kernel does not know raises on the kernel path
+    instead of falling back; ``studentt_link`` is known by its code."""
+    X, y = convert.glm_data(*_data("linear"), "cpu")
     z, p = (torch.from_numpy(a) for a in _state(128))
     with pytest.raises(NotImplementedError, match="callable link"):
         tfl.fused_trajectory_cuda(z, p, X, y, y, 0.01, EPS, L,
-                                  tfl.studentt_link(4.0))
+                                  lambda eta, yv: (eta, -0.5 * (yv - eta) ** 2))
+    assert tfl._link_code(tfl.studentt_link(4.0)) == (4, 4.0)
+    assert tfl._link_code("probit") == (3, 0.0)
+    with pytest.raises(ValueError, match="nu must be positive"):
+        tfl.studentt_link(0.0)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     """The kernel wrapper takes CUDA tensors only; on the CPU the dispatcher
     runs the plain version."""
-    X, y = convert.glm_data(*_data("logistic"))
+    X, y = convert.glm_data(*_data("logistic"), "cpu")
     traj = tfl.make_fused_trajectory(X, y, 10.0, EPS, L, block_chains=8)
     z, p = (torch.from_numpy(a) for a in _state(128))
     args = (traj.Xb, traj.y, traj.mask, traj.inv_pv, EPS, L, "logistic")
@@ -129,8 +139,79 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_block_chains_must_divide_chains():
-    X, y = convert.glm_data(*_data("logistic"))
+    X, y = convert.glm_data(*_data("logistic"), "cpu")
     traj = tfl.make_fused_trajectory(X, y, 10.0, EPS, L, block_chains=8)
     z, p = (torch.from_numpy(a[:12]) for a in _state(128))
     with pytest.raises(ValueError, match="multiple of"):
         traj(z, p)
+
+
+def _inv_mass(dp):
+    im = np.ones(dp, np.float32)
+    im[:D] = np.linspace(0.5, 2.0, D)
+    return im
+
+
+@pytest.mark.parametrize("name", ["logistic", "poisson", "studentt"])
+def test_trajectory_rt_matches_pallas(name):
+    X, y = _data(name)
+    jlink, tlink = _links(name)
+    jtraj = jfl.make_fused_trajectory_rt(X, y, 10.0, L, block_chains=8,
+                                         interpret=True, link=jlink)
+    ttraj = tfl.make_fused_trajectory_rt(X, y, 10.0, L, block_chains=8,
+                                         link=tlink, device="cpu")
+    assert ttraj.dim_padded == jtraj.dim_padded and ttraj.dim == D
+    z0, p0 = _state(ttraj.dim_padded)
+    im = _inv_mass(ttraj.dim_padded)
+
+    zj, pj, uj = jtraj(jnp.asarray(z0), jnp.asarray(p0), jnp.asarray(EPS),
+                       jnp.asarray(im))
+    zt, pt, ut = ttraj(torch.from_numpy(z0), torch.from_numpy(p0), EPS,
+                       torch.from_numpy(im))
+
+    np.testing.assert_allclose(zt.numpy(), np.asarray(zj), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ut.numpy(), np.asarray(uj), rtol=1e-5)
+    assert torch.all(zt[:, D:] == 0) and torch.all(pt[:, D:] == 0)
+
+
+def test_trajectory_rt_with_unit_mass_equals_fixed_step():
+    """Inverse mass 1 and the fixed trajectory's step: the same bits; and
+    the step as a float, a 0-d tensor and a numpy inverse mass agree."""
+    X, y = _data("logistic")
+    fixed = tfl.make_fused_trajectory(X, y, 10.0, EPS, L, block_chains=8,
+                                      device="cpu")
+    rt = tfl.make_fused_trajectory_rt(X, y, 10.0, L, block_chains=8,
+                                      device="cpu")
+    z, p = (torch.from_numpy(a) for a in _state(rt.dim_padded))
+    ones = torch.ones(rt.dim_padded)
+    want = fixed(z, p)
+    for eps in (EPS, torch.tensor(EPS)):
+        for a, b in zip(rt(z, p, eps, ones), want):
+            assert torch.equal(a, b)
+    im = _inv_mass(rt.dim_padded)
+    for a, b in zip(rt(z, p, EPS, im), rt(z, p, torch.tensor(EPS),
+                                          torch.from_numpy(im))):
+        assert torch.equal(a, b)
+    assert not torch.equal(rt(z, p, EPS, im)[0], want[0])
+
+
+def test_trajectory_rt_wrapper_and_block_chains():
+    """The run-time entry's wrapper refuses CPU tensors, its dispatcher
+    runs the plain version there, and the factory keeps the
+    ``block_chains`` check."""
+    X, y = _data("logistic")
+    rt = tfl.make_fused_trajectory_rt(X, y, 10.0, L, block_chains=8,
+                                      device="cpu")
+    z, p = (torch.from_numpy(a) for a in _state(rt.dim_padded))
+    im = torch.from_numpy(_inv_mass(rt.dim_padded))
+    args = (rt.Xb, rt.y, rt.mask, rt.inv_pv, EPS, L, "logistic", im)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfl.fused_trajectory_rt_cuda(z, p, *args)
+    for a, b in zip(tfl.fused_trajectory_rt(z, p, *args),
+                    tfl._fused_trajectory_plain(z, p, *args[:-1], im)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="multiple of"):
+        rt(z[:12], p[:12], EPS, im)
+    with pytest.raises(ValueError, match="n_leap"):
+        tfl.make_fused_trajectory_rt(X, y, 10.0, 0, device="cpu")

@@ -35,7 +35,7 @@ D, N = 10, 64
 
 
 def _data(seed=2):
-    X, y, _ = make_logistic_regression_data(seed, N, D)
+    X, y, _ = make_logistic_regression_data(seed, N, D, device="cpu")
     return X.numpy(), y.numpy()
 
 
@@ -76,7 +76,7 @@ def test_leapfrog_matches_jax(kind):
     jgrad = jax.grad(jlogreg(X, y))
     zj, pj = jax.vmap(lambda z, p: jint.leapfrog(
         jgrad, jspd.inv_mv, 0.05, 6, z, p))(z0, p0)
-    zt, pt = tint.leapfrog(tint.grad_of(tlogreg(*convert.glm_data(X, y))),
+    zt, pt = tint.leapfrog(tint.grad_of(tlogreg(*convert.glm_data(X, y, "cpu"))),
                            tspd.inv_mv, 0.05, 6, torch.from_numpy(z0),
                            torch.from_numpy(p0))
     np.testing.assert_allclose(zt.numpy(), np.asarray(zj), rtol=0, atol=1e-5)
@@ -104,7 +104,8 @@ def test_bounded_kick_gradient_matches_jax(mode):
     jalgo = jset.AlgoSettings(vals_bound=True, lower_bounds=lb, upper_bounds=ub)
     talgo = tset.AlgoSettings(vals_bound=True, lower_bounds=lb, upper_bounds=ub)
     jprob = jcommon.setup_problem(np.zeros(4, np.float32), jk, jalgo, 3)
-    tprob = tcommon.setup_problem(np.zeros(4, np.float32), tk, talgo, 3)
+    tprob = tcommon.setup_problem(np.zeros(4, np.float32), tk, talgo, 3,
+                                  device="cpu")
     gj = jax.vmap(jint.make_kick_grad(jprob, mode))(z)
     gt = tint.make_kick_grad(tprob, mode)(torch.from_numpy(z))
     assert not torch.isnan(gt).any()
@@ -128,9 +129,9 @@ def test_hmc_state_carries_over(mass):
         {"n_burnin": 100, "target": 0.8},
         {"n_burnin": 100, "collect": collect, "window_end": wend,
          "mode": mass})
-    carried = convert.hmc_state(jax.vmap(jinit)(jnp.asarray(pos)))
+    carried = convert.hmc_state(jax.vmap(jinit)(jnp.asarray(pos)), "cpu")
 
-    tk = tlogreg(*convert.glm_data(X, y))
+    tk = tlogreg(*convert.glm_data(X, y, "cpu"))
     tcollect, twend = tadapt.window_schedule(100)
     tinit, tstep = thmc.build_hmc_kernel(
         tk, tint.grad_of(tk), tcommon.make_spd(None, D, torch.float32), 0.05,
@@ -163,7 +164,7 @@ def test_hmc_posterior_mean_matches_jax():
              n_leap_steps=5)
     ref = mcmc_tpu.hmc(jnp.zeros(D), jlogreg(X, y), mcmc_tpu.HMCSettings(**s),
                        n_chains=16, key=jax.random.PRNGKey(5))
-    out = mcmc_tpu_torch.hmc(torch.zeros(D), tlogreg(*convert.glm_data(X, y)),
+    out = mcmc_tpu_torch.hmc(torch.zeros(D), tlogreg(*convert.glm_data(X, y, "cpu")),
                              mcmc_tpu_torch.HMCSettings(**s), n_chains=16,
                              key=5)
     assert out.draws.shape == (600, 16, D)
@@ -176,7 +177,7 @@ def test_hmc_posterior_mean_matches_jax():
 def test_unported_options_raise():
     """``mesh=`` and ``checkpoint_dir=`` are not ignored silently."""
     X, y = _data()
-    k = tlogreg(*convert.glm_data(X, y))
+    k = tlogreg(*convert.glm_data(X, y, "cpu"))
     s = mcmc_tpu_torch.HMCSettings(n_burnin_draws=1, n_keep_draws=1)
     with pytest.raises(NotImplementedError, match="A12"):
         mcmc_tpu_torch.hmc(torch.zeros(D), k, s, mesh=object())

@@ -1,13 +1,16 @@
 """The ported slice as a whole: the port's ``fused_glm_hmc`` on the CPU
 against the JAX package's ``fused_glm_hmc`` (Pallas in interpret mode),
 with the settings of tests/test_fused_logreg.py:313-328, on the same numpy
-data; and the port's imports."""
+data; the device rule of the port's entry points; and the port's imports.
+(``fused_gaussian_hmc`` is held against the JAX package in
+tests/test_torch_fused_gaussian.py.)"""
 
 import subprocess
 import sys
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 import mcmc_tpu_torch
@@ -21,7 +24,7 @@ SETTINGS = dict(step_size=0.08, n_leap=5, n_chains=16, n_burnin_draws=300,
 
 
 def _data():
-    X, y, _ = make_logistic_regression_data(2, N, D)
+    X, y, _ = make_logistic_regression_data(2, N, D, device="cpu")
     return X.numpy(), y.numpy()
 
 
@@ -32,7 +35,7 @@ def test_fused_glm_hmc_matches_jax():
     X, y = _data()
     ref = jax_fused_glm_hmc(X, y, key=jax.random.PRNGKey(3), interpret=True,
                             **SETTINGS)
-    out = mcmc_tpu_torch.fused_glm_hmc(*convert.glm_data(X, y), key=3,
+    out = mcmc_tpu_torch.fused_glm_hmc(*convert.glm_data(X, y, "cpu"), key=3,
                                        **SETTINGS)
     assert out.draws.shape == (400, 16, D)
     assert torch.isfinite(out.draws).all()
@@ -48,7 +51,7 @@ def test_fused_glm_hmc_matches_jax():
 def test_fused_glm_hmc_same_seed_same_draws():
     """The port's RNG contract: the same seed on the same device gives
     bit-identical draws; another seed does not."""
-    X, y = convert.glm_data(*_data())
+    X, y = convert.glm_data(*_data(), "cpu")
     kw = dict(SETTINGS, n_burnin_draws=20, n_keep_draws=30)
     a = mcmc_tpu_torch.fused_glm_hmc(X, y, key=7, **kw)
     b = mcmc_tpu_torch.fused_glm_hmc(X, y, key=torch.Generator().manual_seed(7),
@@ -57,6 +60,65 @@ def test_fused_glm_hmc_same_seed_same_draws():
     assert torch.equal(a.draws, b.draws)
     assert torch.equal(a.n_accept_draws, b.n_accept_draws)
     assert not torch.equal(a.draws, c.draws)
+
+
+def _np_data():
+    rng = np.random.default_rng(0)
+    return (rng.standard_normal((N, D)).astype(np.float32),
+            (rng.uniform(size=N) < 0.5).astype(np.float32))
+
+
+# every entry point that makes its own tensors, called with numpy inputs
+# and no device=
+NO_DEVICE_CALLS = {
+    "fused_glm_hmc": lambda X, y: mcmc_tpu_torch.fused_glm_hmc(
+        X, y, n_chains=8, n_burnin_draws=1, n_keep_draws=1, block_chains=8),
+    "fused_gaussian_hmc": lambda X, y: mcmc_tpu_torch.fused_gaussian_hmc(
+        np.ones(4, np.float32), n_chains=8, n_burnin_draws=1, n_keep_draws=1,
+        block_chains=8),
+    "hmc": lambda X, y: mcmc_tpu_torch.hmc(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        mcmc_tpu_torch.HMCSettings(n_burnin_draws=1, n_keep_draws=1)),
+    "make_fused_trajectory": lambda X, y: mcmc_tpu_torch.ops
+    .make_fused_trajectory(X, y, 10.0, 0.05, 3),
+    "make_fused_hmc_step": lambda X, y: mcmc_tpu_torch.ops
+    .make_fused_hmc_step(X, y),
+    "make_fused_trajectory_rt": lambda X, y: mcmc_tpu_torch.ops
+    .make_fused_trajectory_rt(X, y, 10.0, 3),
+    "make_fused_gaussian_trajectory": lambda X, y: mcmc_tpu_torch.ops
+    .make_fused_gaussian_trajectory(np.ones(4, np.float32)),
+    "make_fused_gaussian_hmc_step": lambda X, y: mcmc_tpu_torch.ops
+    .make_fused_gaussian_hmc_step(np.ones(4, np.float32)),
+    "make_logistic_regression_data": lambda X, y: mcmc_tpu_torch.models
+    .make_logistic_regression_data(0, N, D),
+    "ill_conditioned_gaussian": lambda X, y: mcmc_tpu_torch.models
+    .ill_conditioned_gaussian(10),
+    "convert.glm_data": lambda X, y: convert.glm_data(X, y),
+}
+
+
+@pytest.mark.parametrize("name", list(NO_DEVICE_CALLS))
+def test_no_device_means_the_card(name):
+    """With numpy inputs and no ``device=`` an entry point puts its tensors
+    on ``cuda``: on a machine without a card it raises torch's own error
+    and does not run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the rule is checked by "
+                    "chip_smoke.py there")
+    X, y = _np_data()
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+        NO_DEVICE_CALLS[name](X, y)
+
+
+def test_resolve_device_rule():
+    """Explicit device first, then the first tensor argument, then cuda."""
+    from mcmc_tpu_torch.samplers._resolve import resolve_device
+    t = torch.zeros(2)
+    assert resolve_device("cpu", None) == torch.device("cpu")
+    assert resolve_device(None, np.zeros(2), t) == torch.device("cpu")
+    assert resolve_device(None, np.zeros(2)) == torch.device("cuda")
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cuda:1", t) == torch.device("cuda:1")
 
 
 def test_port_imports_no_jax():
