@@ -39,8 +39,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    card's busy share of it and the device time of each kernel by name,
    under ``torch.profiler``.
 
-The last two lines of output are the kernels' JSON record and the result
-line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+Before the last two lines it prints each kernel's bound beside its time: for
+the GLM kernel, per link, the largest of the tensor operations, the link's
+special-function operations and the bytes. The last two lines of output are
+the kernels' JSON record and the result line ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 """
 
 import json
@@ -98,9 +101,21 @@ G_VAR_TOL = 0.03
 G_SWEEP_CHAINS = (256, 1024, 4096, 16384)
 
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds below are
-# the larger of operations over the peak of their type and bytes over the
+# the largest of operations over the peak of their type and bytes over the
 # memory rate, each input read once and each output written once
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# special-function operations (exponential, logarithm, reciprocal): 16 per
+# clock and SM (CUDA documentation, arithmetic instruction throughput, compute
+# capability 9.0) on 132 SMs at the 1.98 GHz the data sheet's FP32 rate
+# implies (67e12 / (132 SMs * 128 lanes * 2))
+PEAK_SFU = 16 * 132 * 1.98e9
+# the least special-function operations of one link evaluation: for the
+# residual (every gradient), and more for the log-likelihood term (the last
+# gradient only). logistic: exp, reciprocal; + exp, log. poisson: exp.
+# probit: exp (density), exp and reciprocal (the erf polynomial), two
+# quotients; + two logs. Student-t: one quotient; + quotient, log.
+LINK_SFU = {"logistic": (2, 2), "poisson": (1, 0), "linear": (0, 0),
+            "probit": (5, 2), "studentt": (1, 2)}
 
 
 def check(ok, what):
@@ -144,16 +159,26 @@ def bound_ms(flop, peak, n_bytes):
     return (ops, "operations") if ops >= mem else (mem, "bytes")
 
 
-def glm_bound_ms(n_chains, dim, n_rows, n_leap, rt):
-    """The GLM trajectory on ``dim`` columns and ``n_rows`` data rows:
-    n_leap + 1 gradients of two bf16 products each; z, p in, z, p, U out, X
-    in bf16, y and mask (and eps, inv_mass for the run-time entry). With the
-    model's own sizes this is the work the function needs; with the padded
-    ones, the work the kernel is handed."""
+def glm_bound_ms(n_chains, dim, n_rows, n_leap, rt, link="logistic"):
+    """``(ms, "operations" or "bytes", which)`` for the GLM trajectory on
+    ``dim`` columns and ``n_rows`` data rows: the largest of the tensor
+    operations (n_leap + 1 gradients of two bf16 products each), the link's
+    special-function operations (``LINK_SFU``) and the bytes (z, p in, z,
+    p, U out, X in bf16, y and mask, and eps, inv_mass for the run-time
+    entry); ``which`` names the largest. With the model's own sizes this is
+    the work the function needs; with the padded ones, the work the kernel
+    is handed."""
     flop = (n_leap + 1) * 2 * 2 * n_chains * dim * n_rows
     n_bytes = 4 * (4 * n_chains * dim + n_chains) + 2 * n_rows * dim \
         + 4 * 2 * n_rows + (4 * (dim + 1) if rt else 0)
-    return bound_ms(flop, PEAK_BF16, n_bytes)
+    per_grad, per_ll = LINK_SFU[link]
+    sfu = n_chains * n_rows * ((n_leap + 1) * per_grad + per_ll)
+    ms, by = bound_ms(flop, PEAK_BF16, n_bytes)
+    which = "tensor operations" if by == "operations" else "bytes"
+    if 1e3 * sfu / PEAK_SFU > ms:
+        ms, by, which = 1e3 * sfu / PEAK_SFU, "operations", \
+            "special-function operations"
+    return ms, by, which
 
 
 def gaussian_bound_ms(n_chains, dim, n_leap):
@@ -437,7 +462,7 @@ def main():
                                                   generator=gen, device=dev)
         p[:, :G_DIM] = torch.randn((G_CHAINS, G_DIM), generator=gen,
                                    device=dev)
-        gargs = (z, p, traj.P, traj.mean, g_eps, G_LEAP)
+        gargs = (z, p, traj.P, traj.mean, g_eps, G_LEAP, G_DIM)
         got = fl.fused_gaussian_trajectory_cuda(*gargs)
         again = fl.fused_gaussian_trajectory_cuda(*gargs)
         want = fl._fused_gaussian_trajectory_plain(*gargs)
@@ -537,12 +562,24 @@ def main():
     # padded shapes the kernels are handed give the *_padded figures
     ms, plain_ms = timing["logistic"]
     dp, n_rows = Xb.shape[1], Xb.shape[0]
-    k1_bound = glm_bound_ms(N_CHAINS, DIM, N_DATA, N_LEAP, False)
+    k1_bounds = {name: glm_bound_ms(N_CHAINS, DIM, N_DATA, N_LEAP, False,
+                                    name) for name in LINKS}
+    k1_bound = k1_bounds["logistic"]
     k3_bound = glm_bound_ms(N_CHAINS, DIM, N_DATA, N_LEAP, True)
     k2_bound = gaussian_bound_ms(G_CHAINS, G_DIM, G_LEAP)
     k1_padded = glm_bound_ms(N_CHAINS, dp, n_rows, N_LEAP, False)[0]
     k3_padded = glm_bound_ms(N_CHAINS, dp, n_rows, N_LEAP, True)[0]
     k2_padded = gaussian_bound_ms(G_CHAINS, 128, G_LEAP)[0]
+    for name in LINKS:
+        b_ms, _by, which = k1_bounds[name]
+        print(f"K1 {name}: bound {b_ms:.4f} ms ({which}); kernel "
+              f"{timing[name][0]:.3f} ms, {100 * b_ms / timing[name][0]:.1f}% "
+              "of it")
+    print(f"K3 logistic: bound {k3_bound[0]:.4f} ms ({k3_bound[2]}); kernel "
+          f"{rt_ms:.3f} ms, {100 * k3_bound[0] / rt_ms:.1f}% of it")
+    print(f"K2: bound {k2_bound[0]:.4f} ms (FP32 operations on the model's "
+          f"{G_DIM} columns); kernel {g_ms:.3f} ms, "
+          f"{100 * k2_bound[0] / g_ms:.1f}% of it")
     src = "mcmc_tpu_torch/csrc/"
     print(json.dumps({"kernels": [{
         "name": "fused_glm_trajectory", "route": "cuda",
@@ -551,7 +588,7 @@ def main():
         "launches": launches, "max_abs_err": max_abs_err,
         "max_scaled_err": max_scaled_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
-        "bound_ms_padded": k1_padded,
+        "bound_operations": k1_bound[2], "bound_ms_padded": k1_padded,
         "ms_by_link": {k: v[0] for k, v in timing.items()},
         "plain_ms_by_link": {k: v[1] for k, v in timing.items()},
     }, {
@@ -561,7 +598,7 @@ def main():
         "launches": rt_launches, "max_abs_err": rt_abs_err,
         "max_scaled_err": rt_max, "ms": rt_ms, "plain_ms": rt_plain_ms,
         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
-        "bound_ms_padded": k3_padded,
+        "bound_operations": k3_bound[2], "bound_ms_padded": k3_padded,
     }, {
         "name": "fused_gaussian_trajectory", "route": "cuda",
         "source": src + "fused_gaussian_trajectory.cu",

@@ -22,27 +22,59 @@
 // and the potential U = -(sum(mask * ll) - 0.5 * sum(z^2) / s^2) from the
 // last evaluation's bf16-path eta (ROADMAP C2, kept for parity).
 //
-// What bounds it on this card: arithmetic. At the flagship shapes (16384
-// chains, 128 padded dims, 1024 padded rows, n_leap 4) a trajectory is
-// about 43 GFLOP of bf16 products plus 84M link evaluations
-// (transcendentals), against 34 MB of state read and written once. Under
-// plain tensor code each gradient also writes and reads the
-// (chains, rows) eta, 64 MB in f32.
+// What bounds it on this card: arithmetic, of two kinds. At the flagship
+// shapes (16384 chains, 128 padded dims, 1024 padded rows, n_leap 4) a
+// trajectory is about 43 GFLOP of bf16 products (0.043 ms at the tensor
+// cores' peak) and 84M link evaluations, each at least one exponential and
+// one reciprocal on the special-function unit (0.040 ms at 16 a clock and
+// SM), against 34 MB of state read and written once. The function is
+// attention with an elementwise link in place of the softmax, so the design
+// at 128 columns is FlashAttention's for this card:
 //
-// What the design does about it: one block owns a tile of 32 chains and
-// keeps its z, p and g in shared memory across all n_leap steps; at 128
-// dims two blocks fit on an SM, so one block's link phase overlaps the
-// other's products (1.24x over one 64-chain block per SM on the logistic
-// link, 1.40x on probit, measured on an H100). The design matrix (256 KB
-// in bf16 at the flagship shapes, above the 227 KB a block may use) is
-// streamed in tiles of 64 rows; each tile serves both products of a
-// gradient (as X^T for eta, as X for g), so one orientation of X is enough
-// and X is read once per block per gradient evaluation (from L2, where it
-// stays resident). eta for a tile lives in shared memory only. The
-// products run on the tensor cores through WMMA (bf16 in, f32
-// accumulate). Per-chain sums are reduced in a fixed order, so a launch
-// is deterministic. TMA, wgmma and pipelined tile loads are left for
-// later work.
+// - A warpgroup (128 threads) owns 64 chains for the whole trajectory. The
+//   gradient's accumulator (64 x 128 f32) stays in its registers across all
+//   row tiles of a gradient, and bf16(z) with it, as the register A operand
+//   of the first product. z and p (f32) lie in shared memory in a
+//   thread-private order and are touched only at the n_leap + 1 updates,
+//   which each thread applies to the elements it holds, with no barrier.
+// - eta never leaves registers: the first product of a 64-row tile is
+//   wgmma m64n64k16 with A = bf16(z) from registers and B = the X tile read
+//   K-major; the link runs on the accumulator; its result is rounded to
+//   bf16 in registers and is the register A operand of the second product,
+//   wgmma m64n128k16, whose B is the same X tile read MN-major (the
+//   instruction's transpose bit). Neither eta nor r nor bf16(z) is stored
+//   to shared memory, and a tile costs no block-wide barrier. The second
+//   product of a tile and the first of the next are one group of wgmma.
+// - X tiles (and the tile's y and mask) arrive by cp.async into a ring of
+//   four stages, written in the 128-byte swizzle both readings of wgmma
+//   take. Two mbarriers a stage order it: "full" counts the threads' copies
+//   as they land (cp.async.mbarrier.arrive, no thread waits for its own
+//   copies), "empty" the threads that are done with the tile. The copies of
+//   tile t + 3 start during tile t, and the ring runs on across the updates
+//   between gradients.
+// - Two warpgroups make a block of 128 chains and share the ring, so X
+//   comes from L2 once per 128 chains; 16384 chains are 128 blocks, one on
+//   each of 128 of the card's 132 SMs (195 KB of shared memory). A group may
+//   run up to a tile ahead of the other.
+// - The link pays for what is used: the log-likelihood term is compiled
+//   into the last gradient only, the link is chosen once per tile, not per
+//   element, and its exponential and quotients are the approximate
+//   intrinsics __expf and __fdividef (the agreement with the plain version
+//   is unchanged to its second digit).
+// Per-chain sums are reduced in a fixed order (thread, then the four lanes
+// that share a row), so a launch is deterministic.
+//
+// What still holds it back (measured with builds that each left one cost
+// out, and with clock counters around each phase): the products alone reach
+// the tensor cores' bound (about 1020 clocks a tile and SM) and the logistic
+// link of both warpgroups its special-function bound (about 1080), but the
+// two do not overlap: a warpgroup waits where it starts its wgmma until the
+// tensor cores take them, so a product started before the link hides little
+// of it, and both groups reach the link at the same time. State traffic,
+// launch and the ring's barriers (a fifth of the time) overlap nothing.
+//
+// At dim_padded 256 that accumulator does not fit a thread's registers;
+// that width keeps the earlier WMMA body (fused_glm_trajectory_wmma.cuh).
 //
 // Rows padded to the tile carry mask 0, and z, p columns past the model's
 // dimension stay exactly zero (their X columns are zero). Chains past
@@ -56,57 +88,16 @@
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kRowTile = 64;  // data rows per streamed tile of X
-constexpr int kSkewH = 8;     // bf16 row padding (16 B) against bank conflicts
-constexpr int kSkewF = 4;     // f32 row padding (16 B)
 
 enum Link : int {
   kLogistic = 0, kPoisson = 1, kLinear = 2, kProbit = 3, kStudentT = 4
 };
 
-// Shared-memory layout and work split of one block: BC chains, DP padded
-// dimensions. Every region starts on a 32-byte boundary, as WMMA requires.
-template <int BC, int DP>
-struct Cfg {
-  static constexpr int LDZ = DP + kSkewH;        // bf16(z) rows
-  static constexpr int LDX = DP + kSkewH;        // X tile rows
-  static constexpr int LDR = kRowTile + kSkewH;  // bf16(r) rows
-  static constexpr int LDE = kRowTile + kSkewF;  // eta rows (f32)
-  static constexpr int LDG = DP + kSkewF;        // gradient rows (f32)
-
-  static constexpr size_t Z = 0;
-  static constexpr size_t P = Z + sizeof(float) * BC * DP;
-  static constexpr size_t G = P + sizeof(float) * BC * DP;
-  static constexpr size_t E = G + sizeof(float) * BC * LDG;
-  static constexpr size_t ZB = E + sizeof(float) * BC * LDE;
-  static constexpr size_t XT = ZB + sizeof(bf16) * BC * LDZ;
-  static constexpr size_t R = XT + sizeof(bf16) * kRowTile * LDX;
-  static constexpr size_t Y = R + sizeof(bf16) * BC * LDR;
-  static constexpr size_t M = Y + sizeof(float) * kRowTile;
-  static constexpr size_t BYTES = M + sizeof(float) * kRowTile;
-
-  // link phase: TPC adjacent threads share one chain row of eta
-  static constexpr int TPC = kThreads / BC;
-  static constexpr int COLS = kRowTile / TPC;
-  // WMMA tiles of 16 x 16 per warp, all in one 16-chain row block
-  static constexpr int E_TILES = (BC / 16) * (kRowTile / 16) / kWarps;
-  static constexpr int G_TILES = (BC / 16) * (DP / 16) / kWarps;
-
-  static_assert(kThreads % BC == 0 && 32 % TPC == 0, "chain rows per warp");
-  static_assert(E_TILES >= 1 && (kRowTile / 16) % E_TILES == 0, "eta split");
-  static_assert(G_TILES >= 1 && (DP / 16) % G_TILES == 0, "gradient split");
-  static_assert(Z % 32 == 0 && P % 32 == 0 && G % 32 == 0 && E % 32 == 0 &&
-                    ZB % 32 == 0 && XT % 32 == 0 && R % 32 == 0 && Y % 32 == 0,
-                "32-byte aligned regions");
-  static_assert(BYTES <= 232448, "fits the 227 KB a block may use");
-  // blocks that fit on one SM's 228 KB (each block also reserves 1 KB)
-  static constexpr int BLOCKS_PER_SM = 2 * (BYTES + 1024) <= 233472 ? 2 : 1;
-};
+// The link's exponential is __expf (ex2.approx of x * log2 e) and its
+// quotients __fdividef (the approximate reciprocal, 2 ulp).
 
 // erf by Abramowitz & Stegun 7.1.26, the polynomial the JAX package uses
 // (fused_logreg.py _erf_poly): in the reference the polynomial is the model.
@@ -115,164 +106,408 @@ __device__ __forceinline__ float erf_poly(float x) {
               a4 = -1.453152027f, a5 = 1.061405429f;
   const float p = 0.3275911f;
   const float ax = fabsf(x);
-  const float t = 1.0f / (1.0f + p * ax);
+  const float t = __fdividef(1.0f, 1.0f + p * ax);
   const float poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))));
-  const float y = 1.0f - poly * expf(-ax * ax);
+  const float y = 1.0f - poly * __expf(-ax * ax);
   return x > 0.0f ? y : (x < 0.0f ? -y : 0.0f * y);
 }
 
-// y - mu_eff of the link, and the per-datum log-likelihood in *ll
-// (fused_logreg.py _link_eval_fns: d ll / d eta = y - mu_eff). `nu` is the
-// Student-t link's degrees of freedom and unused by the others.
-__device__ __forceinline__ float link_residual(int link, float nu, float eta,
-                                               float y, float* ll) {
-  if (link == kLogistic) {
-    const float mu = 1.0f / (1.0f + expf(-eta));
-    const float softplus = fmaxf(eta, 0.0f) + log1pf(expf(-fabsf(eta)));
-    *ll = y * eta - softplus;
+// y - mu_eff of the link, and with WANT_LL the per-datum log-likelihood in
+// *ll (fused_logreg.py _link_eval_fns: d ll / d eta = y - mu_eff). `nu` is
+// the Student-t link's degrees of freedom and unused by the others. Without
+// WANT_LL the logistic residual costs one exponential and one reciprocal.
+template <int LINK, bool WANT_LL>
+__device__ __forceinline__ float link_residual(float nu, float eta, float y,
+                                               float* ll) {
+  if (LINK == kLogistic) {
+    const float mu = __fdividef(1.0f, 1.0f + __expf(-eta));
+    if (WANT_LL) {
+      const float softplus = fmaxf(eta, 0.0f) + log1pf(expf(-fabsf(eta)));
+      *ll = y * eta - softplus;
+    }
     return y - mu;
   }
-  if (link == kPoisson) {
-    const float mu = expf(eta);
-    *ll = y * eta - mu;
+  if (LINK == kPoisson) {
+    const float mu = __expf(eta);
+    if (WANT_LL) *ll = y * eta - mu;
     return y - mu;
   }
-  if (link == kProbit) {
+  if (LINK == kProbit) {
     const float inv_sqrt_2pi = 0.3989422804014327f;
     const float inv_sqrt_2 = 0.7071067811865476f;
     const float hi = (float)(1.0 - 1e-7);
-    const float phi = expf(-0.5f * eta * eta) * inv_sqrt_2pi;
+    const float phi = __expf(-0.5f * eta * eta) * inv_sqrt_2pi;
     float cdf = 0.5f * (1.0f + erf_poly(eta * inv_sqrt_2));
     cdf = fminf(fmaxf(cdf, 1e-30f), hi);
-    const float score = y * phi / cdf - (1.0f - y) * phi / (1.0f - cdf);
-    *ll = y * logf(cdf) + (1.0f - y) * logf(1.0f - cdf);
+    const float score = __fdividef(y * phi, cdf) -
+                        __fdividef((1.0f - y) * phi, 1.0f - cdf);
+    if (WANT_LL) *ll = y * logf(cdf) + (1.0f - y) * logf(1.0f - cdf);
     const float mu = y - score;
     return y - mu;
   }
-  if (link == kStudentT) {
+  if (LINK == kStudentT) {
     // y | eta ~ t_nu(eta, 1) (fused_logreg.py studentt_link :119-123)
     const float r = y - eta;
-    const float score = (nu + 1.0f) * r / (nu + r * r);
-    *ll = -0.5f * (nu + 1.0f) * log1pf(r * r / nu);
+    const float score = __fdividef((nu + 1.0f) * r, nu + r * r);
+    if (WANT_LL) *ll = -0.5f * (nu + 1.0f) * log1pf(r * r / nu);
     const float mu = y - score;
     return y - mu;
   }
   const float d = y - eta;  // linear
-  *ll = -0.5f * (d * d);
+  if (WANT_LL) *ll = -0.5f * (d * d);
   return d;
 }
 
-// g_s <- bf16(r) . X over all row tiles, for r from eta = zb_s . X^T;
-// with want_u, adds this thread's share of sum(mask * ll) to *ll_part.
-template <int BC, int DP>
-__device__ void gradient(const bf16* __restrict__ X,
-                         const float* __restrict__ y,
-                         const float* __restrict__ mask, int n_rows, int link,
-                         float nu, bool want_u, unsigned char* smem,
-                         float* ll_part) {
-  using C = Cfg<BC, DP>;
-  const bf16* zb_s = reinterpret_cast<const bf16*>(smem + C::ZB);
-  bf16* x_s = reinterpret_cast<bf16*>(smem + C::XT);
-  float* e_s = reinterpret_cast<float*>(smem + C::E);
-  bf16* r_s = reinterpret_cast<bf16*>(smem + C::R);
-  float* y_s = reinterpret_cast<float*>(smem + C::Y);
-  float* m_s = reinterpret_cast<float*>(smem + C::M);
-  float* g_s = reinterpret_cast<float*>(smem + C::G);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int e_first = warp * C::E_TILES;
-  const int e_row = e_first / (kRowTile / 16);
-  const int g_first = warp * C::G_TILES;
-  const int g_row = g_first / (DP / 16);
-  const int lc = tid / C::TPC;  // chain row of the link phase
-  const int lq = tid % C::TPC;  // its column phase
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> gacc[C::G_TILES];
-#pragma unroll
-  for (int f = 0; f < C::G_TILES; ++f) wmma::fill_fragment(gacc[f], 0.0f);
-
-  constexpr int kVecPerRow = DP * (int)sizeof(bf16) / 16;
-  for (int t0 = 0; t0 < n_rows; t0 += kRowTile) {
-    // stage the tile: rows [t0, t0 + kRowTile) of X, 16-byte vectors
-    const uint4* src = reinterpret_cast<const uint4*>(X + (size_t)t0 * DP);
-    for (int v = tid; v < kRowTile * kVecPerRow; v += kThreads) {
-      const int r = v / kVecPerRow, q = v % kVecPerRow;
-      *reinterpret_cast<uint4*>(x_s + r * C::LDX + q * 8) = src[v];
-    }
-    if (tid < kRowTile) {
-      y_s[tid] = y[t0 + tid];
-      m_s[tid] = mask[t0 + tid];
-    }
-    __syncthreads();
-
-    {  // eta (BC x kRowTile) = bf16(z) . tile^T
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[C::E_TILES];
-#pragma unroll
-      for (int f = 0; f < C::E_TILES; ++f) wmma::fill_fragment(acc[f], 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        wmma::load_matrix_sync(a, zb_s + e_row * 16 * C::LDZ + kk * 16, C::LDZ);
-#pragma unroll
-        for (int f = 0; f < C::E_TILES; ++f) {
-          const int j = (e_first + f) % (kRowTile / 16);
-          wmma::load_matrix_sync(b, x_s + j * 16 * C::LDX + kk * 16, C::LDX);
-          wmma::mma_sync(acc[f], a, b, acc[f]);
-        }
-      }
-#pragma unroll
-      for (int f = 0; f < C::E_TILES; ++f) {
-        const int j = (e_first + f) % (kRowTile / 16);
-        wmma::store_matrix_sync(e_s + e_row * 16 * C::LDE + j * 16, acc[f],
-                                C::LDE, wmma::mem_row_major);
-      }
-    }
-    __syncthreads();
-
-    // link, elementwise: r = (y - mu) * mask, rounded to bf16
-#pragma unroll 4
-    for (int i = 0; i < C::COLS; ++i) {
-      const int col = lq + i * C::TPC;
-      const float mv = m_s[col];
-      float ll;
-      const float r =
-          link_residual(link, nu, e_s[lc * C::LDE + col], y_s[col], &ll);
-      r_s[lc * C::LDR + col] = __float2bfloat16_rn(r * mv);
-      if (want_u) *ll_part += mv * ll;
-    }
-    __syncthreads();
-
-    {  // g (BC x DP) += bf16(r) . tile
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-#pragma unroll
-      for (int kk = 0; kk < kRowTile / 16; ++kk) {
-        wmma::load_matrix_sync(a, r_s + g_row * 16 * C::LDR + kk * 16, C::LDR);
-#pragma unroll
-        for (int f = 0; f < C::G_TILES; ++f) {
-          const int j = (g_first + f) % (DP / 16);
-          wmma::load_matrix_sync(b, x_s + kk * 16 * C::LDX + j * 16, C::LDX);
-          wmma::mma_sync(gacc[f], a, b, gacc[f]);
-        }
-      }
-    }
-    __syncthreads();  // the next tile overwrites x_s, e_s and r_s
+// The same with the link chosen at run time, for the WMMA body.
+__device__ __forceinline__ float link_residual(int link, float nu, float eta,
+                                               float y, float* ll) {
+  switch (link) {
+    case kLogistic: return link_residual<kLogistic, true>(nu, eta, y, ll);
+    case kPoisson: return link_residual<kPoisson, true>(nu, eta, y, ll);
+    case kProbit: return link_residual<kProbit, true>(nu, eta, y, ll);
+    case kStudentT: return link_residual<kStudentT, true>(nu, eta, y, ll);
+    default: return link_residual<kLinear, true>(nu, eta, y, ll);
   }
-#pragma unroll
-  for (int f = 0; f < C::G_TILES; ++f) {
-    const int j = (g_first + f) % (DP / 16);
-    wmma::store_matrix_sync(g_s + g_row * 16 * C::LDG + j * 16, gacc[f], C::LDG,
-                            wmma::mem_row_major);
+}
+
+}  // namespace
+
+#include "fused_glm_trajectory_wmma.cuh"
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// dim_padded 128: warpgroups of 64 chains.
+// ---------------------------------------------------------------------------
+
+constexpr int DP = 128;             // padded dimension of this body
+constexpr int kWGs = 2;             // warpgroups per block, one ring of X
+constexpr int kWGChains = 64;       // chains per warpgroup (one wgmma M tile)
+constexpr int BC = kWGs * kWGChains;  // chains per block
+constexpr int kThreads = kWGs * 128;
+// X tiles in the ring: three were measured 12-15% slower, five no faster
+constexpr int kStages = 4;
+constexpr int kAhead = kStages - 2;  // tiles in flight beyond the current
+constexpr int kXBytes = kRowTile * DP * (int)sizeof(bf16);  // 16 KB a tile
+constexpr int kHalfBytes = kRowTile * 128;  // one 64-column block of a tile
+constexpr int kYMBytes = 2 * kRowTile * (int)sizeof(float);
+constexpr int kZBytes = kWGChains * DP * (int)sizeof(float);
+
+// Shared memory of one block, from a 1024-byte aligned base (the swizzle's
+// period): the ring of X tiles, each warpgroup's z and p in f32, the ring of
+// y and mask, the ring's barriers.
+constexpr int kOffX = 0;
+constexpr int kOffZ = kOffX + kStages * kXBytes;
+constexpr int kOffP = kOffZ + kWGs * kZBytes;
+constexpr int kOffYM = kOffP + kWGs * kZBytes;
+constexpr int kOffBar = kOffYM + kStages * kYMBytes;
+constexpr int kSmemBytes = kOffBar + 2 * kStages * 8 + 1024;  // + alignment
+static_assert(kSmemBytes <= 232448, "fits a block");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// An mbarrier in shared memory: `count` arrivals complete a phase.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// One arrival on `bar` once all cp.async of this thread so far have landed:
+// the copies report their own completion, and no thread waits for them
+// before it needs the tile.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// Waits until the phase of `bar` with this parity has completed. A wait of
+// more than a few seconds is a fault of the ring: it traps, so that a
+// launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = clock64();
+    if (clock64() - t0 > (1ll << 33)) __trap();
   }
-  __syncthreads();
+}
+
+// Makes shared-memory writes of this thread visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving uses of an accumulator across a wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma's shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, all in units of 16 bytes.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// Byte offset, in a [rows x 64 columns] bf16 block of 128-byte rows, of the
+// 16-byte chunk `chunk` of row `row` under the 128-byte swizzle.
+__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
+  return (uint32_t)((row << 7) + (((chunk ^ row) & 7) << 4));
+}
+
+#define ACC4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define ACC16(d, i) ACC4(d, i), ACC4(d, i + 4), ACC4(d, i + 8), ACC4(d, i + 12)
+
+// d (64 x 64, f32) = or += A (64 x 16 bf16, registers) .
+// B (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t* a,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : ACC16(d, 0), ACC16(d, 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128, f32) = or += A (64 x 16 bf16, registers) .
+// B (16 x 128, shared, MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t* a,
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : ACC16(d, 0), ACC16(d, 16), ACC16(d, 32), ACC16(d, 48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The ring of X tiles, shared by the block's warpgroups: tile gi of the
+// trajectory's (n_leap + 1) * n_tiles goes to stage gi % kStages, and is
+// tile gi % n_tiles of X. full[s] completes when every thread's copies of
+// the stage's tile have landed, empty[s] when every thread is done with it.
+// (One arrival a warp, after a wait for the warp's copies, was measured
+// slower than these asynchronous arrivals of every thread.)
+struct Ring {
+  const bf16* X;
+  const float* y;
+  const float* mask;
+  int n_tiles;
+  int total;
+  uint32_t x_s;   // shared addresses
+  uint32_t ym_s;
+  uint32_t full;
+  uint32_t empty;
+};
+
+// Starts this thread's copies of tile gi, if there is one, once the tile
+// that held its stage has been given up by every thread.
+__device__ __forceinline__ void start_tile(const Ring& ring, int gi, int tid) {
+  if (gi >= ring.total) return;
+  const int tile = gi % ring.n_tiles, stage = gi % kStages;
+  if (gi >= kStages)
+    mbar_wait(ring.empty + 8 * stage, (gi / kStages - 1) & 1);
+  const bf16* src = ring.X + (size_t)tile * kRowTile * DP;
+  const uint32_t dst = ring.x_s + stage * kXBytes;
+#pragma unroll
+  for (int i = 0; i < kRowTile * 16 / kThreads; ++i) {
+    const int v = tid + i * kThreads, row = v >> 4, c = v & 15;
+    cp_async16(dst + (c >> 3) * kHalfBytes + swizzled(row, c & 7),
+               src + row * DP + c * 8);
+  }
+  if (tid < 32)
+    cp_async16(ring.ym_s + stage * kYMBytes + tid * 16,
+               (tid < 16 ? ring.y : ring.mask) + tile * kRowTile +
+                   (tid & 15) * 4);
+  cp_async_arrive(ring.full + 8 * stage);
+}
+
+// The link on one tile's eta, in the accumulator's layout: thread (g, t) of
+// a warp holds rows g and g + 8 of its warp's 16 chains and, of each group
+// j of 8 data rows, rows 2t and 2t + 1. Writes bf16(r) as the A fragments
+// of the second product (a[4 kk .. 4 kk + 3] for its k-step kk).
+template <int LINK, bool WANT_U>
+__device__ __forceinline__ void link_tile(const float (&e)[32],
+                                          uint32_t (&a)[16], const float* ym,
+                                          int t, float nu, float* ll0,
+                                          float* ll1) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 yv = *reinterpret_cast<const float2*>(ym + 8 * j + 2 * t);
+    const float2 mv =
+        *reinterpret_cast<const float2*>(ym + kRowTile + 8 * j + 2 * t);
+    float l00, l01, l10, l11;
+    const float r00 =
+        link_residual<LINK, WANT_U>(nu, e[4 * j + 0], yv.x, &l00) * mv.x;
+    const float r01 =
+        link_residual<LINK, WANT_U>(nu, e[4 * j + 1], yv.y, &l01) * mv.y;
+    const float r10 =
+        link_residual<LINK, WANT_U>(nu, e[4 * j + 2], yv.x, &l10) * mv.x;
+    const float r11 =
+        link_residual<LINK, WANT_U>(nu, e[4 * j + 3], yv.y, &l11) * mv.y;
+    a[2 * j + 0] = pack_bf16(r00, r01);
+    a[2 * j + 1] = pack_bf16(r10, r11);
+    if (WANT_U) {
+      *ll0 += mv.x * l00;
+      *ll0 += mv.y * l01;
+      *ll1 += mv.x * l10;
+      *ll1 += mv.y * l11;
+    }
+  }
+}
+
+// g <- bf16(r) . X over the n_tiles row tiles from global tile *gi on, for
+// r from eta = bf16(z) . X^T; with WANT_U, adds this thread's share of
+// sum(mask * ll) of its two rows to *ll0, *ll1.
+template <bool WANT_U>
+__device__ __forceinline__ void gradient(float (&g)[64], const Ring& ring,
+                                         int* gi, const uint32_t (&zf)[32],
+                                         const unsigned char* sm, int link,
+                                         float nu, float* ll0, float* ll1) {
+  const int tid = threadIdx.x, t = tid & 3;
+  float e0[32] = {}, e1[32] = {};
+  uint32_t a[16];
+
+  // eta of global tile gt = bf16(z) . tile^T into e, once every thread's
+  // copies of the tile have landed; started and not yet waited for
+  auto start_eta = [&](float (&e)[32], int gt) {
+    const int stage = gt % kStages;
+    mbar_wait(ring.full + 8 * stage, (gt / kStages) & 1);
+    fence_proxy_async();
+    const uint32_t xs = ring.x_s + stage * kXBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * kHalfBytes + (kk & 3) * 32;
+      wgmma_m64n64k16_rs(e, zf + 4 * kk, smem_desc(xs + off, 16, 1024),
+                         kk > 0);
+    }
+    wgmma_commit();
+  };
+
+  // One tile: its eta is in `cur`. The next tile's eta is started into
+  // `nxt` first, so that the tensor cores work through this tile's link;
+  // then the link on `cur`, then g += bf16(r) . tile.
+  auto tile = [&](float (&cur)[32], float (&nxt)[32], int it) {
+    const int stage = *gi % kStages;
+    const bool more = it + 1 < ring.n_tiles;
+    if (more) start_eta(nxt, *gi + 1);
+    const float* ym =
+        reinterpret_cast<const float*>(sm + kOffYM + stage * kYMBytes);
+    // Only the link is under the switch: with a wgmma inside a case ptxas
+    // serialises every wgmma of the kernel (its note C7512).
+    switch (link) {
+      case kLogistic:
+        link_tile<kLogistic, WANT_U>(cur, a, ym, t, nu, ll0, ll1);
+        break;
+      case kPoisson:
+        link_tile<kPoisson, WANT_U>(cur, a, ym, t, nu, ll0, ll1);
+        break;
+      case kProbit:
+        link_tile<kProbit, WANT_U>(cur, a, ym, t, nu, ll0, ll1);
+        break;
+      case kStudentT:
+        link_tile<kStudentT, WANT_U>(cur, a, ym, t, nu, ll0, ll1);
+        break;
+      default:
+        link_tile<kLinear, WANT_U>(cur, a, ym, t, nu, ll0, ll1);
+        break;
+    }
+
+    const uint32_t xs = ring.x_s + stage * kXBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRowTile / 16; ++kk)
+      wgmma_m64n128k16_rs(g, a + 4 * kk,
+                          smem_desc(xs + kk * 16 * 128, kHalfBytes, 1024),
+                          (it > 0) || (kk > 0));
+    wgmma_commit();
+    // The copies of tile *gi + 1 + kAhead start as soon as both warpgroups
+    // have given up its stage, so a warpgroup may run a tile ahead of the
+    // other. They start behind the products and the fence in start_eta:
+    // that fence waits for the thread's copies in flight, and would wait
+    // for these.
+    if (more) start_tile(ring, *gi + 1 + kAhead, tid);
+    wgmma_wait();
+    fence_regs(g);
+    fence_regs(nxt);
+    mbar_arrive(ring.empty + 8 * stage);  // this thread is done with the tile
+    ++*gi;
+  };
+
+  start_eta(e0, *gi);
+  start_tile(ring, *gi + kAhead, tid);
+  wgmma_wait();
+  fence_regs(e0);
+  for (int it = 0; it < ring.n_tiles; it += 2) {
+    tile(e0, e1, it);
+    if (it + 1 < ring.n_tiles) tile(e1, e0, it + 1);
+  }
 }
 
 // RT: eps is read from eps_ptr and the drift carries inv_mass; otherwise
 // both pointers are unused and half_eps, eps are the launch's own.
-template <int BC, int DP, bool RT>
-__global__ void __launch_bounds__(kThreads, (Cfg<BC, DP>::BLOCKS_PER_SM))
+template <bool RT>
+__global__ void __launch_bounds__(kThreads, 1)
     fused_glm_trajectory_kernel(const float* __restrict__ z_in,
                                 const float* __restrict__ p_in,
                                 const bf16* __restrict__ X,
@@ -285,94 +520,148 @@ __global__ void __launch_bounds__(kThreads, (Cfg<BC, DP>::BLOCKS_PER_SM))
                                 float* __restrict__ u_out, int n_chains,
                                 int n_rows, int n_leap, float half_eps,
                                 float eps, float inv_pv, int link, float nu) {
-  using C = Cfg<BC, DP>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* z_s = reinterpret_cast<float*>(smem + C::Z);
-  float* p_s = reinterpret_cast<float*>(smem + C::P);
-  const float* g_s = reinterpret_cast<const float*>(smem + C::G);
-  bf16* zb_s = reinterpret_cast<bf16*>(smem + C::ZB);
-
-  const int tid = threadIdx.x;
-  const int c0 = blockIdx.x * BC;
-  const int n_here = min(BC, n_chains - c0);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  // this thread's warpgroup, its thread in it, and the group's 64 chains
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  float2* z_s = reinterpret_cast<float2*>(sm + kOffZ + wg * kZBytes);
+  const int c0 = blockIdx.x * BC + wg * kWGChains;
+  const int n_here = min(kWGChains, n_chains - c0);  // may be <= 0
   if (RT) {
     eps = *eps_ptr;
     half_eps = 0.5f * eps;
   }
 
-  for (int e = tid; e < BC * DP; e += kThreads) {
-    const int r = e / DP, c = e % DP;
-    const bool ok = r < n_here;
-    const size_t gi = (size_t)(c0 + r) * DP + c;
-    const float zv = ok ? z_in[gi] : 0.0f;
-    z_s[e] = zv;
-    p_s[e] = ok ? p_in[gi] : 0.0f;
-    zb_s[r * C::LDZ + c] = __float2bfloat16_rn(zv);
+  Ring ring;
+  ring.X = X;
+  ring.y = y;
+  ring.mask = mask;
+  ring.n_tiles = n_rows / kRowTile;
+  ring.total = (n_leap + 1) * ring.n_tiles;
+  ring.x_s = base + kOffX;
+  ring.ym_s = base + kOffYM;
+  ring.full = base + kOffBar;
+  ring.empty = base + kOffBar + 8 * kStages;
+  if (tid == 0) {
+    for (int s = 0; s < 2 * kStages; ++s)
+      mbar_init(ring.full + 8 * s, kThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  for (int gi = 0; gi < kAhead; ++gi) start_tile(ring, gi, tid);
 
-  float ll_part = 0.0f;
-  gradient<BC, DP>(X, y, mask, n_rows, link, nu, false, smem, &ll_part);
-  for (int k = 0; k < n_leap; ++k) {
-    // half kick with the carried gradient, then drift
-    for (int e = tid; e < BC * DP; e += kThreads) {
-      const int r = e / DP, c = e % DP;
-      const float g = g_s[r * C::LDG + c] - z_s[e] * inv_pv;
-      const float p = p_s[e] + half_eps * g;
-      const float z = z_s[e] + eps * (RT ? inv_mass[c] * p : p);
-      p_s[e] = p;
-      z_s[e] = z;
-      zb_s[r * C::LDZ + c] = __float2bfloat16_rn(z);
-    }
-    __syncthreads();
-    gradient<BC, DP>(X, y, mask, n_rows, link, nu, k == n_leap - 1, smem,
-                     &ll_part);
-    // second half kick; each thread touches only its own elements
-    for (int e = tid; e < BC * DP; e += kThreads) {
-      const int r = e / DP, c = e % DP;
-      const float g = g_s[r * C::LDG + c] - z_s[e] * inv_pv;
-      p_s[e] = p_s[e] + half_eps * g;
+  // The accumulator's layout: element 4 j + 2 h + c of a thread is row
+  // r0 + 8 h, column 8 j + 2 t + c of its warpgroup's 64 x 128. z_s and p_s
+  // keep the pair (j, h) of the group's thread wt at float2 index
+  // (2 j + h) * 128 + wt, and zf[2 j + h] is its bf16 pair: the first
+  // product's A fragment of k-step kk is zf[4 kk .. 4 kk + 3].
+  const int t = wt & 3;
+  const int r0 = (wt >> 5) * 16 + ((wt & 31) >> 2);
+  float2* p_s = reinterpret_cast<float2*>(sm + kOffP + wg * kZBytes);
+  float g[64] = {};
+  uint32_t zf[32];  // bf16(z): the A fragments of the first product
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h, col = 8 * j + 2 * t;
+      float2 zv = make_float2(0.0f, 0.0f), pv = zv;
+      if (row < n_here) {
+        const size_t gi = (size_t)(c0 + row) * DP + col;
+        zv = *reinterpret_cast<const float2*>(z_in + gi);
+        pv = *reinterpret_cast<const float2*>(p_in + gi);
+      }
+      z_s[(2 * j + h) * 128 + wt] = zv;
+      p_s[(2 * j + h) * 128 + wt] = pv;
+      zf[2 * j + h] = pack_bf16(zv.x, zv.y);
     }
   }
 
-  // U per chain: the TPC adjacent lanes of a chain row reduce in a fixed
-  // order, so the result does not vary from launch to launch
-  const int lc = tid / C::TPC, lq = tid % C::TPC;
-  float zz = 0.0f;
-  for (int c = lq; c < DP; c += C::TPC) {
-    const float v = z_s[lc * DP + c];
-    zz += v * v;
+  float ll0 = 0.0f, ll1 = 0.0f;
+  int gi = 0;
+  for (int k = 0; k <= n_leap; ++k) {
+    if (k == n_leap)
+      gradient<true>(g, ring, &gi, zf, sm, link, nu, &ll0, &ll1);
+    else
+      gradient<false>(g, ring, &gi, zf, sm, link, nu, &ll0, &ll1);
+    // second half kick of step k - 1, first half kick and drift of step k,
+    // each thread on the elements it holds
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float2 im = make_float2(1.0f, 1.0f);
+      if (RT && k < n_leap)
+        im = *reinterpret_cast<const float2*>(inv_mass + 8 * j + 2 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h;
+        float2 zv = z_s[(2 * j + h) * 128 + wt];
+        const float g0 = fmaf(-zv.x, inv_pv, g[i]);
+        const float g1 = fmaf(-zv.y, inv_pv, g[i + 1]);
+        float2 pv = p_s[(2 * j + h) * 128 + wt];
+        if (k > 0) {
+          pv.x = fmaf(half_eps, g0, pv.x);
+          pv.y = fmaf(half_eps, g1, pv.y);
+        }
+        if (k < n_leap) {
+          pv.x = fmaf(half_eps, g0, pv.x);
+          pv.y = fmaf(half_eps, g1, pv.y);
+          zv.x = fmaf(eps, RT ? im.x * pv.x : pv.x, zv.x);
+          zv.y = fmaf(eps, RT ? im.y * pv.y : pv.y, zv.y);
+          z_s[(2 * j + h) * 128 + wt] = zv;
+          zf[2 * j + h] = pack_bf16(zv.x, zv.y);
+        }
+        p_s[(2 * j + h) * 128 + wt] = pv;
+      }
+    }
+  }
+
+  // U per chain, and the state: the thread's own sums of its two rows, then
+  // the four lanes that share a row in a fixed order
+  float zz0 = 0.0f, zz1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      const float2 zv = z_s[(2 * j + h) * 128 + wt];
+      if (h == 0)
+        zz0 += zv.x * zv.x + zv.y * zv.y;
+      else
+        zz1 += zv.x * zv.x + zv.y * zv.y;
+      if (row < n_here) {
+        const size_t o = (size_t)(c0 + row) * DP + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(z_out + o) = zv;
+        *reinterpret_cast<float2*>(p_out + o) = p_s[(2 * j + h) * 128 + wt];
+      }
+    }
   }
 #pragma unroll
-  for (int off = C::TPC / 2; off > 0; off >>= 1) {
-    ll_part += __shfl_xor_sync(0xffffffffu, ll_part, off);
-    zz += __shfl_xor_sync(0xffffffffu, zz, off);
+  for (int off = 1; off <= 2; off <<= 1) {
+    ll0 += __shfl_xor_sync(0xffffffffu, ll0, off);
+    ll1 += __shfl_xor_sync(0xffffffffu, ll1, off);
+    zz0 += __shfl_xor_sync(0xffffffffu, zz0, off);
+    zz1 += __shfl_xor_sync(0xffffffffu, zz1, off);
   }
-  if (lq == 0 && lc < n_here) u_out[c0 + lc] = -(ll_part - 0.5f * zz * inv_pv);
-
-  for (int e = tid; e < BC * DP; e += kThreads) {
-    const int r = e / DP;
-    if (r < n_here) {
-      const size_t gi = (size_t)(c0 + r) * DP + e % DP;
-      z_out[gi] = z_s[e];
-      p_out[gi] = p_s[e];
-    }
+  if (t == 0) {
+    if (r0 < n_here) u_out[c0 + r0] = -(ll0 - 0.5f * zz0 * inv_pv);
+    if (r0 + 8 < n_here) u_out[c0 + r0 + 8] = -(ll1 - 0.5f * zz1 * inv_pv);
   }
 }
 
-template <int BC, int DP, bool RT>
+template <bool RT>
 cudaError_t launch(const void* z, const void* p, const void* X, const void* y,
                    const void* mask, const void* eps_ptr, const void* inv_mass,
                    void* z_out, void* p_out, void* u_out, int n_chains,
                    int n_rows, int n_leap, float half_eps, float eps,
                    float inv_pv, int link, float nu, cudaStream_t stream) {
-  using C = Cfg<BC, DP>;
-  auto kernel = fused_glm_trajectory_kernel<BC, DP, RT>;
+  auto kernel = fused_glm_trajectory_kernel<RT>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((n_chains + BC - 1) / BC);
-  kernel<<<grid, kThreads, C::BYTES, stream>>>(
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const float*>(z), static_cast<const float*>(p),
       static_cast<const bf16*>(X), static_cast<const float*>(y),
       static_cast<const float*>(mask), static_cast<const float*>(eps_ptr),
@@ -382,6 +671,8 @@ cudaError_t launch(const void* z, const void* p, const void* X, const void* y,
   return cudaGetLastError();
 }
 
+// By width, in the open: 128 columns run the warpgroup body above, 256 the
+// WMMA body of fused_glm_trajectory_wmma.cuh.
 template <bool RT>
 int dispatch(const void* z, const void* p, const void* X, const void* y,
              const void* mask, const void* eps_ptr, const void* inv_mass,
@@ -394,13 +685,13 @@ int dispatch(const void* z, const void* p, const void* X, const void* y,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dim_padded == 128)
-    return (int)launch<32, 128, RT>(z, p, X, y, mask, eps_ptr, inv_mass, z_out,
-                                    p_out, u_out, n_chains, n_rows, n_leap,
-                                    half_eps, eps, inv_pv, link, nu, s);
+    return (int)launch<RT>(z, p, X, y, mask, eps_ptr, inv_mass, z_out, p_out,
+                           u_out, n_chains, n_rows, n_leap, half_eps, eps,
+                           inv_pv, link, nu, s);
   if (dim_padded == 256)
-    return (int)launch<32, 256, RT>(z, p, X, y, mask, eps_ptr, inv_mass, z_out,
-                                    p_out, u_out, n_chains, n_rows, n_leap,
-                                    half_eps, eps, inv_pv, link, nu, s);
+    return (int)wmma_body::launch<32, 256, RT>(
+        z, p, X, y, mask, eps_ptr, inv_mass, z_out, p_out, u_out, n_chains,
+        n_rows, n_leap, half_eps, eps, inv_pv, link, nu, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,12 +1,13 @@
 """Build and bind the package's CUDA kernels.
 
-Every source under ``mcmc_tpu_torch/csrc`` is compiled with ``nvcc`` for
-Hopper (``sm_90a``), one compiler process per source and all started
-together, and the objects are linked into one shared library with a plain C
-interface, at first use, into ``build/mcmc_tpu_torch/`` beside the package
-(a directory ``.gitignore`` lists). The library's file name carries a hash
-of all sources and the flags, so an edited source is rebuilt and an
-unchanged tree is loaded as built. The library is bound with ``ctypes``:
+Every source (``*.cu``) under ``mcmc_tpu_torch/csrc`` is compiled with
+``nvcc`` for Hopper (``sm_90a``), one compiler process per source and all
+started together, and the objects are linked into one shared library with a
+plain C interface, at first use, into ``build/mcmc_tpu_torch/`` beside the
+package (a directory ``.gitignore`` lists). The library's file name carries
+a hash of every file the build reads (sources and the headers ``*.cuh``
+they include) and the flags, so an edited file is rebuilt and an unchanged
+tree is loaded as built. The library is bound with ``ctypes``:
 pointers and the stream travel as ``c_void_p``.
 
 Nothing here runs at import: :func:`load` builds and loads on first call.
@@ -23,7 +24,8 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["load", "build", "sources", "DIM_PADDED", "GAUSSIAN_DIM_PADDED",
+__all__ = ["load", "build", "library_path", "sources", "headers",
+           "DIM_PADDED", "GAUSSIAN_DIM_PADDED", "GAUSSIAN_LIVE_WIDTHS",
            "build_seconds", "build_log"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -33,8 +35,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v"]
 # padded model widths the GLM kernel is instantiated for (csrc: launch)
 DIM_PADDED = (128, 256)
-# padded width the Gaussian kernel is instantiated for
+# padded width the Gaussian kernel takes, and the live widths it is
+# instantiated for: a launch runs the smallest that holds the model's
+# dimension (csrc: fused_gaussian_trajectory_launch)
 GAUSSIAN_DIM_PADDED = (128,)
+GAUSSIAN_LIVE_WIDTHS = (32, 64, 104, 128)
 
 _lib = None
 build_seconds = None   # wall time of the build this process ran, if any
@@ -59,18 +64,29 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers():
+    """The headers the sources include, in a fixed order."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the build of the files as they are now lies or will lie: the
+    name carries a hash of the flags and of every source and header."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sources() + headers():
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"kernels-{h.hexdigest()[:16]}.so"
+
+
 def build() -> Path:
-    """Compile the kernel library if no build of these sources exists;
+    """Compile the kernel library if no build of these files exists;
     return its path. The link writes to a temporary name and renames, so a
     concurrent process never loads a half-written library."""
     global build_seconds, build_log
-    srcs = sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
-        h.update(src.name.encode() + b"\0" + src.read_bytes())
-    out = BUILD_DIR / f"kernels-{h.hexdigest()[:16]}.so"
+    out = library_path()
     if out.exists():
         return out
+    srcs = sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
@@ -116,9 +132,9 @@ def load():
         fn.argtypes = [vp] * 8 + [vp, vp] + [ci] * 4 + [cf] + [ci, cf, vp]
         fn.restype = ci
         # z, p, P, mean, eps, z_out, p_out, u_out; n_chains, dim_padded,
-        # n_leap; stream
+        # dim, n_leap; stream
         fn = lib.fused_gaussian_trajectory_launch
-        fn.argtypes = [vp] * 8 + [ci] * 3 + [vp]
+        fn.argtypes = [vp] * 8 + [ci] * 4 + [vp]
         fn.restype = ci
         lib.fused_glm_error_string.argtypes = [ci]
         lib.fused_glm_error_string.restype = ctypes.c_char_p

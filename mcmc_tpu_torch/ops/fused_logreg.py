@@ -199,6 +199,12 @@ def _fused_trajectory_plain(z, p, Xb, y, mask, inv_pv, step_size, n_leap,
     return z, p, u_out
 
 
+def _misaligned(t):
+    """Whether a tensor with a dimension starts at an address that is no
+    multiple of 16: the kernels read their operands in 16-byte pieces."""
+    return bool(t.ndim) and t.data_ptr() % 16 != 0
+
+
 def _check_tensors(what, dev, expect):
     """Raise unless ``dev`` is a CUDA device and every ``(tensor, dtype,
     shape)`` of ``expect`` is contiguous, of that dtype and shape, on it."""
@@ -210,6 +216,11 @@ def _check_tensors(what, dev, expect):
             raise ValueError(
                 f"{what} kernel takes contiguous {dt} {shape} on "
                 f"{dev}; got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if _misaligned(t):
+            raise ValueError(
+                f"{what} kernel reads its operands in 16-byte pieces; got a "
+                f"{tuple(t.shape)} tensor at an address that is no multiple "
+                "of 16 (a view into a larger tensor: pass a copy)")
 
 
 def _eps_on_device(eps, dev):
@@ -495,11 +506,48 @@ def make_fused_trajectory_rt(X, y, prior_scale: float, n_leap: int,
 # whole n_leap trajectory stays on chip (P in registers, z and p likewise).
 # ---------------------------------------------------------------------------
 
-def _fused_gaussian_trajectory_plain(z, p, P, mean, eps, n_leap):
+def _check_live_dim(dim, dp):
+    """The model's dimension of a padded Gaussian problem: ``dp`` when not
+    given, else an int in ``1..dp``."""
+    if dim is None:
+        return dp
+    if int(dim) != dim or not 1 <= int(dim) <= dp:
+        raise ValueError(f"dim must be an int in 1..{dp}, got {dim!r}")
+    return int(dim)
+
+
+def _live_width(dim, dp):
+    """The columns a fused Gaussian trajectory evolves when the model's
+    dimension is ``dim``: the smallest of ``_cuda.GAUSSIAN_LIVE_WIDTHS`` that
+    holds it, the width the kernel runs; ``dp`` where none does or ``dim``
+    is not given."""
+    from mcmc_tpu_torch.ops import _cuda
+
+    dim = _check_live_dim(dim, dp)
+    return min([w for w in _cuda.GAUSSIAN_LIVE_WIDTHS if dim <= w <= dp],
+               default=dp)
+
+
+def _fused_gaussian_trajectory_plain(z, p, P, mean, eps, n_leap, dim=None):
     """Plain PyTorch version of the fused Gaussian trajectory kernel, with
     its signature: ``z``, ``p`` ``(n_chains, Dp)`` f32, ``P`` ``(Dp, Dp)``
     f32, ``mean`` ``(Dp,)`` f32, ``eps`` a float or a 0-d f32 tensor. Row
-    vector times ``P``, f32 throughout. Returns ``(z_new, p_new, U_new)``."""
+    vector times ``P``, f32 throughout. Returns ``(z_new, p_new, U_new)``.
+
+    ``dim`` is the model's dimension (``Dp`` when not given). As in the
+    kernel, only the live block evolves: the first :func:`_live_width`
+    columns of ``z``, ``p`` and ``mean`` with that block of ``P``, and ``U``
+    is that block's. The columns past it come out as they went in; the
+    padding contract (``P`` the identity, ``z``, ``p`` and ``mean`` zero at
+    and past ``dim``) keeps them zero."""
+    dp = z.shape[1]
+    live = _live_width(dim, dp)
+    if live < dp:
+        z_new, p_new, u = _fused_gaussian_trajectory_plain(
+            z[:, :live], p[:, :live], P[:live, :live], mean[:live], eps,
+            n_leap)
+        return (torch.cat([z_new, z[:, live:]], dim=1),
+                torch.cat([p_new, p[:, live:]], dim=1), u)
     half_eps = 0.5 * eps
 
     def grad_of(z):
@@ -517,16 +565,20 @@ def _fused_gaussian_trajectory_plain(z, p, P, mean, eps, n_leap):
     return z, p, u
 
 
-def fused_gaussian_trajectory_cuda(z, p, P, mean, eps, n_leap):
+def fused_gaussian_trajectory_cuda(z, p, P, mean, eps, n_leap, dim=None):
     """Launch the fused Gaussian trajectory kernel
     (``csrc/fused_gaussian_trajectory.cu``) on the card: same signature and
     result as :func:`_fused_gaussian_trajectory_plain`. ``eps`` is a float
     or a 0-d f32 tensor on the card, read by the kernel from device memory.
+    ``dim`` is the model's dimension (``Dp`` when not given): the kernel
+    evolves only the live block, the first :func:`_live_width` columns, and
+    copies the columns past it from the input, as the plain version does.
     Counts its launches in ``fused_gaussian_trajectory_cuda.launches``."""
     from mcmc_tpu_torch.ops import _cuda
 
     n_chains, dp = z.shape
     dev = z.device
+    dim = _check_live_dim(dim, dp)
     eps = _eps_on_device(eps, dev)
     _check_tensors("fused Gaussian trajectory", dev,
                    [(z, torch.float32, (n_chains, dp)),
@@ -548,7 +600,7 @@ def fused_gaussian_trajectory_cuda(z, p, P, mean, eps, n_leap):
         rc = lib.fused_gaussian_trajectory_launch(
             z.data_ptr(), p.data_ptr(), P.data_ptr(), mean.data_ptr(),
             eps.data_ptr(), z_out.data_ptr(), p_out.data_ptr(),
-            u_out.data_ptr(), n_chains, dp, int(n_leap),
+            u_out.data_ptr(), n_chains, dp, dim, int(n_leap),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("fused Gaussian trajectory kernel launch failed: "
@@ -560,13 +612,14 @@ def fused_gaussian_trajectory_cuda(z, p, P, mean, eps, n_leap):
 fused_gaussian_trajectory_cuda.launches = 0
 
 
-def fused_gaussian_trajectory(z, p, P, mean, eps, n_leap):
+def fused_gaussian_trajectory(z, p, P, mean, eps, n_leap, dim=None):
     """The fused Gaussian trajectory on the tensors' device: the plain
     version for CPU tensors, the kernel for CUDA tensors."""
     if z.device.type == "cpu":
-        return _fused_gaussian_trajectory_plain(z, p, P, mean, eps, n_leap)
+        return _fused_gaussian_trajectory_plain(z, p, P, mean, eps, n_leap,
+                                                dim)
     if z.device.type == "cuda":
-        return fused_gaussian_trajectory_cuda(z, p, P, mean, eps, n_leap)
+        return fused_gaussian_trajectory_cuda(z, p, P, mean, eps, n_leap, dim)
     raise ValueError(f"no fused Gaussian trajectory for device {z.device}")
 
 
@@ -610,7 +663,7 @@ def make_fused_gaussian_trajectory(precision, mean=None, step_size=0.1,
                 f"block_chains={block_chains}"
             )
         return fused_gaussian_trajectory(
-            z, p, Pp, m_row, eps_default if eps is None else eps, n_leap)
+            z, p, Pp, m_row, eps_default if eps is None else eps, n_leap, dim)
 
     traj.dim = dim
     traj.dim_padded = Dp

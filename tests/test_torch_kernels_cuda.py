@@ -97,6 +97,50 @@ def test_callable_link_raises_on_card():
         tfl.fused_trajectory(z, p, *args[:-1], link)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains", [1, 63, 65, 16385])
+@pytest.mark.parametrize("dim,n", [(25, 1000), (100, 130), (200, 1000)])
+def test_kernel_tilings(dim, n, chains):
+    """What the tilings make risky, for the fixed-step and the run-time
+    entry alike: a chain count of one, one under and one over a warpgroup's
+    64, and one over the flagship's 16384 (a last block with one chain and
+    an empty second warpgroup); 25 of 128 columns; a row count (130) that
+    is no multiple of the 64-row tile; the 256-column body. At 16385
+    chains a rare element (measured: one of 4.2 million) lands on the other
+    bf16 neighbour of z or r and differs by up to 3e-4 (and that chain's
+    U with it), so there all elements agree to 1e-3 and all but one in
+    100,000 to 1e-4, and U to rtol 1e-3, all but one chain in 1,000 to
+    1e-4."""
+    _require_card()
+    z, p, args = _problem("logistic", dim, n=n, chains=chains)
+    Xb, y, mask, inv_pv, eps, n_leap, link = args
+    assert Xb.shape[0] == -(-n // 64) * 64
+    got = tfl.fused_trajectory_cuda(z, p, *args)
+    want = tfl._fused_trajectory_plain(z, p, *args)
+    im = _inv_mass(z.shape[1], dim)
+    eps_t = torch.tensor(0.013, device="cuda")
+    got_rt = tfl.fused_trajectory_rt_cuda(z, p, Xb, y, mask, inv_pv, eps_t,
+                                          n_leap, link, im)
+    want_rt = tfl._fused_trajectory_plain(z, p, Xb, y, mask, inv_pv, eps_t,
+                                          n_leap, link, im)
+    torch.cuda.synchronize()
+    for (zk, pk, uk), (zp, pp, up) in ((got, want), (got_rt, want_rt)):
+        for a, b in ((zk, zp), (pk, pp)):
+            if chains <= 65:
+                torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+            else:
+                diff = (a - b).abs()
+                assert float(diff.max()) <= 1e-3
+                assert float((diff > 1e-4).float().mean()) <= 1e-5
+        if chains <= 65:
+            torch.testing.assert_close(uk, up, rtol=1e-4, atol=0)
+        else:
+            rel = (uk - up).abs() / up.abs()
+            assert float(rel.max()) <= 1e-3, float(rel.max())
+            assert float((rel > 1e-4).float().mean()) <= 1e-3
+        assert torch.all(zk[:, dim:] == 0) and torch.all(pk[:, dim:] == 0)
+
+
 def _inv_mass(dp, dim):
     im = torch.ones((dp,), device="cuda")
     im[:dim] = torch.linspace(0.5, 2.0, dim, device="cuda")
@@ -165,7 +209,7 @@ def _gaussian_problem(kind, dim, chains, n_leap=32, seed=5):
     p[:, :dim] = torch.tensor(rng.standard_normal((chains, dim)),
                               dtype=torch.float32)
     eps = torch.tensor(0.9, device="cuda")
-    return traj, (z, p, traj.P, traj.mean, eps, n_leap)
+    return traj, (z, p, traj.P, traj.mean, eps, n_leap, dim)
 
 
 @pytest.mark.cuda
@@ -190,6 +234,70 @@ def test_gaussian_kernel_matches_plain(kind, chains):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("chains", [1, 7, 9])
+@pytest.mark.parametrize("dim", [25, 32, 33, 64, 65, 100, 104, 105, 128])
+def test_gaussian_kernel_live_widths(dim, chains):
+    """Every live width the kernel is built for (32, 64, 104, 128) at and
+    beside its edges, with a dense P and a mean; chain counts of one, one
+    under and one over the 8-chain tile; the columns past the model's
+    dimension come out exactly zero."""
+    _require_card()
+    _traj, args = _gaussian_problem("dense", dim, chains)
+    zp, pp, up = tfl._fused_gaussian_trajectory_plain(*args)
+    zk, pk, uk = tfl.fused_gaussian_trajectory_cuda(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(zk, zp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(uk, up, rtol=1e-4, atol=1e-4)
+    assert torch.all(zk[:, dim:] == 0) and torch.all(pk[:, dim:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [25, 60, 100])
+def test_gaussian_kernel_and_plain_agree_past_the_live_width(dim):
+    """With the padding contract broken (state, mean and P non-zero past the
+    live width) kernel and plain version still compute one function: the
+    live block as from clean padding, the other columns as they went in."""
+    _require_card()
+    _traj, args = _gaussian_problem("dense", dim, 9)
+    clean = tfl.fused_gaussian_trajectory_cuda(*args)
+    live = tfl._live_width(dim, 128)
+    z, p, P, mean = (t.clone() for t in args[:4])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for t in (z, p):
+        t[:, live:] = torch.randn(t[:, live:].shape, device="cuda",
+                                  generator=gen)
+    mean[live:] = 2.0
+    P[live:, :] = 0.5
+    P[:, live:] = 0.5
+    zk, pk, uk = tfl.fused_gaussian_trajectory_cuda(z, p, P, mean, *args[4:])
+    zp, pp, up = tfl._fused_gaussian_trajectory_plain(z, p, P, mean,
+                                                      *args[4:])
+    torch.cuda.synchronize()
+    assert torch.equal(zk[:, :live], clean[0][:, :live])
+    assert torch.equal(pk[:, :live], clean[1][:, :live])
+    assert torch.equal(uk, clean[2])
+    for got in (zk, zp):
+        assert torch.equal(got[:, live:], z[:, live:])
+    for got in (pk, pp):
+        assert torch.equal(got[:, live:], p[:, live:])
+    torch.testing.assert_close(zk, zp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(uk, up, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_gaussian_kernel_refuses_a_wrong_dim():
+    """The wrapper raises on a dimension outside 1..dim_padded before any
+    launch."""
+    _require_card()
+    _traj, args = _gaussian_problem("diagonal", 100, 8)
+    for dim in (0, 129):
+        with pytest.raises(ValueError, match="dim must be"):
+            tfl.fused_gaussian_trajectory_cuda(*args[:6], dim)
+
+
+@pytest.mark.cuda
 def test_gaussian_kernel_is_deterministic_and_reads_eps_on_the_card():
     """Two launches give the same bits; the step is read from device
     memory at run time, as a float or a tensor; the trajectory built by
@@ -198,13 +306,14 @@ def test_gaussian_kernel_is_deterministic_and_reads_eps_on_the_card():
     traj, args = _gaussian_problem("dense", 100, 1000)
     a = tfl.fused_gaussian_trajectory_cuda(*args)
     b = tfl.fused_gaussian_trajectory_cuda(*args)
-    c = tfl.fused_gaussian_trajectory_cuda(*args[:4], 0.9, args[5])
+    c = tfl.fused_gaussian_trajectory_cuda(*args[:4], 0.9, *args[5:])
     before = tfl.fused_gaussian_trajectory_cuda.launches
     d = traj(args[0], args[1])
     assert tfl.fused_gaussian_trajectory_cuda.launches == before + 1
     for u, v, w, x in zip(a, b, c, d):
         assert torch.equal(u, v) and torch.equal(u, w) and torch.equal(u, x)
-    e = tfl.fused_gaussian_trajectory_cuda(*args[:4], args[4] * 0.5, args[5])
+    e = tfl.fused_gaussian_trajectory_cuda(*args[:4], args[4] * 0.5,
+                                           *args[5:])
     assert not torch.equal(a[0], e[0])
 
 
