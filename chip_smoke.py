@@ -20,7 +20,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    on the card), with the kernel's launch count, acceptance, leapfrog
    steps/s, max split R-hat and min ESS;
 5. the generic ``hmc`` at 1024 chains over the same transitions, whose
-   posterior mean must agree with the fused run's within 0.3;
+   posterior mean must agree with the fused run's within 0.3; its max
+   split R-hat is printed (phase 9 gates on its mean only if it converged);
 6. the run-time-parameter entry of the GLM kernel at the flagship shapes
    (step size as a 0-d tensor on the card, a diagonal inverse mass):
    against its plain version, bit-equal to phase 3's kernel at inverse
@@ -33,17 +34,34 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    transitions of 157 leapfrogs, from a numpy precision with no
    ``device=``: launch count, acceptance, and mean and variance against
    the analytic answer; rank R-hat, min ESS and leapfrog steps/s printed;
-9. printed and not gated: the Gaussian kernel's time at other chain counts,
-   and for both transitions (``make_fused_hmc_step``,
-   ``make_fused_gaussian_hmc_step``) the time per steady transition, the
-   card's busy share of it and the device time of each kernel by name,
-   under ``torch.profiler``.
+9. adapted NUTS, the main path's quality line, at 1024 chains on the
+   flagship posterior (the protocol of ``bench.py``'s ``nuts`` line:
+   ``build_nuts_kernel`` with pooled dual averaging, windowed diagonal mass
+   and the learned depth budget over 500 warmup draws from ``0.05 N(0,
+   1)``, target accept 0.65, then the sampling kernel rebuilt at the
+   learned cap and 1000 timed draws through ``run_sampler_loop``), after a
+   short ``nuts()`` call from numpy with no ``device=`` that must land on
+   the card: the bench's ``nuts_*`` keys, warmup-inclusive min ESS/s, host
+   synchronisations and leaves per draw; gated on max split and rank
+   R-hat <= 1.01, finite draws, divergences under 1% of draws, and the
+   mean within 0.3 of phase 5's (if phase 5 converged);
+10. the same protocol at 4096 chains (``nuts4096_*``), draws kept on the
+   card and ESS (chunked over chains) and split R-hat computed there; gated
+   on split R-hat and finite draws, and each dimension's posterior mean
+   within 5 combined MC standard errors of phase 9's;
+11. printed and not gated: the Gaussian kernel's time at other chain counts,
+   and for both fused transitions (``make_fused_hmc_step``,
+   ``make_fused_gaussian_hmc_step``) and a steady NUTS draw at 1024 chains
+   the time per step, the card's busy share of it and the device time of
+   each kernel by name, under ``torch.profiler``. It runs last: once the
+   profiler has run in a process, launches stay slower.
 
 Before the last two lines it prints each kernel's bound beside its time: for
 the GLM kernel, per link, the largest of the tensor operations, the link's
 special-function operations and the bytes. The last two lines of output are
 the kernels' JSON record and the result line ``{"ok": true, "device":
-{...}}``. Imports nothing of JAX.
+{...}}``. Imports nothing of JAX. Matmuls run in full FP32 (no TF32)
+throughout, NUTS's gradients included.
 """
 
 import json
@@ -99,6 +117,20 @@ G_TOL_MAX = 2e-4
 G_MEAN_TOL = 0.02
 G_VAR_TOL = 0.03
 G_SWEEP_CHAINS = (256, 1024, 4096, 16384)
+
+# adapted NUTS at the bench's protocol (bench.py:45-58, :128-243)
+NUTS_CHAINS, NUTS_BIG_CHAINS = 1024, 4096
+NUTS_WARMUP, NUTS_KEEP = 500, 1000
+NUTS_TARGET_ACCEPT = 0.65
+NUTS_INIT_SCALE = 0.05
+NUTS_RHAT_MAX = 1.01
+NUTS_DIV_MAX = 0.01          # divergences, as a share of kept draws
+NUTS_ESS_CHUNK = 512
+# two independent converged runs: each dimension's mean difference within
+# this many combined MC standard errors (sd / sqrt(ESS)); 100 dims at 5
+# sigma leave a false alarm under 1e-4
+NUTS_MEAN_SIGMAS = 5.0
+NUTS_PROFILE_WARM, NUTS_PROFILE_DRAWS = 5, 20
 
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds below are
 # the largest of operations over the peak of their type and bytes over the
@@ -191,12 +223,12 @@ def gaussian_bound_ms(n_chains, dim, n_leap):
 
 
 def profile_transitions(paths):
-    """Print, for each ``(name, step, gen, state)`` of ``paths``, over
-    ``PROFILE_STEPS`` steady transitions after ``PROFILE_WARM`` warm ones:
-    the wall time of each without and with ``torch.profiler``, the card's
-    busy share, and the device time of each kernel by name. Every path is
-    timed before any is profiled: once the profiler has run in a process,
-    launches stay slower."""
+    """Print, for each ``(name, step, gen, state, n_warm, n)`` of ``paths``,
+    over ``n`` steady transitions after ``n_warm`` warm ones: the wall time
+    of each without and with ``torch.profiler``, the card's busy share, and
+    the device time of each kernel by name. Every path is timed before any
+    is profiled: once the profiler has run in a process, launches stay
+    slower."""
     from torch.profiler import ProfilerActivity, profile
 
     def run(step, gen, state, n):
@@ -209,11 +241,10 @@ def profile_transitions(paths):
         return state, time.perf_counter() - t0
 
     timed = []
-    for name, step, gen, state in paths:
-        state, _ = run(step, gen, state, PROFILE_WARM)
-        timed.append(run(step, gen, state, PROFILE_STEPS))
-    n = PROFILE_STEPS
-    for (name, step, gen, _), (state, plain_s) in zip(paths, timed):
+    for name, step, gen, state, n_warm, n in paths:
+        state, _ = run(step, gen, state, n_warm)
+        timed.append(run(step, gen, state, n))
+    for (name, step, gen, _, _, n), (state, plain_s) in zip(paths, timed):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             state, prof_s = run(step, gen, state, n)
@@ -258,6 +289,157 @@ def link_data(name, X, beta, rng):
         y = eta.numpy() + 0.5 * rng.standard_normal(N_DATA)
     return torch.tensor(np.asarray(y, np.float64), dtype=torch.float32,
                         device=X.device)
+
+
+def nuts_entry_point(X_np, y_np):
+    """``nuts()`` as a user calls it: numpy start and data, no ``device=``;
+    its draws must be on the card, finite, and repeat bit for bit under the
+    same seed. Short warmup under ``warmup_tree_depth``, so that the early
+    deep trees of an unadapted step stay cheap."""
+    from mcmc_tpu_torch import NUTSSettings, nuts
+    from mcmc_tpu_torch.convert import glm_data
+    from mcmc_tpu_torch.models import logistic_regression_model
+
+    lk = logistic_regression_model(*glm_data(X_np, y_np), PRIOR_SCALE)
+    s = NUTSSettings(n_burnin_draws=30, n_keep_draws=20, n_adapt_draws=30,
+                     target_accept_rate=NUTS_TARGET_ACCEPT)
+    kw = dict(n_chains=64, key=3, pooled_adaptation=True,
+              adapt_mass_matrix=True, adapt_depth=True,
+              static_sampling_depth=True, warmup_tree_depth=4)
+    t0 = time.perf_counter()
+    a = nuts(np.zeros(DIM, np.float32), lk, s, **kw)
+    b = nuts(np.zeros(DIM, np.float32), lk, s, **kw)
+    torch.cuda.synchronize()
+    check(a.draws.is_cuda, "nuts() from numpy with no device= is on the card")
+    check(bool(torch.isfinite(a.draws).all()), "nuts() draws finite")
+    check(torch.equal(a.draws, b.draws), "nuts() repeats under one seed")
+    print(f"nuts(): 64 chains x (30 + 20) draws from numpy, on "
+          f"{a.draws.device}, twice in {time.perf_counter() - t0:.3f} s, "
+          f"bit-equal; depth cap {int(a.diagnostics['depth_cap'].max())}")
+
+
+def nuts_line(X, y, n_chains, prefix, seed, full_diag):
+    """One NUTS quality line at the bench's protocol: warmup (pooled dual
+    averaging, windowed diagonal mass, learned depth budget), the sampling
+    kernel rebuilt at the learned cap, ``NUTS_KEEP`` timed draws kept on the
+    card. Prints the bench's ``{prefix}_*`` keys and gates on convergence.
+    ``full_diag`` adds bulk/tail ESS and rank R-hat (the 1024-chain line);
+    otherwise only ESS (chunked over chains) and split R-hat are computed,
+    on the card. Returns the summary, the sampling kernel, its generator
+    and its last state."""
+    import dataclasses
+    from mcmc_tpu_torch import NUTSSettings, diagnostics, integrators
+    from mcmc_tpu_torch.models import logistic_regression_model
+    from mcmc_tpu_torch.samplers import common
+    from mcmc_tpu_torch.samplers.nuts import build_nuts_kernel
+
+    dev = X.device
+    lk = logistic_regression_model(X, y, PRIOR_SCALE)
+    s = NUTSSettings(n_burnin_draws=NUTS_WARMUP, n_keep_draws=NUTS_KEEP,
+                     n_adapt_draws=NUTS_WARMUP,
+                     target_accept_rate=NUTS_TARGET_ACCEPT)
+    args = (lk, integrators.grad_of(lk),
+            common.make_spd(None, DIM, torch.float32, dev))
+    init, step = build_nuts_kernel(*args, s, NUTS_WARMUP,
+                                   pooled_adaptation=True,
+                                   adapt_mass_matrix=True, adapt_depth=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos0 = NUTS_INIT_SCALE * torch.randn((n_chains, DIM), generator=gen,
+                                         device=dev)
+    collect = lambda st: st.position
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init(gen, pos0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, _, _ = common.run_sampler_loop(gen, state, step, NUTS_WARMUP, 0,
+                                          collect)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    warm_counts = dict(step.counts)
+
+    # the sampling kernel, rebuilt at the learned budget (one host sync)
+    cap = int(state.depth_cap.max())
+    _init, step2 = build_nuts_kernel(
+        *args, dataclasses.replace(s, max_tree_depth=cap), NUTS_WARMUP,
+        pooled_adaptation=True, adapt_mass_matrix=True)
+    state = state._replace(
+        depth_hist=state.depth_hist.new_zeros((n_chains, cap + 1)),
+        depth_cap=torch.clamp_max(state.depth_cap, cap))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, draws, infos = common.run_sampler_loop(gen, state, step2, 0,
+                                                  NUTS_KEEP, collect)
+    torch.cuda.synchronize()
+    t_samp = time.perf_counter() - t0
+    samp_counts = dict(step2.counts)
+
+    check(draws.is_cuda and tuple(draws.shape) == (NUTS_KEEP, n_chains, DIM),
+          f"{prefix}: draws on the card, shape (keep, chains, dim)")
+    finite = bool(torch.isfinite(draws).all())
+    t0 = time.perf_counter()
+    ess = diagnostics.ess(draws, chain_chunk=NUTS_ESS_CHUNK)
+    ess_min = float(ess.min())
+    rhat = float(diagnostics.split_rhat(draws).max())
+    p = prefix
+    n_div = int(infos["diverged"].sum())
+    res = {
+        f"{p}_min_ess_per_sec": ess_min / t_samp,
+        f"{p}_draws_per_sec": NUTS_KEEP * n_chains / t_samp,
+        f"{p}_max_split_rhat": rhat,
+        f"{p}_converged": rhat <= NUTS_RHAT_MAX,
+        f"{p}_mean_tree_depth": float(infos["tree_depth"].float().mean()),
+        f"{p}_n_divergent": n_div,
+        f"{p}_warmup_seconds": t_warm,
+        f"{p}_sample_seconds": t_samp,
+        f"{p}_chains": n_chains,
+        f"{p}_adapted_step_size": float(state.epsilon_bar[0]),
+        f"{p}_target_accept": NUTS_TARGET_ACCEPT,
+        f"{p}_static_depth_cap": cap,
+    }
+    if full_diag:
+        rank_rhat = float(diagnostics.rank_normalized_rhat(draws).max())
+        res.update({
+            f"{p}_bulk_ess_per_sec":
+                float(diagnostics.bulk_ess(draws).min()) / t_samp,
+            f"{p}_tail_ess_per_sec":
+                float(diagnostics.tail_ess(draws).min()) / t_samp,
+            f"{p}_max_rank_rhat": rank_rhat,
+        })
+        res[f"{p}_converged"] = res[f"{p}_converged"] and \
+            rank_rhat <= NUTS_RHAT_MAX
+    torch.cuda.synchronize()
+    t_diag = time.perf_counter() - t0
+    res.update({
+        f"{p}_init_seconds": t_init,
+        f"{p}_min_ess_per_sec_with_warmup": ess_min / (t_init + t_warm
+                                                       + t_samp),
+        f"{p}_warmup_leaves_per_draw": warm_counts["leaves"] / NUTS_WARMUP,
+        f"{p}_warmup_syncs_per_draw": warm_counts["syncs"] / NUTS_WARMUP,
+        f"{p}_sample_leaves_per_draw": samp_counts["leaves"] / NUTS_KEEP,
+        f"{p}_sample_syncs_per_draw": samp_counts["syncs"] / NUTS_KEEP,
+        f"{p}_ms_per_leaf_warmup": 1e3 * t_warm / warm_counts["leaves"],
+        f"{p}_ms_per_leaf_sample": 1e3 * t_samp / samp_counts["leaves"],
+        f"{p}_diagnostics_seconds": t_diag,
+    })
+    print(f"{prefix}: {n_chains} chains, {NUTS_WARMUP} warmup draws in "
+          f"{t_warm:.3f} s, {NUTS_KEEP} draws in {t_samp:.3f} s at cap {cap} "
+          f"(FP32 matmuls, no TF32); {json.dumps(res)}")
+    check(finite, f"{prefix}: every draw finite")
+    check(rhat <= NUTS_RHAT_MAX, f"{prefix}: max split R-hat {rhat:.4f} <= "
+          f"{NUTS_RHAT_MAX}")
+    if full_diag:
+        check(rank_rhat <= NUTS_RHAT_MAX, f"{prefix}: max rank R-hat "
+              f"{rank_rhat:.4f} <= {NUTS_RHAT_MAX}")
+        check(n_div < NUTS_DIV_MAX * NUTS_KEEP * n_chains,
+              f"{prefix}: {n_div} divergences, under {NUTS_DIV_MAX:.0%} of "
+              "draws")
+    summary = {"mean": draws.mean(dim=(0, 1)),
+               "mcse": draws.std(dim=(0, 1)) / torch.sqrt(ess)}
+    del draws, infos
+    return summary, step2, gen, state
 
 
 def main():
@@ -380,12 +562,13 @@ def main():
               key=13)
     torch.cuda.synchronize()
     diff = float((ref.draws.mean(dim=(0, 1)) - fused_mean).abs().max())
+    hmc_rhat = float(diagnostics.split_rhat(ref.draws).max())
     print(f"hmc: {HMC_CHAINS} chains, {n_trans} transitions in "
           f"{time.perf_counter() - t0:.3f} s; accept "
           f"{float(ref.accept_rate.mean()):.4f}; max |mean - fused mean| "
-          f"{diff:.4f} (tol {MEAN_ATOL})")
+          f"{diff:.4f} (tol {MEAN_ATOL}); max split R-hat {hmc_rhat:.4f}")
     check(diff <= MEAN_ATOL, f"hmc mean within {MEAN_ATOL} of the fused mean")
-
+    hmc_mean = ref.draws.mean(dim=(0, 1))
     del ref
 
     # --- the run-time-parameter entry of the GLM kernel, flagship shapes
@@ -545,18 +728,44 @@ def main():
     check(var_err <= G_VAR_TOL, f"Gaussian variance within {G_VAR_TOL}")
     del out
 
+    # --- adapted NUTS, the quality line, before any profiler runs
+    nuts_entry_point(X_np, y_np)
+    out, nuts_step, nuts_gen, nuts_state = nuts_line(
+        X, y, NUTS_CHAINS, "nuts", 40, full_diag=True)
+    nuts_diff = float((out["mean"] - hmc_mean).abs().max())
+    if hmc_rhat <= NUTS_RHAT_MAX:
+        print(f"nuts: max |mean - hmc mean| {nuts_diff:.4f} (tol {MEAN_ATOL})")
+        check(nuts_diff <= MEAN_ATOL, f"nuts mean within {MEAN_ATOL} of "
+              "phase 5's hmc mean")
+    else:
+        print(f"nuts: max |mean - hmc mean| {nuts_diff:.4f}, not gated: "
+              f"phase 5's hmc did not converge (max split R-hat "
+              f"{hmc_rhat:.4f} > {NUTS_RHAT_MAX})")
+    big, *_ = nuts_line(X, y, NUTS_BIG_CHAINS, "nuts4096", 41,
+                        full_diag=False)
+    z = float(((out["mean"] - big["mean"]).abs()
+               / torch.hypot(out["mcse"], big["mcse"])).max())
+    print(f"nuts vs nuts4096: max |mean difference| / combined MC standard "
+          f"error {z:.3f} over {DIM} dims (tol {NUTS_MEAN_SIGMAS:g})")
+    check(z <= NUTS_MEAN_SIGMAS, "the two NUTS lines' posterior means agree "
+          f"within {NUTS_MEAN_SIGMAS:g} MC standard errors")
+
     # --- where the time of a steady transition goes (printed, not gated)
     gen = torch.Generator(device=dev).manual_seed(30)
     glm_step = fl.make_fused_hmc_step(X_np, y_np, PRIOR_SCALE, STEP_SIZE,
                                       N_LEAP)
     g_step = fl.make_fused_gaussian_hmc_step(
         prec_np, step_size=G_STEP, n_leap=G_LEAP, step_jitter=G_JITTER)
-    profile_transitions([   # the launch-bound one first
+    profile_transitions([   # the launch-bound ones first
+        ("NUTS draw (1024 chains, sampling kernel)", nuts_step, nuts_gen,
+         nuts_state, NUTS_PROFILE_WARM, NUTS_PROFILE_DRAWS),
         ("Gaussian transition", g_step, gen, g_step.init(
             G_INIT_SCALE * torch.randn((G_CHAINS, G_DIM), generator=gen,
-                                       device=dev))),
+                                       device=dev)),
+         PROFILE_WARM, PROFILE_STEPS),
         ("GLM transition", glm_step, gen, glm_step.init(0.05 * torch.randn(
-            (N_CHAINS, DIM), generator=gen, device=dev)))])
+            (N_CHAINS, DIM), generator=gen, device=dev)),
+         PROFILE_WARM, PROFILE_STEPS)])
 
     # bounds from the model's own sizes (the work the function needs); the
     # padded shapes the kernels are handed give the *_padded figures

@@ -13,7 +13,8 @@ One API difference: user log-kernels are batched,
 Ported so far: the fused-HMC paths (``fused_glm_hmc`` on GLM posteriors,
 ``fused_gaussian_hmc`` on multivariate Gaussians, and the ``ops.make_fused_*``
 factories, whose trajectories are hand-written CUDA kernels on the card), the
-generic ``hmc`` they are checked against, and the R-hat/ESS diagnostics.
+generic ``hmc`` they are checked against, adapted ``nuts`` (plain PyTorch, a
+batched lockstep tree), and the diagnostics.
 The CUDA kernels are built at their first launch, so this package imports
 without CUDA, nvcc or Triton.
 
@@ -50,6 +51,7 @@ from mcmc_tpu_torch.settings import (
 )
 from mcmc_tpu_torch.results import SamplerResult
 from mcmc_tpu_torch.samplers.hmc import hmc
+from mcmc_tpu_torch.samplers.nuts import nuts
 from mcmc_tpu_torch.ops.fused_sampler import fused_glm_hmc, fused_gaussian_hmc
 from mcmc_tpu_torch import diagnostics, models
 
@@ -60,6 +62,6 @@ __all__ = [
     "SMCSettings", "StretchSettings", "SGLDSettings", "SGHMCSettings",
     "EllipticalSettings", "SliceSettings", "GibbsSettings", "MCLMCSettings",
     "MAMSSettings", "EvidenceSettings", "BarkerSettings", "MMALASettings",
-    "SamplerResult", "hmc", "fused_glm_hmc", "fused_gaussian_hmc",
+    "SamplerResult", "hmc", "nuts", "fused_glm_hmc", "fused_gaussian_hmc",
     "diagnostics", "models",
 ]

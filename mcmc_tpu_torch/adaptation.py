@@ -1,5 +1,6 @@
 """Step-size and mass adaptation (PyTorch port of the parts of
-``mcmc_tpu.adaptation`` that :func:`mcmc_tpu_torch.hmc` uses).
+``mcmc_tpu.adaptation`` that :func:`mcmc_tpu_torch.hmc` and
+:func:`mcmc_tpu_torch.nuts` use).
 
 The reference's only adaptation is NUTS's dual averaging (src/nuts.cpp:
 294-302); this module provides the same Nesterov dual-averaging recursion as
@@ -80,12 +81,15 @@ def window_schedule(n_adapt: int, device=None):
 
 
 def windowed_mass_update(count, mean, m2, inv_mass, chol, x,
-                         collecting, window_end, mode):
+                         collecting, window_end, mode, pooled=False):
     """One draw of windowed Welford mass estimation per chain (diag or
     dense). Folds ``x`` ``(n_chains, d)`` where ``collecting``
     ``(n_chains,)``; at ``window_end`` adopts the regularized (co)variance —
     Stan-style ``n/(n+5)`` shrinkage toward ``1e-3 (I)`` — as the new
     inverse mass (+ its Cholesky in dense mode) and resets the accumulator.
+    ``pooled=True`` averages the chains' ``m2 / (n - 1)`` over the chain
+    axis before the shrinkage, as the JAX package's ``lax.pmean`` over the
+    named chain axis does, so that every chain adopts one estimate.
     Returns ``(count, mean, m2, inv_mass, chol)``."""
     dtype = x.dtype
     cnt1 = count + 1
@@ -108,6 +112,8 @@ def windowed_mass_update(count, mean, m2, inv_mass, chol, x,
     if mode == "dense":
         n3 = n[:, None, None]
         var = m2 / (n3 - 1.0)
+        if pooled:
+            var = var.mean(dim=0, keepdim=True)
         eye = torch.eye(x.shape[1], dtype=dtype, device=x.device)
         var = (n3 / (n3 + 5.0)) * 0.5 * (var + var.transpose(1, 2)) \
             + shrink[:, None, None] * eye
@@ -116,7 +122,10 @@ def windowed_mass_update(count, mean, m2, inv_mass, chol, x,
         chol = torch.where(wend, torch.linalg.cholesky_ex(var)[0], chol)
     else:
         n2 = n[:, None]
-        var = (n2 / (n2 + 5.0)) * (m2 / (n2 - 1.0)) + shrink[:, None]
+        var = m2 / (n2 - 1.0)
+        if pooled:
+            var = var.mean(dim=0, keepdim=True)
+        var = (n2 / (n2 + 5.0)) * var + shrink[:, None]
     inv_mass = torch.where(wend, var, inv_mass)
     count = torch.where(window_end, torch.zeros_like(count), count)
     mean = torch.where(window_end[:, None], torch.zeros_like(mean), mean)

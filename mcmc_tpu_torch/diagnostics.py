@@ -1,5 +1,5 @@
-"""Convergence diagnostics (PyTorch port of the split R-hat and ESS family
-of ``mcmc_tpu.diagnostics``).
+"""Convergence diagnostics (PyTorch port of ``mcmc_tpu.diagnostics``: the
+split R-hat and ESS family, streaming moments, HDI and ``summary``).
 
 All functions take ``draws`` of shape ``(n_draws, n_chains, n_vals)`` (a
 single chain may pass ``(n_draws, n_vals)``) as a tensor on any device, or
@@ -13,8 +13,11 @@ import math
 
 import torch
 
+from mcmc_tpu_torch.samplers._resolve import resolve_device
+
 __all__ = ["split_rhat", "ess", "rank_normalized_rhat", "bulk_ess",
-           "tail_ess"]
+           "tail_ess", "moments_init", "moments_update", "moments_finalize",
+           "moments_rhat", "hdi", "summary"]
 
 
 def _ensure_3d(draws):
@@ -169,3 +172,83 @@ def tail_ess(draws, chain_chunk=None):
     e05 = ess((split <= q05).to(draws.dtype), chain_chunk=chain_chunk)
     e95 = ess((split <= q95).to(draws.dtype), chain_chunk=chain_chunk)
     return torch.minimum(e05, e95)
+
+
+def moments_init(n_chains, n_vals, dtype=torch.float32, device=None):
+    """Streaming Welford accumulator over draws, per chain x dim, for runs
+    too long to keep their draws: fold each kept draw with
+    :func:`moments_update` and compute mean, variance and R-hat at the end
+    with O(chains x dims) memory. ``device`` defaults to the card."""
+    device = resolve_device(device)
+    z = torch.zeros((n_chains, n_vals), dtype=dtype, device=device)
+    return {"count": torch.zeros((), dtype=torch.int32, device=device),
+            "mean": z, "m2": z}
+
+
+def moments_update(m, x):
+    """Fold one draw batch ``x`` of shape (n_chains, n_vals)."""
+    count = m["count"] + 1
+    delta = x - m["mean"]
+    mean = m["mean"] + delta / count.to(x.dtype)
+    m2 = m["m2"] + delta * (x - mean)
+    return {"count": count, "mean": mean, "m2": m2}
+
+
+def moments_finalize(m):
+    """Returns (per-chain mean, per-chain variance) tensors."""
+    n = torch.clamp_min(m["count"], 2).to(m["mean"].dtype)
+    return m["mean"], m["m2"] / (n - 1)
+
+
+def moments_rhat(m):
+    """R-hat from streaming moments (non-split: between/within-chain
+    variances only, no draw storage)."""
+    chain_mean, chain_var = moments_finalize(m)
+    n = m["count"].to(chain_mean.dtype)
+    w = chain_var.mean(dim=0)
+    b = n * chain_mean.var(dim=0, unbiased=True)
+    var_plus = (n - 1) / n * w + b / n
+    return torch.sqrt(var_plus / w)
+
+
+def hdi(draws, prob=0.94):
+    """Highest-density interval of the pooled draws, per dimension:
+    the minimal-width window over the sorted pooled sample (exact for
+    unimodal posteriors; arviz's default estimator and 94% convention).
+    Returns a ``(2, n_vals)`` tensor of (low, high) bounds."""
+    draws = _ensure_3d(draws)
+    pooled = draws.reshape(-1, draws.shape[-1])       # (N, dim)
+    n = pooled.shape[0]
+    srt = torch.sort(pooled, dim=0).values
+    w = min(n - 1, max(1, math.floor(prob * n)))      # interval covers w+1 points
+    widths = srt[w:] - srt[:n - w]                    # (n-w, dim)
+    lo_ix = torch.argmin(widths, dim=0)               # (dim,)
+    cols = torch.arange(pooled.shape[-1], device=pooled.device)
+    return torch.stack([srt[lo_ix, cols], srt[lo_ix + w, cols]])
+
+
+def summary(draws, quantiles=(0.05, 0.5, 0.95), hdi_prob=0.94):
+    """Posterior summary dict: mean, sd, MCSE, quantiles, HDI, split/rank
+    R-hat, bulk/tail ESS. Quantile keys are ``"q5"``/``"q50"``/``"q95"``
+    (percent, trailing zeros trimmed); HDI bounds are ``"hdi_low"``/
+    ``"hdi_high"`` at ``hdi_prob`` mass."""
+    draws = _ensure_3d(draws)
+    axes = (0, 1)
+    sd = draws.std(dim=axes, unbiased=False)
+    n_eff = ess(draws)
+    bounds = hdi(draws, hdi_prob)
+    out = {
+        "mean": draws.mean(dim=axes),
+        "sd": sd,
+        "mcse": sd / torch.sqrt(n_eff),
+        "rhat": split_rhat(draws),
+        "ess": n_eff,
+        "rhat_rank": rank_normalized_rhat(draws),
+        "ess_bulk": bulk_ess(draws),
+        "ess_tail": tail_ess(draws),
+        "hdi_low": bounds[0],
+        "hdi_high": bounds[1],
+    }
+    for p, row in zip(quantiles, _pooled_quantiles(draws, quantiles)):
+        out[f"q{100 * p:g}".replace(".", "_")] = row
+    return out

@@ -21,7 +21,8 @@ from mcmc_tpu_torch import bounds as bounds_mod
 from mcmc_tpu_torch.samplers._resolve import resolve_device
 
 __all__ = ["SPD", "make_spd", "Problem", "setup_problem", "run_sampler_loop",
-           "tally_accepts", "thin_step", "attach_resume", "finalize_draws"]
+           "tally_accepts", "thin_step", "attach_resume", "finalize_draws",
+           "where_chains"]
 
 
 @dataclass(frozen=True)
@@ -163,6 +164,13 @@ def setup_problem(initial_vals, log_kernel, algo, n_chains: Optional[int],
         box_log_kernel=box, first_draw=first, n_chains=n_chains_eff,
         squeeze=squeeze,
     )
+
+
+def where_chains(cond, new, old):
+    """Per-chain select: ``cond`` ``(n_chains,)`` picks each chain's row
+    of ``new`` or ``old`` (any trailing shape)."""
+    return torch.where(cond.reshape(cond.shape + (1,) * (new.ndim - 1)),
+                       new, old)
 
 
 def tally_accepts(infos):

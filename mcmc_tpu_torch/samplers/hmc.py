@@ -44,11 +44,6 @@ class HMCState(NamedTuple):
     w_m2: torch.Tensor         # (c, d) diagonal or (c, d, d) outer-product
 
 
-def _where(cond, new, old):
-    return torch.where(cond.reshape(cond.shape + (1,) * (new.ndim - 1)),
-                       new, old)
-
-
 def build_hmc_kernel(box_log_kernel, grad_fn, precond: common.SPD,
                      step_size, n_leap_steps, adapt_cfg=None,
                      mass_cfg=None):
@@ -135,7 +130,7 @@ def build_hmc_kernel(box_log_kernel, grad_fn, precond: common.SPD,
                        device=pos.device)
         accepted = u < torch.exp(comp)
 
-        position = _where(accepted, new_pos, pos)
+        position = common.where_chains(accepted, new_pos, pos)
 
         da = state.da
         if adapt_cfg is not None:

@@ -1,5 +1,5 @@
-"""The PyTorch port's R-hat and ESS diagnostics against the JAX package's on
-the same numpy draws.
+"""The PyTorch port's diagnostics (R-hat and ESS, streaming moments, HDI
+and ``summary``) against the JAX package's on the same numpy draws.
 
 Tolerance rtol 1e-4: both sides compute in f32 by the same formulas; the
 FFT implementations and summation orders differ in the last bits, and the
@@ -35,7 +35,21 @@ CASES = {
     "bulk_ess": lambda d, x: d.bulk_ess(x),
     "tail_ess": lambda d, x: d.tail_ess(x),
     "single_chain_ess": lambda d, x: d.ess(x[:, 0, :]),
+    "hdi": lambda d, x: d.hdi(x),
+    "hdi_50": lambda d, x: d.hdi(x, prob=0.5),
+    "moments_mean": lambda d, x: d.moments_finalize(_fold(d, x))[0],
+    "moments_var": lambda d, x: d.moments_finalize(_fold(d, x))[1],
+    "moments_rhat": lambda d, x: d.moments_rhat(_fold(d, x)),
 }
+
+
+def _fold(d, x):
+    """Fold every draw of ``x`` into ``d``'s streaming moments."""
+    kw = {"device": "cpu"} if d is td else {}
+    m = d.moments_init(x.shape[1], x.shape[2], **kw)
+    for t in range(x.shape[0]):
+        m = d.moments_update(m, x[t])
+    return m
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -50,3 +64,18 @@ def test_diagnostic_matches_jax(name):
 def test_chain_chunk_must_divide():
     with pytest.raises(ValueError, match="divide"):
         td.ess(torch.from_numpy(_draws()), chain_chunk=3)
+
+
+SUMMARY_KEYS = ["mean", "sd", "mcse", "rhat", "ess", "rhat_rank", "ess_bulk",
+                "ess_tail", "hdi_low", "hdi_high", "q5", "q50", "q95"]
+
+
+@pytest.mark.parametrize("key", SUMMARY_KEYS)
+def test_summary_matches_jax(key):
+    """Every key of ``summary``, with the JAX package's names."""
+    x = _draws()
+    want = jd.summary(x)
+    got = td.summary(torch.from_numpy(x))
+    assert sorted(got) == sorted(want) == sorted(SUMMARY_KEYS)
+    np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                               rtol=1e-4)

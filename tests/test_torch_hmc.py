@@ -4,6 +4,7 @@ posterior. Inputs are made with numpy from a seed and handed to both."""
 
 import dataclasses
 import importlib
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +31,8 @@ from mcmc_tpu_torch.samplers import common as tcommon
 # module's name
 jhmc = importlib.import_module("mcmc_tpu.samplers.hmc")
 thmc = importlib.import_module("mcmc_tpu_torch.samplers.hmc")
+jnuts = importlib.import_module("mcmc_tpu.samplers.nuts")
+tnuts = importlib.import_module("mcmc_tpu_torch.samplers.nuts")
 
 D, N = 10, 64
 
@@ -59,6 +62,21 @@ def test_settings_surface_matches():
     assert len(jsurf) == 24
     assert tsurf == jsurf
     assert tset.__all__ == jset.__all__
+
+
+def test_nuts_surface_matches():
+    """``nuts()``: the JAX package's parameters, kinds and defaults, in
+    order, plus the ``device`` keyword every entry point of the port adds;
+    the module's public names are the same, and both packages export
+    ``nuts`` at the top."""
+    jsig = inspect.signature(jnuts.nuts).parameters
+    tsig = dict(inspect.signature(tnuts.nuts).parameters)
+    assert tsig.pop("device").default is None
+    assert [(p.name, p.kind, p.default) for p in tsig.values()] == \
+        [(p.name, p.kind, p.default) for p in jsig.values()]
+    assert tnuts.__all__ == jnuts.__all__
+    assert mcmc_tpu_torch.nuts is tnuts.nuts and "nuts" in mcmc_tpu.__all__
+    assert "nuts" in mcmc_tpu_torch.__all__
 
 
 @pytest.mark.parametrize("kind", ["identity", "diag"])

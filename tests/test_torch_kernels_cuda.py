@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the port's NUTS (plain PyTorch) run on it.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports no JAX, so that it runs on a machine without it:
@@ -334,3 +335,30 @@ def test_widths_not_instantiated_raise():
     z = torch.zeros((8, glm.dim_padded), device="cuda")
     with pytest.raises(ValueError, match="dim_padded"):
         glm(z, z.clone())
+
+
+@pytest.mark.cuda
+def test_nuts_on_the_card_repeats_under_one_seed():
+    """``nuts`` at 64 chains on the flagship target (100 dims, 1000 rows),
+    from numpy data and start with no ``device=``: it runs on the card,
+    its draws are finite, and two runs with one seed are bit-equal."""
+    _require_card()
+    from mcmc_tpu_torch import NUTSSettings, nuts
+    from mcmc_tpu_torch.convert import glm_data
+    from mcmc_tpu_torch.models import (logistic_regression_model,
+                                       make_logistic_regression_data)
+
+    X, y, _ = make_logistic_regression_data(0, 1000, 100, device="cpu")
+    lk = logistic_regression_model(*glm_data(X.numpy(), y.numpy()))
+    s = NUTSSettings(n_burnin_draws=30, n_keep_draws=30, n_adapt_draws=30,
+                     target_accept_rate=0.65)
+    kw = dict(n_chains=64, key=7, pooled_adaptation=True,
+              adapt_mass_matrix=True, adapt_depth=True,
+              warmup_tree_depth=4)
+    a = nuts(np.zeros(100, np.float32), lk, s, **kw)
+    b = nuts(np.zeros(100, np.float32), lk, s, **kw)
+    assert a.draws.is_cuda and a.draws.shape == (30, 64, 100)
+    assert bool(torch.isfinite(a.draws).all())
+    assert torch.equal(a.draws, b.draws)
+    for k in ("tree_depth", "accept_stat", "step_size"):
+        assert torch.equal(a.diagnostics[k], b.diagnostics[k]), k

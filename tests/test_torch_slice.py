@@ -94,6 +94,15 @@ NO_DEVICE_CALLS = {
     "ill_conditioned_gaussian": lambda X, y: mcmc_tpu_torch.models
     .ill_conditioned_gaussian(10),
     "convert.glm_data": lambda X, y: convert.glm_data(X, y),
+    "nuts": lambda X, y: mcmc_tpu_torch.nuts(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        mcmc_tpu_torch.NUTSSettings(n_burnin_draws=1, n_keep_draws=1)),
+    "eight_schools_model": lambda X, y: mcmc_tpu_torch.models
+    .eight_schools_model(),
+    "gaussian_mean_scale_model": lambda X, y: mcmc_tpu_torch.models
+    .gaussian_mean_scale_model(X[:, 0]),
+    "moments_init": lambda X, y: mcmc_tpu_torch.diagnostics
+    .moments_init(4, D),
 }
 
 
