@@ -5,7 +5,9 @@ Deterministic pieces get the same numpy inputs on both sides: the subtree
 the initial step size, the pooled mass estimate and the depth-cap rule.
 The samplers draw from different generators, so the rest is distributional,
 on the cases of ``tests/test_nuts.py``: each tolerance is a multiple of the
-run's own Monte-Carlo standard error, from the port's ESS. The port pays per
+run's own Monte-Carlo standard error, from the port's ESS. What adaptation
+ends with (step size, inverse mass) is held against the spread of several
+JAX seeds, run as one ``jax.vmap`` of ``mcmc_tpu.nuts``. The port pays per
 leaf, not per chain, so the runs use many chains and few draws.
 """
 
@@ -27,6 +29,7 @@ from mcmc_tpu_torch import adaptation as tadapt
 from mcmc_tpu_torch import convert
 from mcmc_tpu_torch import diagnostics as td
 from mcmc_tpu_torch import integrators as tint
+from mcmc_tpu_torch.samplers import common as tcommon
 from mcmc_tpu_torch import models as tmodels
 from mcmc_tpu_torch.models import (logistic_regression_model as tlogreg,
                                    make_logistic_regression_data)
@@ -346,7 +349,7 @@ def test_eight_schools_exact_posterior():
     lk = tmodels.eight_schools_model(non_centered=True,
                                      tau_prior="half_cauchy", device="cpu")
     out = mcmc_tpu_torch.nuts(torch.zeros(10), lk,
-                              _settings(150, 100, target_accept_rate=0.9),
+                              _settings(150, 100, target_accept_rate=0.8),
                               n_chains=256, key=1, adapt_mass_matrix=True,
                               pooled_adaptation=True)
     d = out.draws
@@ -465,32 +468,188 @@ def test_static_sampling_depth_and_guard_rails():
         assert msgs[0] == msgs[1]
 
 
+JAX_SEEDS = 8     # JAX runs of a case, for the seed spread
+
+
+def _jax_over_seeds(x0, log_kernel, n_warm, n_keep, **kw):
+    """``mcmc_tpu.nuts`` under ``jax.vmap`` over ``JAX_SEEDS`` keys (one
+    compile): the kept draws as ``(draws, seeds x chains, d)``, and each
+    seed's final step size and inverse mass (of chain 0: pooled, every
+    chain holds the same)."""
+    s = mcmc_tpu.NUTSSettings(n_burnin_draws=n_warm, n_keep_draws=n_keep,
+                              n_adapt_draws=n_warm,
+                              target_accept_rate=0.8)
+
+    def run(key):
+        r = mcmc_tpu.nuts(x0, log_kernel, s, key=key, **kw)
+        return (r.draws, r.diagnostics["step_size"][-1, 0],
+                r.diagnostics["inv_mass_diag"][0])
+
+    draws, eps, inv_mass = jax.jit(jax.vmap(run))(
+        jax.random.split(jax.random.PRNGKey(0), JAX_SEEDS))
+    draws = torch.tensor(np.asarray(draws)).transpose(0, 1)
+    return (draws.reshape(n_keep, -1, draws.shape[-1]), np.asarray(eps),
+            np.asarray(inv_mass))
+
+
+def _assert_same_moments(jd, pd, pairs=False):
+    """Means and variances (with ``pairs``, every second moment) of the two
+    packages' draws within 4 combined MC standard errors."""
+    d = jd.shape[-1]
+    fs = []
+    for i in range(d):
+        fs.append((f"mean {i}", lambda a, i=i: a[..., i]))
+        for j in range(i, d if pairs else i + 1):
+            fs.append((f"moment {i}{j}",
+                       lambda a, i=i, j=j: (a[..., i] - a[..., i].mean())
+                       * (a[..., j] - a[..., j].mean())))
+    for name, f in fs:
+        a, b = f(jd), f(pd)
+        tol = N_SIGMA * np.hypot(_mcse(a), _mcse(b))
+        diff = abs(float(a.mean()) - float(b.mean()))
+        assert diff <= tol, (name, diff, tol)
+
+
+def _assert_in_seed_spread(what, want, got):
+    """The port's one seed against JAX's ``JAX_SEEDS``: within 4 standard
+    deviations of their spread, widened by sqrt(1 + 1/JAX_SEEDS) (a
+    prediction interval for one more seed), entry by entry."""
+    want = want.reshape(JAX_SEEDS, -1)
+    got = np.asarray(got).reshape(-1)
+    spread = want.std(axis=0, ddof=1) * np.sqrt(1.0 + 1.0 / JAX_SEEDS)
+    z = np.abs(got - want.mean(axis=0)) / spread
+    assert (z <= N_SIGMA).all(), (what, got, want.mean(axis=0), spread)
+
+
 def test_logistic_regression_matches_jax():
-    """d = 5, 200 rows, the same numpy data through ``mcmc_tpu.nuts`` and
-    the port's ``nuts`` (pooled adaptation, diagonal mass): posterior means
-    and variances agree within 4 combined MC standard errors."""
+    """d = 5, 200 rows, the same numpy data through ``mcmc_tpu.nuts`` (8
+    seeds under ``jax.vmap``, 10 kept draws each) and the port's ``nuts``
+    (one seed, 100 kept draws), pooled adaptation and diagonal mass over 100
+    warmup draws. Posterior means and variances agree within 4 combined MC
+    standard errors (JAX's 8 x 128 chains counted as one batch). What the
+    adaptation ends with, the pooled step size (dual averaging with its
+    clock restarted at each mass window's end) and each entry of the pooled
+    inverse mass, lies within JAX's seed spread (``_assert_in_seed_spread``);
+    pooled, every chain of the port holds the same values."""
     X, y = _flagship()
     d = X.shape[1]
     kw = dict(n_chains=128, pooled_adaptation=True, adapt_mass_matrix=True)
-    s = dict(n_burnin_draws=100, n_keep_draws=100, n_adapt_draws=100,
-             target_accept_rate=0.8)
-    ref = mcmc_tpu.nuts(jnp.zeros(d), jlogreg(X, y),
-                        mcmc_tpu.NUTSSettings(**s), key=jax.random.PRNGKey(0),
-                        **kw)
+    jd, j_eps, j_inv_mass = _jax_over_seeds(jnp.zeros(d), jlogreg(X, y), 100,
+                                            10, **kw)
     out = mcmc_tpu_torch.nuts(torch.zeros(d),
                               tlogreg(*convert.glm_data(X, y, "cpu")),
-                              mcmc_tpu_torch.NUTSSettings(**s), key=0, **kw)
-    jd = torch.tensor(np.asarray(ref.draws))
-    pd = out.draws
-    assert pd.shape == jd.shape == (100, 128, d)
-    for k in range(d):
-        for name, f in (("mean", lambda a: a[..., k]),
-                        ("variance",
-                         lambda a: (a[..., k] - a[..., k].mean()) ** 2)):
-            a, b = f(jd), f(pd)
-            tol = N_SIGMA * np.hypot(_mcse(a), _mcse(b))
-            diff = abs(float(a.mean()) - float(b.mean()))
-            assert diff <= tol, (name, k, diff, tol)
+                              _settings(100, 100, target_accept_rate=0.8),
+                              key=0, **kw)
+    assert out.draws.shape == (100, 128, d)
+    _assert_same_moments(jd, out.draws)
+    eps, inv_mass = (out.diagnostics["step_size"][-1],
+                     out.diagnostics["inv_mass_diag"])
+    _assert_in_seed_spread("step size", j_eps, eps[0])
+    _assert_in_seed_spread("inverse mass", j_inv_mass, inv_mass[0])
+    assert bool((eps == eps[0]).all() and (inv_mass == inv_mass[0]).all())
+
+
+_COV = np.array([[1.0, 1.6], [1.6, 4.0]], np.float32)   # rho 0.8, sd 1 and 2
+
+
+def test_reference_tree_with_dense_mass_matches_jax():
+    """The reference tree (each doubling restarts from the current draw,
+    the alpha baseline follows it) with the dense mass (momentum by a
+    triangular solve, dense kinetic energy) on a correlated 2-d Gaussian,
+    pooled, 60 warmup draws: every first and second moment within 4 combined
+    MC standard errors of ``mcmc_tpu.nuts``'s (8 seeds x 10 kept draws
+    against the port's 100), and the final step size (the accept statistic
+    on the reference's baseline drives it) and each entry of the dense
+    inverse mass within JAX's seed spread."""
+    prec = np.linalg.inv(_COV).astype(np.float32)
+    kw = dict(n_chains=128, pooled_adaptation=True, tree_variant="reference",
+              adapt_mass_matrix="dense")
+    jd, j_eps, j_inv_mass = _jax_over_seeds(
+        jnp.zeros(2), lambda x: -0.5 * x @ jnp.asarray(prec) @ x, 60, 10, **kw)
+    tprec = torch.from_numpy(prec)
+    out = mcmc_tpu_torch.nuts(torch.zeros(2),
+                              lambda x: -0.5 * (x * (x @ tprec)).sum(-1),
+                              _settings(60, 100, target_accept_rate=0.8),
+                              key=1, **kw)
+    _assert_same_moments(jd, out.draws, pairs=True)
+    _assert_in_seed_spread("step size", j_eps,
+                           out.diagnostics["step_size"][-1, 0])
+    inv_mass = out.diagnostics["inv_mass_diag"]
+    assert inv_mass.shape == (128, 2, 2)
+    _assert_in_seed_spread("inverse mass", j_inv_mass, inv_mass[0])
+
+
+def _closure(fn, name):
+    """The function called ``name`` that ``fn`` closes over."""
+    cells = dict(zip(fn.__code__.co_freevars, fn.__closure__ or ()))
+    return cells[name].cell_contents
+
+
+def test_dense_momentum_and_kinetic_match_jax():
+    """Dense mass: the momentum ``L^{-T} xi`` from the same noise and
+    Cholesky factor of each chain's inverse mass, and the kinetic energy
+    ``0.5 r . (Sigma r)``, against the JAX kernel's own functions (rtol
+    1e-5); the momentum's covariance is the mass ``Sigma^{-1}``."""
+    rng = np.random.default_rng(12)
+    c, d = 6, 4
+    a = rng.standard_normal((c, d, 2 * d))
+    sigma = (np.einsum("cik,cjk->cij", a, a) / (2 * d)
+             + 0.1 * np.eye(d)).astype(np.float32)
+    chol = np.linalg.cholesky(sigma).astype(np.float32)
+    noise = rng.standard_normal((c, d)).astype(np.float32)
+    lk = lambda z: -0.5 * jnp.sum(z ** 2)
+    _, jstep = jnuts.build_nuts_kernel(
+        lk, jax.grad(lk), jcommon.make_spd(None, d, jnp.float32),
+        mcmc_tpu.NUTSSettings(), 10, adapt_mass_matrix="dense")
+    tlk = lambda z: -0.5 * (z ** 2).sum(-1)
+    _, tstep = tnuts.build_nuts_kernel(
+        tlk, tint.grad_of(tlk), tcommon.make_spd(None, d, torch.float32),
+        mcmc_tpu_torch.NUTSSettings(), 10, adapt_mass_matrix="dense")
+    want_r = jax.vmap(_closure(jstep, "sample_momentum"))(
+        jnp.asarray(noise), jnp.asarray(sigma), jnp.asarray(chol))
+    got_r = _closure(tstep, "sample_momentum")(
+        *map(torch.from_numpy, (noise, sigma, chol)))
+    np.testing.assert_allclose(got_r.numpy(), np.asarray(want_r), rtol=1e-5,
+                               atol=1e-6)
+    want_k = jax.vmap(_closure(jstep, "kinetic"))(want_r, jnp.asarray(sigma))
+    got_k = _closure(tstep, "kinetic")(got_r, torch.from_numpy(sigma))
+    np.testing.assert_allclose(got_k.numpy(), np.asarray(want_k), rtol=1e-5)
+    # r = L^{-T} xi: L^T r = xi, so Cov(r) = (L L^T)^{-1} = Sigma^{-1}
+    np.testing.assert_allclose(
+        np.einsum("cji,cj->ci", chol, got_r.numpy()), noise, rtol=1e-4,
+        atol=1e-5)
+
+
+def test_dual_averaging_reports_before_update_and_restarts():
+    """The step size a draw reports is the one it ran with (the state's,
+    before the update); at a mass window's end the averaging restarts:
+    ``mu = log(10 eps)``, ``h = 0``, the clock at the next draw and
+    ``epsilon_bar = eps``, as JAX's step does."""
+    lk = lambda z: -0.5 * (z * z).sum(-1)
+    s = mcmc_tpu_torch.NUTSSettings()
+    n_adapt = 100
+    init, step = tnuts.build_nuts_kernel(
+        lk, tint.grad_of(lk), tcommon.make_spd(None, 3, torch.float32), s,
+        n_adapt, pooled_adaptation=True, adapt_mass_matrix="diag")
+    _, window_end = tadapt.window_schedule(n_adapt)
+    ends = torch.nonzero(window_end).flatten().tolist()
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        st = init(gen, torch.zeros((16, 3)))
+        for i in range(ends[0] + 2):
+            new, info = step(gen, st)
+            assert torch.equal(info["step_size"], st.step_size), i
+            if i == ends[0]:
+                assert new.adapt_t0 == i + 1
+                assert bool((new.h_val == 0).all())
+                assert torch.equal(new.epsilon_bar, new.step_size)
+                assert torch.allclose(new.mu_val,
+                                      torch.log(10.0 * new.step_size))
+                assert not torch.equal(new.inv_mass, st.inv_mass)
+            else:
+                assert new.adapt_t0 == st.adapt_t0
+                assert not torch.equal(new.step_size, st.step_size)
+            st = new
 
 
 @pytest.mark.parametrize("outside", [-1e8, float("nan")])
