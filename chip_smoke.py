@@ -54,11 +54,37 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    card and ESS (chunked over chains) and split R-hat computed there; gated
    on split R-hat and finite draws, and each dimension's posterior mean
    within 5 combined MC standard errors of phase 9's;
-11. printed and not gated: the Gaussian kernel's time at other chain counts,
+11. ChEES-HMC at 1024 chains, the bench's ``chees`` line (``bench.py``'s
+   ``measure_chees_quality``): pooled dual averaging, Adam on the shared
+   trajectory length and pooled windowed diagonal mass over 500 warmup
+   draws from ``0.05 N(0, 1)``, then 1000 timed draws; the bench's
+   ``chees_*`` keys with bulk/tail ESS and rank R-hat; gated on finite
+   draws, split and rank R-hat <= 1.01, each dimension's mean within 5
+   combined MC standard errors of phase 9's ``hmc`` reference, and exactly
+   one host synchronisation per draw (counted by the kernel, and seen by
+   CUDA's synchronisation debug mode over a few draws);
+12. GHMC at 4096 chains, the bench's ``ghmc`` line: step 0.05, persistence
+   0.98, 3 leapfrogs, jitter 0.2, per-chain dual averaging to 0.95 over the
+   first 1000 transitions, ``thin_step(., 4)``, 1000 warmup sweeps and 1000
+   timed kept draws; ESS, bulk, tail and split R-hat on the card (chunks of
+   256 chains); gated on finite draws, split R-hat, the mean against the
+   ``hmc`` reference and no host synchronisation;
+13. MAMS and MCLMC at 4096 chains, the bench's microcanonical lines:
+   diagonal preconditioning, the McLachlan integrator, L0 = sqrt(100) and
+   eps0 = 0.1 sqrt(100), MAMS at thin 1 and MCLMC at thin 2, 500 warmup and
+   1000 timed kept draws, diagnostics on the card (chunks of 512); gated on
+   finite draws and split R-hat for both, MAMS's mean against the ``hmc``
+   reference and one host synchronisation per draw, MCLMC's none, and its
+   bias audit against MAMS under the bound derived beside ``MC_VAR_BIAS``;
+   each of phases 11-13 also prints its draws/s, warmup seconds,
+   warmup-inclusive min ESS/s, host synchronisations and leapfrogs per
+   kept draw, and its seconds;
+14. printed and not gated: the Gaussian kernel's time at other chain counts,
    and for both fused transitions (``make_fused_hmc_step``,
-   ``make_fused_gaussian_hmc_step``) and a steady NUTS draw at 1024 chains
-   the time per step, the card's busy share of it and the device time of
-   each kernel by name, under ``torch.profiler``. It runs last: once the
+   ``make_fused_gaussian_hmc_step``), a steady NUTS draw at 1024 chains and
+   a steady transition of ChEES (1024 chains), GHMC and MCLMC (4096) the
+   time per step, the card's busy share of it and the device time of each
+   kernel by name, under ``torch.profiler``. It runs last: once the
    profiler has run in a process, launches stay slower.
 
 Before the last two lines it prints each kernel's bound beside its time: for
@@ -142,6 +168,25 @@ NUTS_MEAN_SIGMAS = 5.0
 REF_STEP_FRACTION, REF_LEAP = 0.5, 6
 REF_BURNIN, REF_KEEP = 100, 1000
 NUTS_PROFILE_WARM, NUTS_PROFILE_DRAWS = 5, 20
+
+# the bench's other quality lines (bench.py:246-487), at its widths and
+# protocols: warmup and kept draws as NUTS's, starts 0.05 N(0, 1)
+CHEES_CHAINS = 1024
+GHMC_CHAINS, GHMC_STEP, GHMC_ALPHA, GHMC_LEAP = 4096, 0.05, 0.98, 3
+GHMC_JITTER, GHMC_TARGET, GHMC_THIN, GHMC_WARM = 0.2, 0.95, 4, 1000
+GHMC_ESS_CHUNK = 256
+MC_CHAINS, MC_ESS_CHUNK = 4096, 512
+MC_THIN = {"mams": 1, "mclmc": 2}
+# MCLMC's bias audit against MAMS. tests/test_mclmc.py:66-85 holds the
+# unadjusted chain's variance bias under 5% at the default energy target:
+# so each dimension's sd ratio within sqrt(1.05) - 1, and, since a mean
+# shift d raises the second moment about the exact mean by d^2, each mean
+# within sqrt(0.05) sd of MAMS's; each bound plus 5 combined MC standard
+# errors of the two lines (of a mean: sd / sqrt(ESS); of an sd ratio:
+# sqrt(1 / (2 ESS)) per line, as for a Gaussian)
+MC_VAR_BIAS = 0.05
+SYNC_PROBE_DRAWS = 3          # draws run under CUDA's sync debug mode
+SAMPLER_PROFILE = {"chees": (5, 20), "ghmc": (20, 100), "mclmc": (20, 100)}
 
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds below are
 # the largest of operations over the peak of their type and bytes over the
@@ -460,6 +505,300 @@ def nuts_reference(X, y, nuts_state):
             "mcse": draws.std(dim=(0, 1)) / torch.sqrt(ess)}
 
 
+def count_syncs(step, gen, state, n):
+    """Host synchronisations that CUDA's sync debug mode reports over ``n``
+    transitions of ``step`` (each blocking copy or wait is one warning; the
+    mode's own notice that it is a prototype is not one). Returns the count
+    and the state after them."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with torch.no_grad():
+                for _ in range(n):
+                    state, _info = step(gen, state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum(str(w.message).startswith("called a synchronizing CUDA")
+               for w in caught), state
+
+
+def sampler_line(prefix, step, gen, init, n_warm, n_keep, thin=1):
+    """``init()``, warmup (``n_warm`` kept-draw steps, nothing collected),
+    then the one timed sampling call of ``n_keep`` draws kept on the card,
+    each timed with CUDA synchronised before the clock starts and before it
+    stops. ``step`` is the unthinned kernel, whose ``counts`` are read
+    around the sampling call. Returns the state, draws, infos, init, warmup
+    and sampling seconds and the sampling call's counts per kept draw."""
+    from mcmc_tpu_torch.samplers import common
+    stepk = common.thin_step(step, thin)
+    collect = lambda st: st.position
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, _, _ = common.run_sampler_loop(gen, state, stepk, n_warm, 0,
+                                          collect)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    before = dict(step.counts)
+    t0 = time.perf_counter()
+    state, draws, infos = common.run_sampler_loop(gen, state, stepk, 0,
+                                                  n_keep, collect)
+    torch.cuda.synchronize()
+    t_samp = time.perf_counter() - t0
+    per_draw = {k: (step.counts[k] - before[k]) / n_keep for k in before}
+    check(draws.is_cuda and tuple(draws.shape) == (n_keep,) +
+          tuple(state.position.shape), f"{prefix}: draws on the card, shape "
+          "(keep, chains, dim)")
+    return state, draws, infos, (t_init, t_warm, t_samp), per_draw
+
+
+def line_stats(prefix, draws, seconds, per_draw, chunk, rank=False):
+    """The keys every quality line prints: min, bulk and tail ESS/s (ESS
+    chunked over ``chunk`` chains, on the card), max split R-hat (and rank
+    R-hat with ``rank``), draws/s, warmup-inclusive min ESS/s, host syncs
+    and leapfrogs per kept draw. Returns them and the draws' summary: each
+    dimension's mean, sd, ESS and MC standard error."""
+    from mcmc_tpu_torch import diagnostics
+    p = prefix
+    t_init, t_warm, t_samp = seconds
+    n_keep, n_chains = draws.shape[:2]
+    t0 = time.perf_counter()
+    ess = diagnostics.ess(draws, chain_chunk=chunk)
+    ess_min = float(ess.min())
+    rhat = float(diagnostics.split_rhat(draws).max())
+    res = {
+        f"{p}_min_ess_per_sec": ess_min / t_samp,
+        f"{p}_bulk_ess_per_sec":
+            float(diagnostics.bulk_ess(draws, chain_chunk=chunk).min())
+            / t_samp,
+        f"{p}_tail_ess_per_sec":
+            float(diagnostics.tail_ess(draws, chain_chunk=chunk).min())
+            / t_samp,
+        f"{p}_max_split_rhat": rhat,
+        f"{p}_converged": rhat <= NUTS_RHAT_MAX,
+        f"{p}_chains": n_chains,
+        f"{p}_init_seconds": t_init,
+        f"{p}_warmup_seconds": t_warm,
+        f"{p}_sample_seconds": t_samp,
+        f"{p}_draws_per_sec": n_keep * n_chains / t_samp,
+        f"{p}_min_ess_per_sec_with_warmup": ess_min / (t_init + t_warm
+                                                       + t_samp),
+        f"{p}_syncs_per_draw": per_draw["syncs"],
+        f"{p}_leapfrogs_per_draw": per_draw["leapfrogs"],
+    }
+    if rank:
+        rank_rhat = float(diagnostics.rank_normalized_rhat(draws).max())
+        res[f"{p}_max_rank_rhat"] = rank_rhat
+        res[f"{p}_converged"] = res[f"{p}_converged"] and \
+            rank_rhat <= NUTS_RHAT_MAX
+    torch.cuda.synchronize()
+    res[f"{p}_diagnostics_seconds"] = time.perf_counter() - t0
+    sd = draws.std(dim=(0, 1))
+    summary = {"mean": draws.mean(dim=(0, 1)), "sd": sd, "ess": ess,
+               "mcse": sd / torch.sqrt(ess)}
+    return res, summary
+
+
+def gate_line(prefix, res, draws, summary, ref, syncs, probe, rank=False):
+    """The gates each of phases 11-13 shares: finite draws, split (and
+    rank) R-hat, the host syncs per draw as counted and as CUDA's debug
+    mode saw them over ``SYNC_PROBE_DRAWS`` draws, and, given ``ref``, each
+    dimension's mean within ``NUTS_MEAN_SIGMAS`` combined MC standard errors
+    of the reference's."""
+    p = prefix
+    check(bool(torch.isfinite(draws).all()), f"{p}: every draw finite")
+    rhat = res[f"{p}_max_split_rhat"]
+    check(rhat <= NUTS_RHAT_MAX, f"{p}: max split R-hat {rhat:.4f} <= "
+          f"{NUTS_RHAT_MAX}")
+    if rank:
+        rr = res[f"{p}_max_rank_rhat"]
+        check(rr <= NUTS_RHAT_MAX, f"{p}: max rank R-hat {rr:.4f} <= "
+              f"{NUTS_RHAT_MAX}")
+    check(res[f"{p}_syncs_per_draw"] == syncs, f"{p}: "
+          f"{res[f'{p}_syncs_per_draw']} host syncs per draw counted, "
+          f"{syncs} expected")
+    check(probe == syncs * SYNC_PROBE_DRAWS, f"{p}: CUDA's sync debug mode "
+          f"saw {probe} syncs in {SYNC_PROBE_DRAWS} draws, "
+          f"{syncs * SYNC_PROBE_DRAWS} expected")
+    if ref is not None:
+        z = float(((summary["mean"] - ref["mean"]).abs()
+                   / torch.hypot(summary["mcse"], ref["mcse"])).max())
+        print(f"{p} vs hmc reference: max |mean difference| / combined MC "
+              f"standard error {z:.3f} over {DIM} dims (tol "
+              f"{NUTS_MEAN_SIGMAS:g})")
+        check(z <= NUTS_MEAN_SIGMAS, f"{p}'s posterior means agree with the "
+              f"hmc reference's within {NUTS_MEAN_SIGMAS:g} MC standard "
+              "errors")
+
+
+def chees_line(X, y, ref):
+    """Phase 11: the bench's ``chees`` line (module docstring). Returns the
+    kernel, its generator and last state, for the profile."""
+    from mcmc_tpu_torch import ChEESSettings, adaptation, integrators
+    from mcmc_tpu_torch.models import logistic_regression_model
+    from mcmc_tpu_torch.samplers.chees import build_chees_kernel
+
+    t_phase = time.perf_counter()
+    dev = X.device
+    lk = logistic_regression_model(X, y, PRIOR_SCALE)
+    s = ChEESSettings(n_burnin_draws=NUTS_WARMUP, n_keep_draws=NUTS_KEEP)
+    init, step = build_chees_kernel(
+        lk, integrators.grad_of(lk), s, NUTS_WARMUP, adapt_mass=True,
+        mass_cfg=adaptation.make_precond_cfg(NUTS_WARMUP, pooled=True,
+                                             device=dev))
+    gen = torch.Generator(device=dev).manual_seed(50)
+    pos0 = NUTS_INIT_SCALE * torch.randn((CHEES_CHAINS, DIM), generator=gen,
+                                         device=dev)
+    state, draws, infos, seconds, per_draw = sampler_line(
+        "chees", step, gen, lambda: init(pos0), NUTS_WARMUP, NUTS_KEEP)
+    res, summ = line_stats("chees", draws, seconds, per_draw, None, rank=True)
+    res.update({
+        "chees_mean_n_leap": float(infos["n_leap"].float().mean()),
+        "chees_trajectory_length": float(torch.exp(state.log_T[0])),
+        "chees_adapted_step_size": float(torch.exp(state.da.log_eps_bar[0])),
+        "chees_accept_rate": float(infos["accepted"].float().mean()),
+    })
+    probe, state = count_syncs(step, gen, state, SYNC_PROBE_DRAWS)
+    print(f"chees: {CHEES_CHAINS} chains, {NUTS_WARMUP} warmup draws in "
+          f"{seconds[1]:.3f} s, {NUTS_KEEP} draws in {seconds[2]:.3f} s; "
+          f"CUDA's sync "
+          f"debug mode saw {probe} syncs in {SYNC_PROBE_DRAWS} draws; "
+          f"{json.dumps(res)}")
+    gate_line("chees", res, draws, summ, ref, 1, probe, rank=True)
+    print(f"chees: phase seconds {time.perf_counter() - t_phase:.1f}")
+    return step, gen, state
+
+
+def ghmc_line(X, y, ref):
+    """Phase 12: the bench's ``ghmc`` line (module docstring)."""
+    from mcmc_tpu_torch import integrators
+    from mcmc_tpu_torch.models import logistic_regression_model
+    from mcmc_tpu_torch.samplers import common
+    from mcmc_tpu_torch.samplers.ghmc import build_ghmc_kernel
+
+    t_phase = time.perf_counter()
+    dev = X.device
+    lk = logistic_regression_model(X, y, PRIOR_SCALE)
+    init, step = build_ghmc_kernel(
+        lk, integrators.grad_of(lk),
+        common.make_spd(None, DIM, torch.float32, dev), GHMC_STEP,
+        GHMC_ALPHA, GHMC_LEAP, GHMC_JITTER,
+        {"n_burnin": GHMC_WARM, "target": GHMC_TARGET})
+    gen = torch.Generator(device=dev).manual_seed(51)
+    pos0 = NUTS_INIT_SCALE * torch.randn((GHMC_CHAINS, DIM), generator=gen,
+                                         device=dev)
+    state, draws, infos, seconds, per_draw = sampler_line(
+        "ghmc", step, gen, lambda: init(pos0), GHMC_WARM, NUTS_KEEP,
+        GHMC_THIN)
+    res, summ = line_stats("ghmc", draws, seconds, per_draw, GHMC_ESS_CHUNK)
+    res.update({
+        "ghmc_alpha": GHMC_ALPHA, "ghmc_thin": GHMC_THIN,
+        "ghmc_n_leap": GHMC_LEAP,
+        "ghmc_adapted_step_size": float(torch.exp(state.da.log_eps_bar[0])),
+        "ghmc_mean_adapted_step_size":
+            float(torch.exp(state.da.log_eps_bar).mean()),
+        "ghmc_accept_rate":
+            float(infos["accepted"].float().mean()) / GHMC_THIN,
+    })
+    probe, state = count_syncs(step, gen, state, SYNC_PROBE_DRAWS)
+    print(f"ghmc: {GHMC_CHAINS} chains, {GHMC_WARM} warmup sweeps of "
+          f"{GHMC_THIN} transitions in {seconds[1]:.3f} s, {NUTS_KEEP} draws "
+          f"in {seconds[2]:.3f} s; CUDA's sync debug mode saw {probe} syncs in "
+          f"{SYNC_PROBE_DRAWS} transitions; {json.dumps(res)}")
+    gate_line("ghmc", res, draws, summ, ref, 0, probe)
+    print(f"ghmc: phase seconds {time.perf_counter() - t_phase:.1f}")
+    return step, gen, state
+
+
+def microcanonical_lines(X, y, ref):
+    """Phase 13: the bench's ``mams`` and ``mclmc`` lines and MCLMC's bias
+    audit (module docstring). Returns MCLMC's kernel, generator and last
+    state, for the profile."""
+    from mcmc_tpu_torch import MAMSSettings, MCLMCSettings
+    from mcmc_tpu_torch.models import logistic_regression_model
+    from mcmc_tpu_torch.samplers.mclmc import (build_mams_kernel,
+                                               build_mclmc_kernel)
+
+    dev = X.device
+    lk = logistic_regression_model(X, y, PRIOR_SCALE)
+    summ, out = {}, {}
+    for kind, seed in (("mams", 52), ("mclmc", 53)):
+        t_phase = time.perf_counter()
+        if kind == "mams":
+            init, step = build_mams_kernel(
+                lk, MAMSSettings(n_burnin_draws=NUTS_WARMUP,
+                                 n_keep_draws=NUTS_KEEP), NUTS_WARMUP,
+                adapt_mass=True)
+        else:
+            init, step = build_mclmc_kernel(
+                lk, MCLMCSettings(n_burnin_draws=NUTS_WARMUP,
+                                  n_keep_draws=NUTS_KEEP), NUTS_WARMUP,
+                adapt_mass=True)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        pos0 = NUTS_INIT_SCALE * torch.randn((MC_CHAINS, DIM), generator=gen,
+                                             device=dev)
+        state, draws, infos, seconds, per_draw = sampler_line(
+            kind, step, gen, lambda: init(gen, pos0, DIM ** 0.5,
+                                          0.1 * DIM ** 0.5),
+            NUTS_WARMUP, NUTS_KEEP, MC_THIN[kind])
+        res, summ[kind] = line_stats(kind, draws, seconds, per_draw,
+                                     MC_ESS_CHUNK)
+        res.update({
+            f"{kind}_adapted_step_size":
+                float(torch.exp(state.da.log_eps_bar[0])),
+            f"{kind}_adapted_L": float(torch.exp(state.log_L[0])),
+            f"{kind}_gradients_per_draw": per_draw["gradients"],
+        })
+        if kind == "mams":
+            res["mams_accept_rate"] = float(infos["accepted"].float().mean())
+            res["mams_mean_n_leap"] = float(infos["n_leap"].float().mean())
+        else:
+            res["mclmc_thin"] = MC_THIN[kind]
+        probe, state = count_syncs(step, gen, state, SYNC_PROBE_DRAWS)
+        print(f"{kind}: {MC_CHAINS} chains, {NUTS_WARMUP} warmup draws in "
+              f"{seconds[1]:.3f} s, {NUTS_KEEP} draws of {MC_THIN[kind]} "
+              f"transitions in {seconds[2]:.3f} s; CUDA's sync debug mode saw "
+              f"{probe} syncs in {SYNC_PROBE_DRAWS} transitions; "
+              f"{json.dumps(res)}")
+        gate_line(kind, res, draws, summ[kind], ref if kind == "mams" else
+                  None, 1 if kind == "mams" else 0, probe)
+        out[kind] = (step, gen, state)
+        del draws, infos
+        print(f"{kind}: phase seconds {time.perf_counter() - t_phase:.1f}")
+
+    # the bias audit: the unadjusted chain's moments against the exact one's
+    mc, ma = summ["mclmc"], summ["mams"]
+    dmean = (mc["mean"] - ma["mean"]).abs()
+    ratio = mc["sd"] / ma["sd"]
+    mean_tol = MC_VAR_BIAS ** 0.5 * ma["sd"] \
+        + NUTS_MEAN_SIGMAS * torch.hypot(mc["mcse"], ma["mcse"])
+    ratio_tol = (1.0 + MC_VAR_BIAS) ** 0.5 - 1.0 + NUTS_MEAN_SIGMAS \
+        * torch.sqrt(0.5 / mc["ess"] + 0.5 / ma["ess"])
+    audit = {"mclmc_bias_max_abs_mean_diff": float(dmean.max()),
+             "mclmc_bias_max_rel_std_diff": float((ratio - 1.0).abs().max()),
+             "mclmc_bias_max_mean_diff_over_sd":
+                 float((dmean / ma["sd"]).max()),
+             "mclmc_bias_max_mean_diff_over_bound":
+                 float((dmean / mean_tol).max()),
+             "mclmc_bias_max_std_diff_over_bound":
+                 float(((ratio - 1.0).abs() / ratio_tol).max())}
+    print(f"mclmc bias audit against mams (bounds per dimension: |mean "
+          f"difference| <= sqrt({MC_VAR_BIAS}) sd + {NUTS_MEAN_SIGMAS:g} "
+          f"combined MC standard errors, |sd ratio - 1| <= sqrt(1 + "
+          f"{MC_VAR_BIAS}) - 1 + {NUTS_MEAN_SIGMAS:g} of its MC standard "
+          f"error): {json.dumps(audit)}")
+    check(audit["mclmc_bias_max_mean_diff_over_bound"] <= 1.0,
+          "mclmc: every mean within its bias bound of mams's")
+    check(audit["mclmc_bias_max_std_diff_over_bound"] <= 1.0,
+          "mclmc: every sd within its bias bound of mams's")
+    return out["mclmc"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -768,15 +1107,25 @@ def main():
     check(z <= NUTS_MEAN_SIGMAS, "the two NUTS lines' posterior means agree "
           f"within {NUTS_MEAN_SIGMAS:g} MC standard errors")
 
+    # --- the bench's other quality lines, at its widths and protocols
+    chees_path = chees_line(X, y, ref)
+    ghmc_path = ghmc_line(X, y, ref)
+    mclmc_path = microcanonical_lines(X, y, ref)
+
     # --- where the time of a steady transition goes (printed, not gated)
     gen = torch.Generator(device=dev).manual_seed(30)
     glm_step = fl.make_fused_hmc_step(X_np, y_np, PRIOR_SCALE, STEP_SIZE,
                                       N_LEAP)
     g_step = fl.make_fused_gaussian_hmc_step(
         prec_np, step_size=G_STEP, n_leap=G_LEAP, step_jitter=G_JITTER)
+    samplers = [(f"{name} transition ({path[2].position.shape[0]} chains)",
+                 *path, *SAMPLER_PROFILE[name])
+                for name, path in (("chees", chees_path), ("ghmc", ghmc_path),
+                                   ("mclmc", mclmc_path))]
     profile_transitions([   # the launch-bound ones first
         ("NUTS draw (1024 chains, sampling kernel)", nuts_step, nuts_gen,
          nuts_state, NUTS_PROFILE_WARM, NUTS_PROFILE_DRAWS),
+        *samplers,
         ("Gaussian transition", g_step, gen, g_step.init(
             G_INIT_SCALE * torch.randn((G_CHAINS, G_DIM), generator=gen,
                                        device=dev)),

@@ -14,7 +14,9 @@ Ported so far: the fused-HMC paths (``fused_glm_hmc`` on GLM posteriors,
 ``fused_gaussian_hmc`` on multivariate Gaussians, and the ``ops.make_fused_*``
 factories, whose trajectories are hand-written CUDA kernels on the card), the
 generic ``hmc`` they are checked against, adapted ``nuts`` (plain PyTorch, a
-batched lockstep tree), and the diagnostics.
+batched lockstep tree), the bench's other quality samplers ``chees``,
+``ghmc``, ``mclmc`` and ``mams`` (plain PyTorch, lockstep across the chain
+batch, with the windowed adaptation they share), and the diagnostics.
 The CUDA kernels are built at their first launch, so this package imports
 without CUDA, nvcc or Triton.
 
@@ -52,6 +54,9 @@ from mcmc_tpu_torch.settings import (
 from mcmc_tpu_torch.results import SamplerResult
 from mcmc_tpu_torch.samplers.hmc import hmc
 from mcmc_tpu_torch.samplers.nuts import nuts
+from mcmc_tpu_torch.samplers.chees import chees
+from mcmc_tpu_torch.samplers.ghmc import ghmc
+from mcmc_tpu_torch.samplers.mclmc import mams, mclmc
 from mcmc_tpu_torch.ops.fused_sampler import fused_glm_hmc, fused_gaussian_hmc
 from mcmc_tpu_torch import diagnostics, models
 
@@ -62,6 +67,7 @@ __all__ = [
     "SMCSettings", "StretchSettings", "SGLDSettings", "SGHMCSettings",
     "EllipticalSettings", "SliceSettings", "GibbsSettings", "MCLMCSettings",
     "MAMSSettings", "EvidenceSettings", "BarkerSettings", "MMALASettings",
-    "SamplerResult", "hmc", "nuts", "fused_glm_hmc", "fused_gaussian_hmc",
+    "SamplerResult", "hmc", "nuts", "chees", "ghmc", "mclmc", "mams",
+    "fused_glm_hmc", "fused_gaussian_hmc",
     "diagnostics", "models",
 ]

@@ -1,12 +1,12 @@
-"""Step-size and mass adaptation (PyTorch port of the parts of
-``mcmc_tpu.adaptation`` that :func:`mcmc_tpu_torch.hmc` and
-:func:`mcmc_tpu_torch.nuts` use).
+"""Step-size and mass adaptation (PyTorch port of ``mcmc_tpu.adaptation``).
 
 The reference's only adaptation is NUTS's dual averaging (src/nuts.cpp:
 294-302); this module provides the same Nesterov dual-averaging recursion as
 a state machine, plus the Stan-style windowed mass estimation. Every state
 tensor carries the chain batch on its leading axis, one adaptation per
-chain, as the JAX package's vmapped kernels keep it.
+chain, as the JAX package's vmapped kernels keep it. Where the JAX package
+pools an estimate with ``lax.pmean`` over a named chain axis, ``pooled=True``
+here takes the mean over the chain axis.
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 __all__ = ["DualAveraging", "da_init", "da_update", "TARGET_ACCEPT",
-           "window_schedule", "windowed_mass_update"]
+           "window_schedule", "WindowedVariance", "wv_init", "wv_update",
+           "windowed_mass_update"]
 
 TARGET_ACCEPT = {"rwmh": 0.234, "mala": 0.574, "hmc": 0.8, "barker": 0.574,
                  "ghmc": 0.95}
@@ -131,3 +132,97 @@ def windowed_mass_update(count, mean, m2, inv_mass, chol, x,
     mean = torch.where(window_end[:, None], torch.zeros_like(mean), mean)
     m2 = torch.where(wend, torch.zeros_like(m2), m2)
     return count, mean, m2, inv_mass, chol
+
+
+class WindowedVariance(NamedTuple):
+    """Welford accumulator + the currently adopted diagonal variance, per
+    chain: ``count`` ``(c,)`` int32, ``mean``, ``m2`` and ``var`` ``(c, d)``.
+
+    ``var`` is the regularized posterior-variance estimate adopted at the
+    last window end: the diagonal preconditioner or mass."""
+    count: torch.Tensor
+    mean: torch.Tensor
+    m2: torch.Tensor
+    var: torch.Tensor
+
+
+def wv_init(dim, dtype, n_chains=1, device=None):
+    """An empty accumulator for ``n_chains`` chains, variance one."""
+    kw = {"dtype": dtype, "device": device}
+    return WindowedVariance(
+        count=torch.zeros((n_chains,), dtype=torch.int32, device=device),
+        mean=torch.zeros((n_chains, dim), **kw),
+        m2=torch.zeros((n_chains, dim), **kw),
+        var=torch.ones((n_chains, dim), **kw),
+    )
+
+
+def wv_update(wv: WindowedVariance, x, collecting, window_end,
+              pooled=False) -> WindowedVariance:
+    """Fold one draw ``x`` ``(c, d)`` where ``collecting`` ``(c,)``; at a
+    window end adopt the regularized variance (shrunk toward 1e-3,
+    Stan-style) and reset the accumulator: the diagonal mode of
+    :func:`windowed_mass_update`. ``pooled`` averages the estimate over the
+    chains."""
+    count, mean, m2, var, _ = windowed_mass_update(
+        wv.count, wv.mean, wv.m2, wv.var, None, x, collecting, window_end,
+        "diag", pooled=pooled)
+    return WindowedVariance(count=count, mean=mean, m2=m2, var=var)
+
+
+def make_precond_cfg(n_adapt, pooled=False, device=None):
+    """Schedule bundle for windowed preconditioner adaptation: the warmup
+    length, the collect / window-end masks of :func:`window_schedule` on
+    ``device`` (indexed by each chain's draw counter), and ``pooled``."""
+    collect, window_end = window_schedule(n_adapt, device)
+    return {"n_adapt": n_adapt, "collect": collect, "window_end": window_end,
+            "pooled": bool(pooled)}
+
+
+def _window_masks(draw_ind, cfg):
+    """``(collecting, window_end)`` per chain at draw counters ``draw_ind``
+    ``(c,)``: the schedule's entries while warming up, false after."""
+    idx = torch.clamp_max(draw_ind, cfg["collect"].shape[0] - 1).long()
+    in_warmup = draw_ind < cfg["n_adapt"]
+    return (in_warmup & cfg["collect"][idx],
+            in_warmup & cfg["window_end"][idx])
+
+
+def _restart_da(da, wend):
+    """Dual averaging restarted from the current step size where ``wend``."""
+    reset = da_init(torch.exp(da.log_eps))
+    return DualAveraging(*[torch.where(wend, r, old)
+                           for r, old in zip(reset, da)])
+
+
+def windowed_precond_step(wv: WindowedVariance, da, new_position, draw_ind,
+                          cfg, reset_da: bool):
+    """One per-draw update of the windowed variance (and, at window ends,
+    a dual-averaging restart from the current scale, Stan-style: the new
+    covariance changes the acceptance landscape). ``draw_ind`` is each
+    chain's draw counter ``(c,)``; ``cfg`` comes from
+    :func:`make_precond_cfg`. Returns ``(wv, da)``."""
+    collecting, wend = _window_masks(draw_ind, cfg)
+    wv = wv_update(wv, new_position, collecting, wend, cfg["pooled"])
+    if reset_da:
+        da = _restart_da(da, wend)
+    return wv, da
+
+
+def windowed_dense_step(wv: WindowedVariance, da, cov, chol, m2, x,
+                        draw_ind, cfg, reset_da: bool):
+    """Dense analog of :func:`windowed_precond_step`: fold ``x`` into the
+    dense Welford accumulator ``m2`` ``(c, d, d)`` while the schedule says
+    collect, adopt the regularized covariance ``cov`` and its Cholesky
+    factor ``chol`` at window ends, and (``reset_da=True``) restart dual
+    averaging there. ``wv.m2`` / ``wv.var`` hold the *diagonal*
+    accumulator and pass through untouched. Returns
+    ``(wv, da, cov, chol, m2)``."""
+    collecting, wend = _window_masks(draw_ind, cfg)
+    wc, wm, m2, cov, chol = windowed_mass_update(
+        wv.count, wv.mean, m2, cov, chol, x, collecting, wend, "dense",
+        pooled=cfg["pooled"])
+    wv = WindowedVariance(count=wc, mean=wm, m2=wv.m2, var=wv.var)
+    if reset_da:
+        da = _restart_da(da, wend)
+    return wv, da, cov, chol, m2

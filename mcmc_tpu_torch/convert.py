@@ -14,10 +14,14 @@ import torch
 from mcmc_tpu_torch import adaptation
 from mcmc_tpu_torch.ops.fused_logreg import FusedHMCState
 from mcmc_tpu_torch.samplers._resolve import resolve_device
+from mcmc_tpu_torch.samplers.chees import ChEESState
+from mcmc_tpu_torch.samplers.ghmc import GHMCState
 from mcmc_tpu_torch.samplers.hmc import HMCState
+from mcmc_tpu_torch.samplers.mclmc import MAMSState, MCLMCState
 
 __all__ = ["to_tensor", "glm_data", "gaussian_target", "fused_state",
-           "hmc_state"]
+           "hmc_state", "chees_state", "ghmc_state", "mclmc_state",
+           "mams_state"]
 
 
 def to_tensor(a, device=None, dtype=None):
@@ -80,3 +84,43 @@ def hmc_state(state, device=None) -> HMCState:
         w_mean=to_tensor(state.w_mean, device),
         w_m2=to_tensor(state.w_m2, device),
     )
+
+
+# state fields that are themselves named tuples, and the int32 counters
+_NESTED = {"da": adaptation.DualAveraging, "wv": adaptation.WindowedVariance}
+_INT32 = ("draw_ind", "count")
+
+
+def _sampler_state(cls, state, device):
+    """A chain-batched state of the port's ``cls`` from the JAX package's
+    state of the same fields (the vmapped ``init`` or ``step`` output)."""
+    def conv(name, v):
+        if name in _NESTED:
+            sub = _NESTED[name]
+            return sub(**{f: conv(f, getattr(v, f)) for f in sub._fields})
+        return to_tensor(v, device, torch.int32 if name in _INT32 else None)
+    return cls(**{f: conv(f, getattr(state, f)) for f in cls._fields})
+
+
+def chees_state(state, device=None) -> ChEESState:
+    """A :class:`~mcmc_tpu_torch.samplers.chees.ChEESState` from the JAX
+    package's chain-batched ``ChEESState``, or any object with its fields."""
+    return _sampler_state(ChEESState, state, device)
+
+
+def ghmc_state(state, device=None) -> GHMCState:
+    """A :class:`~mcmc_tpu_torch.samplers.ghmc.GHMCState` from the JAX
+    package's chain-batched ``GHMCState``."""
+    return _sampler_state(GHMCState, state, device)
+
+
+def mclmc_state(state, device=None) -> MCLMCState:
+    """A :class:`~mcmc_tpu_torch.samplers.mclmc.MCLMCState` from the JAX
+    package's chain-batched ``MCLMCState``."""
+    return _sampler_state(MCLMCState, state, device)
+
+
+def mams_state(state, device=None) -> MAMSState:
+    """A :class:`~mcmc_tpu_torch.samplers.mclmc.MAMSState` from the JAX
+    package's chain-batched ``MAMSState``."""
+    return _sampler_state(MAMSState, state, device)

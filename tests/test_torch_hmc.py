@@ -79,6 +79,38 @@ def test_nuts_surface_matches():
     assert "nuts" in mcmc_tpu_torch.__all__
 
 
+@pytest.mark.parametrize("name,module", [("chees", "chees"),
+                                         ("ghmc", "ghmc"),
+                                         ("mclmc", "mclmc"),
+                                         ("mams", "mclmc")])
+def test_sampler_surface_matches(name, module):
+    """``chees``, ``ghmc``, ``mclmc`` and ``mams``: the JAX package's
+    parameters, kinds and defaults, in order, plus ``device``; each module's
+    public names are JAX's; both packages have the entry point at the top,
+    and the port lists it in ``__all__`` there and in ``samplers``."""
+    jmod = importlib.import_module(f"mcmc_tpu.samplers.{module}")
+    tmod = importlib.import_module(f"mcmc_tpu_torch.samplers.{module}")
+    jsig = inspect.signature(getattr(jmod, name)).parameters
+    tsig = dict(inspect.signature(getattr(tmod, name)).parameters)
+    assert tsig.pop("device").default is None
+    assert [(p.name, p.kind, p.default) for p in tsig.values()] == \
+        [(p.name, p.kind, p.default) for p in jsig.values()]
+    assert tmod.__all__ == jmod.__all__
+    assert getattr(mcmc_tpu_torch, name) is getattr(tmod, name)
+    assert name in mcmc_tpu_torch.__all__ and callable(getattr(mcmc_tpu, name))
+    assert getattr(mcmc_tpu_torch.samplers, name) is getattr(tmod, name)
+
+
+def test_adaptation_names_match():
+    """The port's ``adaptation.__all__`` holds every public name of the JAX
+    package's, in its order, and the windowed steps it does not list."""
+    jnames = list(jadapt.__all__)
+    assert [n for n in tadapt.__all__ if n in jnames] == jnames
+    for n in ("make_precond_cfg", "windowed_precond_step",
+              "windowed_dense_step", "windowed_mass_update"):
+        assert callable(getattr(tadapt, n)) and callable(getattr(jadapt, n))
+
+
 @pytest.mark.parametrize("kind", ["identity", "diag"])
 def test_leapfrog_matches_jax(kind):
     """One trajectory from identical (z, p): f32 on both sides, so only the

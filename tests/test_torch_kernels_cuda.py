@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-and the port's NUTS (plain PyTorch) run on it.
+and the port's NUTS, ChEES, GHMC, MCLMC and MAMS (plain PyTorch) run on it.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports no JAX, so that it runs on a machine without it:
@@ -362,3 +362,35 @@ def test_nuts_on_the_card_repeats_under_one_seed():
     assert torch.equal(a.draws, b.draws)
     for k in ("tree_depth", "accept_stat", "step_size"):
         assert torch.equal(a.diagnostics[k], b.diagnostics[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["chees", "ghmc", "mclmc", "mams"])
+def test_sampler_on_the_card_repeats_under_one_seed(name):
+    """Each of ``chees``, ``ghmc``, ``mclmc`` and ``mams`` at 64 chains on
+    the flagship target (100 dims, 1000 rows), from numpy data and start
+    with no ``device=``: it runs on the card, its draws are finite, and two
+    runs with one seed are bit-equal, diagnostics included."""
+    _require_card()
+    import mcmc_tpu_torch
+    from mcmc_tpu_torch.convert import glm_data
+    from mcmc_tpu_torch.models import (logistic_regression_model,
+                                       make_logistic_regression_data)
+
+    X, y, _ = make_logistic_regression_data(0, 1000, 100, device="cpu")
+    lk = logistic_regression_model(*glm_data(X.numpy(), y.numpy()))
+    settings = {"chees": "ChEESSettings", "ghmc": "GHMCSettings",
+                "mclmc": "MCLMCSettings", "mams": "MAMSSettings"}[name]
+    s = getattr(mcmc_tpu_torch, settings)(n_burnin_draws=30, n_keep_draws=30)
+    kw = {"chees": dict(adapt_mass_matrix=True), "ghmc": {},
+          "mclmc": dict(adapt_mass=True), "mams": dict(adapt_mass=True)}[name]
+    fn = getattr(mcmc_tpu_torch, name)
+    x0 = np.full(100, 0.01, np.float32)
+    a = fn(x0, lk, s, n_chains=64, key=7, **kw)
+    b = fn(x0, lk, s, n_chains=64, key=7, **kw)
+    assert a.draws.is_cuda and a.draws.shape == (30, 64, 100)
+    assert bool(torch.isfinite(a.draws).all())
+    assert torch.equal(a.draws, b.draws)
+    for k, v in a.diagnostics.items():
+        if torch.is_tensor(v):
+            assert torch.equal(v, b.diagnostics[k]), k

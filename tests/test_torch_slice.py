@@ -97,6 +97,21 @@ NO_DEVICE_CALLS = {
     "nuts": lambda X, y: mcmc_tpu_torch.nuts(
         np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
         mcmc_tpu_torch.NUTSSettings(n_burnin_draws=1, n_keep_draws=1)),
+    "chees": lambda X, y: mcmc_tpu_torch.chees(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        mcmc_tpu_torch.ChEESSettings(n_burnin_draws=1, n_keep_draws=1),
+        n_chains=4),
+    "ghmc": lambda X, y: mcmc_tpu_torch.ghmc(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        mcmc_tpu_torch.GHMCSettings(n_burnin_draws=1, n_keep_draws=1)),
+    "mclmc": lambda X, y: mcmc_tpu_torch.mclmc(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        mcmc_tpu_torch.MCLMCSettings(n_burnin_draws=1, n_keep_draws=1),
+        n_chains=4),
+    "mams": lambda X, y: mcmc_tpu_torch.mams(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        mcmc_tpu_torch.MAMSSettings(n_burnin_draws=1, n_keep_draws=1),
+        n_chains=4),
     "eight_schools_model": lambda X, y: mcmc_tpu_torch.models
     .eight_schools_model(),
     "gaussian_mean_scale_model": lambda X, y: mcmc_tpu_torch.models
