@@ -50,8 +50,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    leapfrogs; gated on its max split R-hat <= 1.01 and each dimension's
    NUTS mean within 5 combined MC standard errors of its mean (phase 5's
    unconverged mean is printed beside it, not gated);
-10. the same protocol at 4096 chains (``nuts4096_*``), draws kept on the
-   card and ESS (chunked over chains) and split R-hat computed there; gated
+10. the same protocol at 4096 chains (``nuts4096_*``) with 500 timed
+   draws, kept on the card and ESS (chunked over chains) and split R-hat
+   computed there; gated
    on split R-hat and finite draws, and each dimension's posterior mean
    within 5 combined MC standard errors of phase 9's;
 11. ChEES-HMC at 1024 chains, the bench's ``chees`` line (``bench.py``'s
@@ -65,8 +66,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    CUDA's synchronisation debug mode over a few draws);
 12. GHMC at 4096 chains, the bench's ``ghmc`` line: step 0.05, persistence
    0.98, 3 leapfrogs, jitter 0.2, per-chain dual averaging to 0.95 over the
-   first 1000 transitions, ``thin_step(., 4)``, 1000 warmup sweeps and 1000
-   timed kept draws; ESS, bulk, tail and split R-hat on the card (chunks of
+   first 1000 transitions, ``thin_step(., 4)``, 500 warmup sweeps and 500
+   timed kept draws (the bench's 1000 each, halved); ESS, bulk, tail and split R-hat on the card (chunks of
    256 chains); gated on finite draws, split R-hat, the mean against the
    ``hmc`` reference and no host synchronisation;
 13. MAMS and MCLMC at 4096 chains, the bench's microcanonical lines:
@@ -79,13 +80,32 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    each of phases 11-13 also prints its draws/s, warmup seconds,
    warmup-inclusive min ESS/s, host synchronisations and leapfrogs per
    kept draw, and its seconds;
-14. printed and not gated: the Gaussian kernel's time at other chain counts,
+14. the suite's rows of the reference library's samplers at their full
+   settings (``benchmarks/suite.py``), each through its entry point from
+   numpy inputs with no ``device=``: ``rwmh_gaussian_2d`` (256 chains,
+   2000 + 4000 draws, scale 0.1, the (mu, sigma) likelihood of 1000 points
+   2 + 2 N(0, 1)), ``rmhmc_fisher`` (1024 chains, 1500 + 4000 draws, step
+   0.15, 3 leapfrogs of 3 fixed-point steps, the Fisher metric, the same
+   data), ``mala_logreg_25d`` (256 chains, 1000 + 2000 draws, step 0.05
+   with dual averaging, logistic regression on 500 x 25 data) and
+   ``de_mixture`` (200 walkers, 1000 + 2000 generations, initial box +-4,
+   the two-mode mixture): the suite's row keys (seconds, chain draws/s,
+   min, bulk and tail ESS/s, max split and rank R-hat) and host syncs per
+   draw (each entry point run whole at two lengths under CUDA's sync debug
+   mode); gated on finite draws, max rank R-hat <= 1.01 and no host sync
+   per draw, RM-HMC's means within 5 combined MC standard errors of RWMH's
+   (one posterior), MALA's of a converged generic ``hmc`` run's on its
+   posterior, DE's within 5 MC standard errors of the exact 0. Then RM-HMC
+   with the SoftAbs metric on Neal's funnel, briefly: gated on one host
+   sync per ``eigh``, that is per metric evaluation;
+15. printed and not gated: the Gaussian kernel's time at other chain counts,
    and for both fused transitions (``make_fused_hmc_step``,
    ``make_fused_gaussian_hmc_step``), a steady NUTS draw at 1024 chains and
-   a steady transition of ChEES (1024 chains), GHMC and MCLMC (4096) the
-   time per step, the card's busy share of it and the device time of each
-   kernel by name, under ``torch.profiler``. It runs last: once the
-   profiler has run in a process, launches stay slower.
+   a steady transition of ChEES (1024 chains), GHMC and MCLMC (4096), MALA
+   (256) and RM-HMC (1024) at the suite rows' shapes, the time per step,
+   the card's busy share of it and the device time of each kernel by name,
+   under ``torch.profiler``. It runs last: once the profiler has run in a
+   process, launches stay slower.
 
 Before the last two lines it prints each kernel's bound beside its time: for
 the GLM kernel, per link, the largest of the tensor operations, the link's
@@ -152,6 +172,9 @@ G_SWEEP_CHAINS = (256, 1024, 4096, 16384)
 # adapted NUTS at the bench's protocol (bench.py:45-58, :128-243)
 NUTS_CHAINS, NUTS_BIG_CHAINS = 1024, 4096
 NUTS_WARMUP, NUTS_KEEP = 500, 1000
+# kept draws of the 4096-chain line: 1000 until the suite's rows (phase 14)
+# joined the script, halved then to hold its run time
+NUTS_BIG_KEEP = 500
 NUTS_TARGET_ACCEPT = 0.65
 NUTS_INIT_SCALE = 0.05
 NUTS_RHAT_MAX = 1.01
@@ -174,6 +197,10 @@ NUTS_PROFILE_WARM, NUTS_PROFILE_DRAWS = 5, 20
 CHEES_CHAINS = 1024
 GHMC_CHAINS, GHMC_STEP, GHMC_ALPHA, GHMC_LEAP = 4096, 0.05, 0.98, 3
 GHMC_JITTER, GHMC_TARGET, GHMC_THIN, GHMC_WARM = 0.2, 0.95, 4, 1000
+# warmup sweeps and kept draws of the GHMC line (1000 each, the bench's,
+# until the suite's rows joined the script); dual averaging still spans its
+# first GHMC_WARM transitions
+GHMC_WARM_SWEEPS, GHMC_KEEP = 500, 500
 GHMC_ESS_CHUNK = 256
 MC_CHAINS, MC_ESS_CHUNK = 4096, 512
 MC_THIN = {"mams": 1, "mclmc": 2}
@@ -186,7 +213,35 @@ MC_THIN = {"mams": 1, "mclmc": 2}
 # sqrt(1 / (2 ESS)) per line, as for a Gaussian)
 MC_VAR_BIAS = 0.05
 SYNC_PROBE_DRAWS = 3          # draws run under CUDA's sync debug mode
-SAMPLER_PROFILE = {"chees": (5, 20), "ghmc": (20, 100), "mclmc": (20, 100)}
+SAMPLER_PROFILE = {"chees": (5, 20), "ghmc": (20, 100), "mclmc": (20, 100),
+                   "mala": (20, 100), "rmhmc": (5, 20)}
+
+# the suite's rows of the reference library's samplers at their full (not
+# --quick) settings: rwmh_gaussian_2d and mala_logreg_25d
+# (benchmarks/suite.py:72-88), de_mixture (:186-196), rmhmc_fisher
+# (:317-330); the suite's gate is max rank R-hat <= 1.01 (:380)
+SUITE_RHAT_MAX = 1.01
+SUITE_N_DATA = 1000           # the (mu, sigma) rows' data, 2 + 2 N(0, 1)
+RWMH_ROW = {"chains": 256, "warm": 2000, "keep": 4000, "par_scale": 0.1}
+MALA_ROW = {"chains": 256, "warm": 1000, "keep": 2000, "step": 0.05,
+            "n_data": 500, "dim": 25}
+DE_ROW = {"n_pop": 200, "warm": 1000, "keep": 2000, "box": 4.0}
+RMHMC_ROW = {"chains": 1024, "warm": 1500, "keep": 4000, "step": 0.15,
+             "leap": 3, "fp": 3}
+# MALA's reference on the same posterior: generic HMC with dual averaging
+# and windowed diagonal mass, started where MALA starts
+MALA_REF = {"chains": 256, "warm": 1000, "keep": 1000, "leap": 4,
+            "step": 0.05}
+# each entry point is also run whole at two lengths (n warmup + n kept
+# draws) under CUDA's sync debug mode: the difference of the syncs over the
+# difference of the draws is its syncs per draw, its set-up's cancelled
+SYNC_PROBE_LENGTHS = (2, 6)
+# SoftAbs on Neal's funnel, a short run for the sync count: torch's eigh
+# reads its info back, EIGH_SYNCS host syncs per metric evaluation, and a
+# draw evaluates the metric leap * (fp + dim) times
+SOFTABS_ROW = {"chains": 256, "dim": 3, "leap": 2, "fp": 2, "step": 0.5,
+               "n": 5}
+EIGH_SYNCS = 1
 
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds below are
 # the largest of operations over the peak of their type and bytes over the
@@ -347,10 +402,10 @@ def link_data(name, X, beta, rng):
                         device=X.device)
 
 
-def nuts_line(X, y, n_chains, prefix, seed, full_diag):
+def nuts_line(X, y, n_chains, prefix, seed, full_diag, n_keep=NUTS_KEEP):
     """One NUTS quality line at the bench's protocol: warmup (pooled dual
     averaging, windowed diagonal mass, learned depth budget), the sampling
-    kernel rebuilt at the learned cap, ``NUTS_KEEP`` timed draws kept on the
+    kernel rebuilt at the learned cap, ``n_keep`` timed draws kept on the
     card. Prints the bench's ``{prefix}_*`` keys and gates on convergence.
     ``full_diag`` adds bulk/tail ESS and rank R-hat (the 1024-chain line);
     otherwise only ESS (chunked over chains) and split R-hat are computed,
@@ -364,7 +419,7 @@ def nuts_line(X, y, n_chains, prefix, seed, full_diag):
 
     dev = X.device
     lk = logistic_regression_model(X, y, PRIOR_SCALE)
-    s = NUTSSettings(n_burnin_draws=NUTS_WARMUP, n_keep_draws=NUTS_KEEP,
+    s = NUTSSettings(n_burnin_draws=NUTS_WARMUP, n_keep_draws=n_keep,
                      n_adapt_draws=NUTS_WARMUP,
                      target_accept_rate=NUTS_TARGET_ACCEPT)
     args = (lk, integrators.grad_of(lk),
@@ -400,12 +455,12 @@ def nuts_line(X, y, n_chains, prefix, seed, full_diag):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, draws, infos = common.run_sampler_loop(gen, state, step2, 0,
-                                                  NUTS_KEEP, collect)
+                                                  n_keep, collect)
     torch.cuda.synchronize()
     t_samp = time.perf_counter() - t0
     samp_counts = dict(step2.counts)
 
-    check(draws.is_cuda and tuple(draws.shape) == (NUTS_KEEP, n_chains, DIM),
+    check(draws.is_cuda and tuple(draws.shape) == (n_keep, n_chains, DIM),
           f"{prefix}: draws on the card, shape (keep, chains, dim)")
     finite = bool(torch.isfinite(draws).all())
     t0 = time.perf_counter()
@@ -416,7 +471,7 @@ def nuts_line(X, y, n_chains, prefix, seed, full_diag):
     n_div = int(infos["diverged"].sum())
     res = {
         f"{p}_min_ess_per_sec": ess_min / t_samp,
-        f"{p}_draws_per_sec": NUTS_KEEP * n_chains / t_samp,
+        f"{p}_draws_per_sec": n_keep * n_chains / t_samp,
         f"{p}_max_split_rhat": rhat,
         f"{p}_converged": rhat <= NUTS_RHAT_MAX,
         f"{p}_mean_tree_depth": float(infos["tree_depth"].float().mean()),
@@ -447,14 +502,14 @@ def nuts_line(X, y, n_chains, prefix, seed, full_diag):
                                                        + t_samp),
         f"{p}_warmup_leaves_per_draw": warm_counts["leaves"] / NUTS_WARMUP,
         f"{p}_warmup_syncs_per_draw": warm_counts["syncs"] / NUTS_WARMUP,
-        f"{p}_sample_leaves_per_draw": samp_counts["leaves"] / NUTS_KEEP,
-        f"{p}_sample_syncs_per_draw": samp_counts["syncs"] / NUTS_KEEP,
+        f"{p}_sample_leaves_per_draw": samp_counts["leaves"] / n_keep,
+        f"{p}_sample_syncs_per_draw": samp_counts["syncs"] / n_keep,
         f"{p}_ms_per_leaf_warmup": 1e3 * t_warm / warm_counts["leaves"],
         f"{p}_ms_per_leaf_sample": 1e3 * t_samp / samp_counts["leaves"],
         f"{p}_diagnostics_seconds": t_diag,
     })
     print(f"{prefix}: {n_chains} chains, {NUTS_WARMUP} warmup draws in "
-          f"{t_warm:.3f} s, {NUTS_KEEP} draws in {t_samp:.3f} s at cap {cap} "
+          f"{t_warm:.3f} s, {n_keep} draws in {t_samp:.3f} s at cap {cap} "
           f"(FP32 matmuls, no TF32); {json.dumps(res)}")
     check(finite, f"{prefix}: every draw finite")
     check(rhat <= NUTS_RHAT_MAX, f"{prefix}: max split R-hat {rhat:.4f} <= "
@@ -462,7 +517,7 @@ def nuts_line(X, y, n_chains, prefix, seed, full_diag):
     if full_diag:
         check(rank_rhat <= NUTS_RHAT_MAX, f"{prefix}: max rank R-hat "
               f"{rank_rhat:.4f} <= {NUTS_RHAT_MAX}")
-        check(n_div < NUTS_DIV_MAX * NUTS_KEEP * n_chains,
+        check(n_div < NUTS_DIV_MAX * n_keep * n_chains,
               f"{prefix}: {n_div} divergences, under {NUTS_DIV_MAX:.0%} of "
               "draws")
     summary = {"mean": draws.mean(dim=(0, 1)),
@@ -505,23 +560,43 @@ def nuts_reference(X, y, nuts_state):
             "mcse": draws.std(dim=(0, 1)) / torch.sqrt(ess)}
 
 
-def count_syncs(step, gen, state, n):
-    """Host synchronisations that CUDA's sync debug mode reports over ``n``
-    transitions of ``step`` (each blocking copy or wait is one warning; the
-    mode's own notice that it is a prototype is not one). Returns the count
-    and the state after them."""
+def sync_warnings(fn):
+    """``(syncs, fn())``: the host synchronisations CUDA's sync debug mode
+    reports while ``fn`` runs (each blocking copy or wait is one warning;
+    the mode's own notice that it is a prototype is not one)."""
     import warnings
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
             with torch.no_grad():
-                for _ in range(n):
-                    state, _info = step(gen, state)
+                out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return sum(str(w.message).startswith("called a synchronizing CUDA")
-               for w in caught), state
+               for w in caught), out
+
+
+def count_syncs(step, gen, state, n):
+    """Host synchronisations that CUDA's sync debug mode reports over ``n``
+    transitions of ``step``. Returns the count and the state after them."""
+    def run(state):
+        for _ in range(n):
+            state, _info = step(gen, state)
+        return state
+    return sync_warnings(lambda: run(state))
+
+
+def entry_syncs_per_draw(run):
+    """``(syncs per draw, syncs of the shorter call)`` of an entry point:
+    ``run(n)`` calls it with ``n`` warmup and ``n`` kept draws; it is run
+    at both ``SYNC_PROBE_LENGTHS`` under CUDA's sync debug mode, and the
+    difference of the syncs over the difference of the draws is counted
+    per draw, the set-up's syncs cancelled."""
+    a, b = SYNC_PROBE_LENGTHS
+    sa, _ = sync_warnings(lambda: run(a))
+    sb, _ = sync_warnings(lambda: run(b))
+    return (sb - sa) / (2 * (b - a)), sa
 
 
 def sampler_line(prefix, step, gen, init, n_warm, n_keep, thin=1):
@@ -693,7 +768,7 @@ def ghmc_line(X, y, ref):
     pos0 = NUTS_INIT_SCALE * torch.randn((GHMC_CHAINS, DIM), generator=gen,
                                          device=dev)
     state, draws, infos, seconds, per_draw = sampler_line(
-        "ghmc", step, gen, lambda: init(pos0), GHMC_WARM, NUTS_KEEP,
+        "ghmc", step, gen, lambda: init(pos0), GHMC_WARM_SWEEPS, GHMC_KEEP,
         GHMC_THIN)
     res, summ = line_stats("ghmc", draws, seconds, per_draw, GHMC_ESS_CHUNK)
     res.update({
@@ -706,8 +781,8 @@ def ghmc_line(X, y, ref):
             float(infos["accepted"].float().mean()) / GHMC_THIN,
     })
     probe, state = count_syncs(step, gen, state, SYNC_PROBE_DRAWS)
-    print(f"ghmc: {GHMC_CHAINS} chains, {GHMC_WARM} warmup sweeps of "
-          f"{GHMC_THIN} transitions in {seconds[1]:.3f} s, {NUTS_KEEP} draws "
+    print(f"ghmc: {GHMC_CHAINS} chains, {GHMC_WARM_SWEEPS} warmup sweeps of "
+          f"{GHMC_THIN} transitions in {seconds[1]:.3f} s, {GHMC_KEEP} draws "
           f"in {seconds[2]:.3f} s; CUDA's sync debug mode saw {probe} syncs in "
           f"{SYNC_PROBE_DRAWS} transitions; {json.dumps(res)}")
     gate_line("ghmc", res, draws, summ, ref, 0, probe)
@@ -797,6 +872,214 @@ def microcanonical_lines(X, y, ref):
     check(audit["mclmc_bias_max_std_diff_over_bound"] <= 1.0,
           "mclmc: every sd within its bias bound of mams's")
     return out["mclmc"]
+
+
+def suite_record(config, call):
+    """The suite's row keys (``benchmarks/suite.py``'s ``record``) for one
+    timed ``call()`` of an entry point, CUDA synchronised before the clock
+    starts and stops: seconds, chain draws/s, min ESS/s, max split and rank
+    R-hat, min bulk and tail ESS/s (ESS chunked over 256 chains where the
+    suite chunks it). Returns the result, the row and each dimension's mean
+    and MC standard error."""
+    from mcmc_tpu_torch import diagnostics
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    el = time.perf_counter() - t0
+    d = out.draws
+    check(d.is_cuda and d.ndim == 3, f"{config}: draws on the card, (keep, "
+          "chains, dim)")
+    cc = 256 if d.shape[1] > 256 and d.shape[1] % 256 == 0 else None
+    ess = diagnostics.ess(d, chain_chunk=cc)
+    row = {
+        "config": config,
+        "seconds": el,
+        "chain_draws_per_sec": d.shape[0] * d.shape[1] / el,
+        "min_ess_per_sec": float(ess.min()) / el,
+        "max_split_rhat": float(diagnostics.split_rhat(d).max()),
+        "max_rank_rhat": float(diagnostics.rank_normalized_rhat(d).max()),
+        "min_bulk_ess_per_sec":
+            float(diagnostics.bulk_ess(d, chain_chunk=cc).min()) / el,
+        "min_tail_ess_per_sec":
+            float(diagnostics.tail_ess(d, chain_chunk=cc).min()) / el,
+    }
+    summ = {"mean": d.mean(dim=(0, 1)),
+            "mcse": d.std(dim=(0, 1)) / torch.sqrt(ess)}
+    return out, row, summ
+
+
+def gate_row(row, out, syncs, setup_syncs, **extra):
+    """Print a suite row with its host syncs per draw and ``extra``, and
+    gate it on finite draws, max rank R-hat <= ``SUITE_RHAT_MAX`` (the
+    suite's ``all_converged``) and no host sync per draw."""
+    name = row["config"]
+    row = {**row, "syncs_per_draw": syncs, "setup_syncs": setup_syncs,
+           **extra}
+    print(f"{name}: {json.dumps(row)}")
+    check(bool(torch.isfinite(out.draws).all()), f"{name}: every draw "
+          "finite")
+    check(row["max_rank_rhat"] <= SUITE_RHAT_MAX, f"{name}: max rank R-hat "
+          f"{row['max_rank_rhat']:.4f} <= {SUITE_RHAT_MAX}")
+    check(syncs == 0, f"{name}: {syncs} host syncs per draw, 0 expected")
+
+
+def mean_gate(what, a, b, sigmas=NUTS_MEAN_SIGMAS):
+    """Each dimension's mean of ``a`` within ``sigmas`` combined MC standard
+    errors of ``b``'s (``b`` may be exact: MC standard error 0)."""
+    z = float(((a["mean"] - b["mean"]).abs()
+               / torch.hypot(a["mcse"], b["mcse"])).max())
+    print(f"{what}: max |mean difference| / combined MC standard error "
+          f"{z:.3f} (tol {sigmas:g})")
+    check(z <= sigmas, f"{what}: means within {sigmas:g} combined MC "
+          "standard errors")
+
+
+def suite_rows(dev):
+    """Phase 14: the suite's rows of RWMH, MALA, DE and RM-HMC at their full
+    settings, through the entry points from numpy inputs with no
+    ``device=`` (module docstring), then the SoftAbs sync count. Returns
+    MALA's and RM-HMC's kernels, generators and states at the rows' shapes,
+    for the profile."""
+    from mcmc_tpu_torch import (AlgoSettings, DESettings, HMCSettings,
+                                MALASettings, RMHMCSettings, RWMHSettings,
+                                de, diagnostics, hmc, mala, rmhmc, rwmh,
+                                softabs_metric)
+    from mcmc_tpu_torch.convert import glm_data
+    from mcmc_tpu_torch.models import (gaussian_mean_scale_model,
+                                       gaussian_mixture_model,
+                                       logistic_regression_model,
+                                       make_logistic_regression_data,
+                                       neals_funnel, normal_fisher_metric)
+    from mcmc_tpu_torch.samplers import common
+    from mcmc_tpu_torch.samplers.mala import build_mala_kernel
+    from mcmc_tpu_torch.samplers.rmhmc import build_rmhmc_kernel
+
+    t_phase = time.perf_counter()
+    x2 = 2.0 + 2.0 * np.random.default_rng(0).standard_normal(SUITE_N_DATA)
+    lk_ms = gaussian_mean_scale_model(x2)
+
+    # rwmh_gaussian_2d
+    r = RWMH_ROW
+    run = lambda w, k: rwmh(np.array([2.0, 2.0]), lk_ms, RWMHSettings(
+        n_burnin_draws=w, n_keep_draws=k, par_scale=r["par_scale"]),
+        n_chains=r["chains"], key=1)
+    out, row, rw_summ = suite_record("rwmh_gaussian_2d",
+                                     lambda: run(r["warm"], r["keep"]))
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)),
+             accept_rate=float(out.accept_rate.mean()),
+             evaluations_per_draw=1)
+
+    # rmhmc_fisher, on the same (mu, sigma) posterior
+    r = RMHMC_ROW
+    rm_settings = lambda w, k: RMHMCSettings(
+        n_burnin_draws=w, n_keep_draws=k, step_size=r["step"],
+        n_leap_steps=r["leap"], n_fp_steps=r["fp"])
+    metric = normal_fisher_metric(SUITE_N_DATA)
+    run = lambda w, k: rmhmc(np.array([2.5, 2.5]), lk_ms, metric,
+                             rm_settings(w, k), n_chains=r["chains"], key=9)
+    out, row, rm_summ = suite_record("rmhmc_fisher",
+                                     lambda: run(r["warm"], r["keep"]))
+    leap, fp = RMHMC_ROW["leap"], RMHMC_ROW["fp"]
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)),
+             accept_rate=float(out.accept_rate.mean()),
+             leapfrogs_per_draw=leap,
+             metric_evaluations_per_draw=leap * (fp + 2))
+    mean_gate("rmhmc_fisher vs rwmh_gaussian_2d", rm_summ, rw_summ)
+    print(f"(mu, sigma): data mean {x2.mean():.4f}, sd {x2.std():.4f}; rwmh "
+          f"{rw_summ['mean'].tolist()}, rmhmc {rm_summ['mean'].tolist()}")
+
+    # mala_logreg_25d, against generic HMC on the same posterior
+    r = MALA_ROW
+    X, y, _ = make_logistic_regression_data(2, r["n_data"], r["dim"],
+                                            device="cpu")
+    lk_lr = logistic_regression_model(*glm_data(X.numpy(), y.numpy()))
+    run = lambda w, k: mala(np.zeros(r["dim"]), lk_lr, MALASettings(
+        n_burnin_draws=w, n_keep_draws=k, step_size=r["step"]),
+        n_chains=r["chains"], key=3, adapt_step_size=True)
+    out, row, ma_summ = suite_record("mala_logreg_25d",
+                                     lambda: run(r["warm"], r["keep"]))
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)),
+             accept_rate=float(out.accept_rate.mean()),
+             adapted_step_size=float(
+                 out.diagnostics["adapted_step_size"].mean()),
+             gradients_per_draw=1)
+    m = MALA_REF
+    ref, ref_row, ref_summ = suite_record("mala_logreg_25d hmc reference",
+                                          lambda: hmc(
+        np.zeros(r["dim"]), lk_lr, HMCSettings(
+            n_burnin_draws=m["warm"], n_keep_draws=m["keep"],
+            step_size=m["step"], n_leap_steps=m["leap"]),
+        n_chains=m["chains"], key=4, adapt_step_size=True,
+        adapt_mass_matrix=True))
+    print(f"mala_logreg_25d hmc reference: {json.dumps(ref_row)}")
+    check(bool(torch.isfinite(ref.draws).all()), "mala's hmc reference: "
+          "draws finite")
+    check(max(ref_row["max_split_rhat"], ref_row["max_rank_rhat"])
+          <= SUITE_RHAT_MAX, "mala's hmc reference converged (split and "
+          f"rank R-hat <= {SUITE_RHAT_MAX})")
+    mean_gate("mala_logreg_25d vs hmc reference", ma_summ, ref_summ)
+
+    # de_mixture, against the exact mean 0
+    r = DE_ROW
+    lk_mix = gaussian_mixture_model(np.array([[-2.0, -2.0], [2.0, 2.0]]),
+                                    np.array([0.5, 0.5]),
+                                    np.array([0.5, 0.5]))
+    box = np.full(2, r["box"])
+    run = lambda w, k: de(np.zeros(2), lk_mix, DESettings(
+        n_pop=r["n_pop"], n_burnin_draws=w, n_keep_draws=k,
+        initial_lb=-box, initial_ub=box), key=7)
+    out, row, de_summ = suite_record("de_mixture",
+                                     lambda: run(r["warm"], r["keep"]))
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)),
+             accept_rate=int(out.n_accept_draws)
+             / (r["keep"] * r["n_pop"]),
+             mode_share=float((out.draws[..., 0] > 0).float().mean()))
+    zero = {"mean": torch.zeros(2, device=dev),
+            "mcse": torch.zeros(2, device=dev)}
+    mean_gate("de_mixture vs the exact mean 0", de_summ, zero)
+
+    # SoftAbs on Neal's funnel: eigh's host syncs, counted
+    r = SOFTABS_ROW
+    lk_f = neals_funnel(r["dim"], 3.0)
+    metric_f = softabs_metric(lk_f, 1.0)
+    run = lambda n: rmhmc(np.zeros(r["dim"]), lk_f, metric_f, RMHMCSettings(
+        n_burnin_draws=n, n_keep_draws=n, step_size=r["step"],
+        n_leap_steps=r["leap"], n_fp_steps=r["fp"]), n_chains=r["chains"],
+        key=11)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(r["n"])
+    torch.cuda.synchronize()
+    el = time.perf_counter() - t0
+    syncs, setup = entry_syncs_per_draw(run)
+    evals = r["leap"] * (r["fp"] + r["dim"])
+    print(f"rmhmc softabs funnel: {r['chains']} chains, {2 * r['n']} draws "
+          f"in {el:.3f} s ({1e3 * el / (2 * r['n']):.1f} ms a draw), accept "
+          f"{float(out.accept_rate.mean()):.4f}; {syncs} host syncs per draw "
+          f"({setup} in the set-up of the shorter probe) for {evals} metric "
+          f"evaluations (each one eigh) per draw")
+    check(bool(torch.isfinite(out.draws).all()), "softabs: draws finite")
+    check(syncs == EIGH_SYNCS * evals, f"softabs: {syncs} host syncs per "
+          f"draw, {EIGH_SYNCS} per eigh expected ({EIGH_SYNCS * evals})")
+    print(f"suite rows: phase seconds {time.perf_counter() - t_phase:.1f}")
+
+    # steady transitions at the rows' shapes, for the profile
+    gen = torch.Generator(device=dev).manual_seed(54)
+    prob = common.setup_problem(torch.zeros((MALA_ROW["chains"],
+                                             MALA_ROW["dim"]), device=dev),
+                                lk_lr, AlgoSettings(), None)
+    init, mala_step = build_mala_kernel(
+        prob, common.make_spd(None, MALA_ROW["dim"], torch.float32, dev),
+        MALA_ROW["step"], "reference",
+        {"n_burnin": MALA_ROW["warm"], "target": 0.574})
+    mala_path = (mala_step, gen, init(prob.first_draw))
+    prob = common.setup_problem(torch.full((RMHMC_ROW["chains"], 2), 2.5,
+                                           device=dev), lk_ms, AlgoSettings(),
+                                None)
+    init, rm_step = build_rmhmc_kernel(
+        prob, metric, rm_settings(RMHMC_ROW["warm"], RMHMC_ROW["keep"]))
+    return mala_path, (rm_step, gen, init(prob.first_draw))
 
 
 def main():
@@ -1099,7 +1382,7 @@ def main():
     check(z <= NUTS_MEAN_SIGMAS, "NUTS's posterior means agree with the hmc "
           f"reference's within {NUTS_MEAN_SIGMAS:g} MC standard errors")
     big, *_ = nuts_line(X, y, NUTS_BIG_CHAINS, "nuts4096", 41,
-                        full_diag=False)
+                        full_diag=False, n_keep=NUTS_BIG_KEEP)
     z = float(((out["mean"] - big["mean"]).abs()
                / torch.hypot(out["mcse"], big["mcse"])).max())
     print(f"nuts vs nuts4096: max |mean difference| / combined MC standard "
@@ -1112,6 +1395,9 @@ def main():
     ghmc_path = ghmc_line(X, y, ref)
     mclmc_path = microcanonical_lines(X, y, ref)
 
+    # --- the suite's rows of RWMH, MALA, DE and RM-HMC, at full settings
+    mala_path, rmhmc_path = suite_rows(dev)
+
     # --- where the time of a steady transition goes (printed, not gated)
     gen = torch.Generator(device=dev).manual_seed(30)
     glm_step = fl.make_fused_hmc_step(X_np, y_np, PRIOR_SCALE, STEP_SIZE,
@@ -1121,7 +1407,8 @@ def main():
     samplers = [(f"{name} transition ({path[2].position.shape[0]} chains)",
                  *path, *SAMPLER_PROFILE[name])
                 for name, path in (("chees", chees_path), ("ghmc", ghmc_path),
-                                   ("mclmc", mclmc_path))]
+                                   ("mclmc", mclmc_path), ("mala", mala_path),
+                                   ("rmhmc", rmhmc_path))]
     profile_transitions([   # the launch-bound ones first
         ("NUTS draw (1024 chains, sampling kernel)", nuts_step, nuts_gen,
          nuts_state, NUTS_PROFILE_WARM, NUTS_PROFILE_DRAWS),

@@ -16,7 +16,10 @@ factories, whose trajectories are hand-written CUDA kernels on the card), the
 generic ``hmc`` they are checked against, adapted ``nuts`` (plain PyTorch, a
 batched lockstep tree), the bench's other quality samplers ``chees``,
 ``ghmc``, ``mclmc`` and ``mams`` (plain PyTorch, lockstep across the chain
-batch, with the windowed adaptation they share), and the diagnostics.
+batch, with the windowed adaptation they share), the reference library's
+``rwmh`` (with delayed rejection, DRAM), ``mala``, ``rmhmc`` (with the
+``softabs_metric``) and the population sampler ``de``, the ``stats``
+densities, and the diagnostics.
 The CUDA kernels are built at their first launch, so this package imports
 without CUDA, nvcc or Triton.
 
@@ -57,8 +60,13 @@ from mcmc_tpu_torch.samplers.nuts import nuts
 from mcmc_tpu_torch.samplers.chees import chees
 from mcmc_tpu_torch.samplers.ghmc import ghmc
 from mcmc_tpu_torch.samplers.mclmc import mams, mclmc
+from mcmc_tpu_torch.samplers.rwmh import rwmh
+from mcmc_tpu_torch.samplers.mala import mala
+from mcmc_tpu_torch.samplers.rmhmc import rmhmc
+from mcmc_tpu_torch.samplers.de import de
+from mcmc_tpu_torch.metrics import softabs_metric
 from mcmc_tpu_torch.ops.fused_sampler import fused_glm_hmc, fused_gaussian_hmc
-from mcmc_tpu_torch import diagnostics, models
+from mcmc_tpu_torch import diagnostics, models, stats
 
 __all__ = [
     "AlgoSettings", "RWMHSettings", "MALASettings", "HMCSettings",
@@ -68,6 +76,7 @@ __all__ = [
     "EllipticalSettings", "SliceSettings", "GibbsSettings", "MCLMCSettings",
     "MAMSSettings", "EvidenceSettings", "BarkerSettings", "MMALASettings",
     "SamplerResult", "hmc", "nuts", "chees", "ghmc", "mclmc", "mams",
+    "rwmh", "mala", "rmhmc", "de", "softabs_metric",
     "fused_glm_hmc", "fused_gaussian_hmc",
-    "diagnostics", "models",
+    "diagnostics", "models", "stats",
 ]

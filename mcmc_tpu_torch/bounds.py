@@ -21,6 +21,8 @@ __all__ = [
     "inv_transform",
     "log_jacobian",
     "inv_jacobian_diag",
+    "inv_jacobian_adjust",
+    "sampling_bounds_check",
     "make_box_log_kernel",
 ]
 
@@ -137,6 +139,33 @@ def inv_jacobian_diag(z, codes, lower_bounds, upper_bounds):
     z4 = torch.where(codes == 4, z, 0.0)
     j4 = (torch.exp(z4) + 2.0 + torch.exp(-z4)) / width
     return _select(codes, torch.ones_like(z), torch.exp(-z2), torch.exp(z3), j4)
+
+
+def inv_jacobian_adjust(z, codes, lower_bounds, upper_bounds):
+    """Reference-named form returning the full diagonal matrix of each row
+    of ``z`` (reference inv_jacobian_adjust.hpp:25-56): ``(..., n_vals,
+    n_vals)``; prefer :func:`inv_jacobian_diag`, which keeps the vector."""
+    return torch.diag_embed(inv_jacobian_diag(z, codes, lower_bounds,
+                                              upper_bounds))
+
+
+def sampling_bounds_check(vals_bound, codes, hard_lb, hard_ub, samp_lb,
+                          samp_ub):
+    """Clip DE's initial-population sampling box to the hard bounds
+    (reference bounds_check.hpp:25-49): the lower edge where a finite lower
+    bound exists (codes 2, 4), the upper where a finite upper one does
+    (codes 3, 4). Returns ``(lb, ub)`` as tensors on ``codes``' device."""
+    like = lambda a: torch.as_tensor(a, device=codes.device)
+    samp_lb, samp_ub = like(samp_lb), like(samp_ub)
+    if not vals_bound:
+        return samp_lb, samp_ub
+    hard_lb = like(hard_lb).to(samp_lb.dtype)
+    hard_ub = like(hard_ub).to(samp_ub.dtype)
+    lo_mask = (codes == 4) | (codes == 2)
+    hi_mask = (codes == 4) | (codes == 3)
+    out_lb = torch.where(lo_mask, torch.maximum(hard_lb, samp_lb), samp_lb)
+    out_ub = torch.where(hi_mask, torch.minimum(hard_ub, samp_ub), samp_ub)
+    return out_lb, out_ub
 
 
 def make_box_log_kernel(log_kernel, vals_bound, codes, lower_bounds,

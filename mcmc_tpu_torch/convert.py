@@ -15,13 +15,18 @@ from mcmc_tpu_torch import adaptation
 from mcmc_tpu_torch.ops.fused_logreg import FusedHMCState
 from mcmc_tpu_torch.samplers._resolve import resolve_device
 from mcmc_tpu_torch.samplers.chees import ChEESState
+from mcmc_tpu_torch.samplers.de import DEState
 from mcmc_tpu_torch.samplers.ghmc import GHMCState
 from mcmc_tpu_torch.samplers.hmc import HMCState
+from mcmc_tpu_torch.samplers.mala import MALAState
 from mcmc_tpu_torch.samplers.mclmc import MAMSState, MCLMCState
+from mcmc_tpu_torch.samplers.rmhmc import RMHMCState
+from mcmc_tpu_torch.samplers.rwmh import RWMHState
 
 __all__ = ["to_tensor", "glm_data", "gaussian_target", "fused_state",
            "hmc_state", "chees_state", "ghmc_state", "mclmc_state",
-           "mams_state"]
+           "mams_state", "rwmh_state", "mala_state", "rmhmc_state",
+           "de_state"]
 
 
 def to_tensor(a, device=None, dtype=None):
@@ -88,7 +93,7 @@ def hmc_state(state, device=None) -> HMCState:
 
 # state fields that are themselves named tuples, and the int32 counters
 _NESTED = {"da": adaptation.DualAveraging, "wv": adaptation.WindowedVariance}
-_INT32 = ("draw_ind", "count")
+_INT32 = ("draw_ind", "count", "gen_ind")
 
 
 def _sampler_state(cls, state, device):
@@ -124,3 +129,28 @@ def mams_state(state, device=None) -> MAMSState:
     """A :class:`~mcmc_tpu_torch.samplers.mclmc.MAMSState` from the JAX
     package's chain-batched ``MAMSState``."""
     return _sampler_state(MAMSState, state, device)
+
+
+def rwmh_state(state, device=None) -> RWMHState:
+    """A :class:`~mcmc_tpu_torch.samplers.rwmh.RWMHState` from the JAX
+    package's chain-batched ``RWMHState``."""
+    return _sampler_state(RWMHState, state, device)
+
+
+def mala_state(state, device=None) -> MALAState:
+    """A :class:`~mcmc_tpu_torch.samplers.mala.MALAState` from the JAX
+    package's chain-batched ``MALAState``."""
+    return _sampler_state(MALAState, state, device)
+
+
+def rmhmc_state(state, device=None) -> RMHMCState:
+    """A :class:`~mcmc_tpu_torch.samplers.rmhmc.RMHMCState` from the JAX
+    package's chain-batched ``RMHMCState``."""
+    return _sampler_state(RMHMCState, state, device)
+
+
+def de_state(state, device=None) -> DEState:
+    """A :class:`~mcmc_tpu_torch.samplers.de.DEState` from the JAX
+    package's ``DEState`` (the population on the leading axis, the
+    generation counter a scalar)."""
+    return _sampler_state(DEState, state, device)

@@ -1,5 +1,6 @@
 """Target log-kernels (PyTorch port of the flagship target, the
-ill-conditioned Gaussian and the NUTS test targets of
+ill-conditioned Gaussian, the NUTS test targets, and the reference examples'
+Gaussian-mean, mixture, Fisher-metric and funnel targets of
 ``mcmc_tpu.models.targets``).
 
 Log-kernels here are batched: ``log_kernel(theta: (n_chains, d)) ->
@@ -16,8 +17,10 @@ import torch
 from mcmc_tpu_torch.samplers._resolve import resolve_device
 
 __all__ = ["make_logistic_regression_data", "logistic_regression_model",
-           "ill_conditioned_gaussian", "gaussian_mean_scale_model",
-           "banana_model", "eight_schools_model"]
+           "ill_conditioned_gaussian", "gaussian_mean_model",
+           "gaussian_mean_scale_model", "normal_fisher_metric",
+           "banana_model", "gaussian_mixture_model", "neals_funnel",
+           "eight_schools_model"]
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -84,6 +87,25 @@ def ill_conditioned_gaussian(dim: int, condition_number: float = 1e4,
     return log_kernel
 
 
+def gaussian_mean_model(x_data, sigma=1.0, mu_0=1.0, sigma_0=2.0,
+                        dtype=torch.float32, device=None):
+    """Gaussian-mean posterior of reference examples/eigen/
+    rwmh_normal_mean.cpp: likelihood N(mu, sigma^2) over ``x_data`` plus a
+    N(mu_0, sigma_0^2) prior on the single parameter mu."""
+    x = _data(x_data, dtype, device)
+    n = x.shape[0]
+
+    def log_kernel(params):
+        mu = params[..., 0]
+        ll = -n * (0.5 * LOG_2PI + math.log(sigma)) \
+            - ((x - mu[..., None]) ** 2).sum(dim=-1) / (2.0 * sigma ** 2)
+        lp = -0.5 * LOG_2PI - math.log(sigma_0) \
+            - (mu - mu_0) ** 2 / (2.0 * sigma_0 ** 2)
+        return ll + lp
+
+    return log_kernel
+
+
 def gaussian_mean_scale_model(x_data, dtype=torch.float32, device=None):
     """(mu, sigma) likelihood of reference examples/eigen/hmc_normal.cpp:
     46-62 over ``x_data`` — no prior, sigma sampled directly (non-positive
@@ -99,6 +121,24 @@ def gaussian_mean_scale_model(x_data, dtype=torch.float32, device=None):
     return log_kernel
 
 
+def normal_fisher_metric(n_data: int):
+    """Fisher metric for the (mu, sigma) normal model, the RM-HMC example's
+    ``tensor_fn`` (reference examples/eigen/rmhmc_normal.cpp:78-111):
+    ``G = diag(n/sigma^2, 2n/sigma^2)`` for each row of ``params``, so the
+    batched ``metric_fn`` maps ``(c, 2) -> (c, 2, 2)``. It is built without
+    in-place writes, so ``torch.func.jvp`` differentiates it (the sampler's
+    derivative cube)."""
+
+    def metric_fn(params):
+        # a reciprocal and products, not a Python number over a tensor:
+        # under torch.func.jvp that division takes a slow Python path
+        inv_sq = torch.reciprocal(params[..., 1] ** 2)
+        return torch.diag_embed(torch.stack(
+            [n_data * inv_sq, (2.0 * n_data) * inv_sq], dim=-1))
+
+    return metric_fn
+
+
 def banana_model(b: float = 0.1, sigma: float = 10.0):
     """2-d banana (twisted Gaussian): x1 ~ N(0, sigma^2),
     x2 | x1 ~ N(b * (x1^2 - sigma^2), 1)."""
@@ -108,6 +148,42 @@ def banana_model(b: float = 0.1, sigma: float = 10.0):
         return -0.5 * x1 ** 2 / sigma ** 2 \
             - 0.5 * (x2 - b * (x1 ** 2 - sigma ** 2)) ** 2
 
+    return log_kernel
+
+
+def gaussian_mixture_model(mu, sig_sq, weights, dtype=torch.float32,
+                           device=None):
+    """Isotropic Gaussian mixture (reference examples/eigen/
+    aees_mixture.cpp:37-58). ``mu`` has shape (n_mix, n_vals), ``sig_sq`` and
+    ``weights`` (n_mix,); computed with logsumexp instead of the reference's
+    probability-space sum, identical up to rounding wherever the reference
+    is finite."""
+    mu = _data(mu, dtype, device)
+    sig_sq = _data(sig_sq, dtype, mu.device)
+    weights = _data(weights, dtype, mu.device)
+    n_vals = mu.shape[1]
+
+    def log_kernel(x):
+        dist_sq = ((x[..., None, :] - mu) ** 2).sum(dim=-1)
+        log_comp = torch.log(weights) - 0.5 * dist_sq / sig_sq \
+            - 0.5 * n_vals * torch.log(2.0 * math.pi * sig_sq)
+        return torch.logsumexp(log_comp, dim=-1)
+
+    return log_kernel
+
+
+def neals_funnel(dim: int = 10, scale: float = 3.0):
+    """Neal's funnel: v ~ N(0, scale^2), x_i | v ~ N(0, e^v). The classic
+    pathological geometry for step-size/mass adaptation testing."""
+
+    def log_kernel(params):
+        v, x = params[..., 0], params[..., 1:]
+        lp_v = -0.5 * v ** 2 / scale ** 2
+        lp_x = -0.5 * (x ** 2).sum(dim=-1) * torch.exp(-v) \
+            - 0.5 * (dim - 1) * v
+        return lp_v + lp_x
+
+    log_kernel.dim = dim
     return log_kernel
 
 

@@ -55,3 +55,37 @@ class SamplerResult:
     def var(self):
         d = torch.as_tensor(self.draws)
         return d.var(dim=tuple(range(d.ndim - 1)), unbiased=False)
+
+    def summary(self):
+        """Posterior summary with convergence diagnostics
+        (:func:`mcmc_tpu_torch.diagnostics.summary`): mean, sd, MCSE, split
+        R-hat, Geyer ESS, rank-normalized R-hat, bulk/tail ESS."""
+        from mcmc_tpu_torch import diagnostics
+        return diagnostics.summary(self.draws)
+
+    def to_arviz(self, var_name: str = "x"):
+        """Convert to an ``arviz.InferenceData`` (requires the optional
+        ``arviz`` package; raises ImportError with guidance otherwise).
+        Draws are exposed as (chain, draw, dim) under ``var_name``;
+        per-draw diagnostics with matching shapes go to ``sample_stats``."""
+        try:
+            import arviz as az
+        except ImportError as e:
+            raise ImportError(
+                "SamplerResult.to_arviz() needs the optional 'arviz' "
+                "package (pip install arviz)") from e
+        import numpy as np
+        as_np = lambda v: v.detach().cpu().numpy() if torch.is_tensor(v) \
+            else np.asarray(v)
+        d = as_np(self.draws)
+        if d.ndim == 2:
+            d = d[:, None, :]
+        posterior = {var_name: np.moveaxis(d, 0, 1)}   # (chain, draw, dim)
+        stats = {}
+        n_keep, n_chains = d.shape[0], d.shape[1]
+        for k, v in self.diagnostics.items():
+            v = as_np(v)
+            if v.shape[:2] == (n_keep, n_chains):
+                stats[k] = np.moveaxis(v, 0, 1)
+        return az.from_dict(posterior=posterior,
+                            sample_stats=stats or None)

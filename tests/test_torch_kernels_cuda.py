@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-and the port's NUTS, ChEES, GHMC, MCLMC and MAMS (plain PyTorch) run on it.
+and the port's NUTS, ChEES, GHMC, MCLMC, MAMS, RWMH, MALA, RM-HMC and DE
+(plain PyTorch) run on it.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports no JAX, so that it runs on a machine without it:
@@ -365,30 +366,57 @@ def test_nuts_on_the_card_repeats_under_one_seed():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["chees", "ghmc", "mclmc", "mams"])
+@pytest.mark.parametrize("name", ["chees", "ghmc", "mclmc", "mams", "rwmh",
+                                  "mala", "rmhmc", "de"])
 def test_sampler_on_the_card_repeats_under_one_seed(name):
-    """Each of ``chees``, ``ghmc``, ``mclmc`` and ``mams`` at 64 chains on
-    the flagship target (100 dims, 1000 rows), from numpy data and start
-    with no ``device=``: it runs on the card, its draws are finite, and two
-    runs with one seed are bit-equal, diagnostics included."""
+    """Each of ``chees``, ``ghmc``, ``mclmc``, ``mams``, ``rwmh`` (DRAM:
+    dense pooled covariance, dual averaging, delayed rejection), ``mala``
+    (dense pooled preconditioner) and ``de`` (64 walkers) at 64 chains on
+    the flagship target (100 dims, 1000 rows), and ``rmhmc`` with the
+    SoftAbs metric on a 3-d funnel (16 chains, a few draws), from numpy
+    data and start with no ``device=``: it runs on the card, its draws are
+    finite, and two runs with one seed are bit-equal, diagnostics
+    included."""
     _require_card()
     import mcmc_tpu_torch
     from mcmc_tpu_torch.convert import glm_data
     from mcmc_tpu_torch.models import (logistic_regression_model,
-                                       make_logistic_regression_data)
+                                       make_logistic_regression_data,
+                                       neals_funnel)
 
-    X, y, _ = make_logistic_regression_data(0, 1000, 100, device="cpu")
-    lk = logistic_regression_model(*glm_data(X.numpy(), y.numpy()))
     settings = {"chees": "ChEESSettings", "ghmc": "GHMCSettings",
-                "mclmc": "MCLMCSettings", "mams": "MAMSSettings"}[name]
-    s = getattr(mcmc_tpu_torch, settings)(n_burnin_draws=30, n_keep_draws=30)
-    kw = {"chees": dict(adapt_mass_matrix=True), "ghmc": {},
-          "mclmc": dict(adapt_mass=True), "mams": dict(adapt_mass=True)}[name]
+                "mclmc": "MCLMCSettings", "mams": "MAMSSettings",
+                "rwmh": "RWMHSettings", "mala": "MALASettings",
+                "rmhmc": "RMHMCSettings", "de": "DESettings"}[name]
     fn = getattr(mcmc_tpu_torch, name)
-    x0 = np.full(100, 0.01, np.float32)
-    a = fn(x0, lk, s, n_chains=64, key=7, **kw)
-    b = fn(x0, lk, s, n_chains=64, key=7, **kw)
-    assert a.draws.is_cuda and a.draws.shape == (30, 64, 100)
+    if name == "rmhmc":
+        lk = neals_funnel(3, 3.0)
+        s = mcmc_tpu_torch.RMHMCSettings(n_burnin_draws=3, n_keep_draws=3,
+                                         step_size=0.5, n_leap_steps=2,
+                                         n_fp_steps=2)
+        args = (np.zeros(3, np.float32), lk,
+                mcmc_tpu_torch.softabs_metric(lk, 1.0), s)
+        kw, shape = dict(n_chains=16), (3, 16, 3)
+    else:
+        X, y, _ = make_logistic_regression_data(0, 1000, 100, device="cpu")
+        lk = logistic_regression_model(*glm_data(X.numpy(), y.numpy()))
+        extra = {"de": dict(n_pop=64)}.get(name, {})
+        s = getattr(mcmc_tpu_torch, settings)(n_burnin_draws=30,
+                                              n_keep_draws=30, **extra)
+        args = (np.full(100, 0.01, np.float32), lk, s)
+        kw = {"chees": dict(adapt_mass_matrix=True), "ghmc": {},
+              "mclmc": dict(adapt_mass=True), "mams": dict(adapt_mass=True),
+              "rwmh": dict(adapt_scale=True, adapt_precond="dense",
+                           pooled_adaptation=True, delayed_rejection=True),
+              "mala": dict(adapt_step_size=True, adapt_precond="dense",
+                           pooled_adaptation=True),
+              "de": {}}[name]
+        if name != "de":
+            kw["n_chains"] = 64
+        shape = (30, 64, 100)
+    a = fn(*args, key=7, **kw)
+    b = fn(*args, key=7, **kw)
+    assert a.draws.is_cuda and a.draws.shape == shape
     assert bool(torch.isfinite(a.draws).all())
     assert torch.equal(a.draws, b.draws)
     for k, v in a.diagnostics.items():
