@@ -98,11 +98,30 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    posterior, DE's within 5 MC standard errors of the exact 0. Then RM-HMC
    with the SoftAbs metric on Neal's funnel, briefly: gated on one host
    sync per ``eigh``, that is per metric evaluation;
-15. printed and not gated: the Gaussian kernel's time at other chain counts,
+15. the suite's tempering and ensemble rows at their full settings, each
+   through its entry point from numpy inputs with no ``device=``:
+   ``aees_mixture`` (32 runs of the ladder 60, 15.3, 3.9, 1 with 500 + 500
+   draws a rung and 24,000 kept, 11 rings, jump probability 0.05, proposal
+   0.35 I, a 512-entry reservoir, on the two-mode mixture of variance
+   0.1), ``pt_mixture`` (256 ladders of 6 temperatures to 60, adapted,
+   HMC inner moves at step 0.12 with 5 leapfrogs, 1000 + 3000 draws, the
+   same mixture), ``smc_mixture`` (16,384 particles, 5 mutation steps,
+   initial scale 4, de_mixture's mixture), ``stretch_correlated`` (256
+   walkers, 2000 + 6000 sweeps, rho 0.95) and ``demcz_correlated_10d`` (64
+   runs of 6 walkers, 2500 + 4500 generations, rho 0.8 in 10 dims): the
+   suite's row keys and host syncs per draw (as in phase 14); gated on
+   finite draws, and for the four chain rows on max rank R-hat <= 1.01,
+   each mean within 5 MC standard errors of the exact 0 and no host sync
+   per draw, PT also on a round-trip rate above 0; SMC on the suite's own
+   gates (|log Z| <= 0.05, |mode mass - 0.5| <= 0.05) and on exactly one
+   host sync a stage. Then, printed: an AEES draw's time with the full
+   history at the row's length;
+16. printed and not gated: the Gaussian kernel's time at other chain counts,
    and for both fused transitions (``make_fused_hmc_step``,
    ``make_fused_gaussian_hmc_step``), a steady NUTS draw at 1024 chains and
    a steady transition of ChEES (1024 chains), GHMC and MCLMC (4096), MALA
-   (256) and RM-HMC (1024) at the suite rows' shapes, the time per step,
+   (256) and RM-HMC (1024) at the suite rows' shapes, and a steady draw of
+   AEES (32 runs) and PT (256 ladders) at theirs, the time per step,
    the card's busy share of it and the device time of each kernel by name,
    under ``torch.profiler``. It runs last: once the profiler has run in a
    process, launches stay slower.
@@ -214,7 +233,8 @@ MC_THIN = {"mams": 1, "mclmc": 2}
 MC_VAR_BIAS = 0.05
 SYNC_PROBE_DRAWS = 3          # draws run under CUDA's sync debug mode
 SAMPLER_PROFILE = {"chees": (5, 20), "ghmc": (20, 100), "mclmc": (20, 100),
-                   "mala": (20, 100), "rmhmc": (5, 20)}
+                   "mala": (20, 100), "rmhmc": (5, 20), "aees": (20, 100),
+                   "pt": (10, 50)}
 
 # the suite's rows of the reference library's samplers at their full (not
 # --quick) settings: rwmh_gaussian_2d and mala_logreg_25d
@@ -242,6 +262,29 @@ SYNC_PROBE_LENGTHS = (2, 6)
 SOFTABS_ROW = {"chains": 256, "dim": 3, "leap": 2, "fp": 2, "step": 0.5,
                "n": 5}
 EIGH_SYNCS = 1
+
+# the suite's tempering and ensemble rows at their full settings
+# (benchmarks/suite.py:198-316), seeds the suite's keys: aees_mixture and
+# pt_mixture on the hard mixture (modes at +-2, variance 0.1), smc_mixture
+# on de_mixture's (variance 0.5), stretch_correlated (rho 0.95, 2 dims),
+# demcz_correlated_10d (rho 0.8, 10 dims). The chain rows gate on rank
+# R-hat (SUITE_RHAT_MAX) and on each mean within NUTS_MEAN_SIGMAS MC
+# standard errors of the exact 0; smc_mixture on the suite's own gates.
+AEES_ROW = {"runs": 32, "initial": 500, "burnin": 500, "keep": 24000,
+            "rings": 11, "ee_prob": 0.05, "temps": (60.0, 15.3, 3.9),
+            "cov": 0.35, "capacity": 512, "key": 8}
+PT_ROW = {"chains": 256, "warm": 1000, "keep": 3000, "temps": 6,
+          "max_temp": 60.0, "step": 0.12, "leap": 5, "key": 11}
+SMC_ROW = {"particles": 16384, "mcmc": 5, "init_scale": 4.0, "key": 12,
+           "log_z_gate": 0.05, "mass_gate": 0.05}
+STRETCH_ROW = {"walkers": 256, "warm": 2000, "keep": 6000, "rho": 0.95,
+               "key": 13}
+DEMCZ_ROW = {"n_pop": 6, "runs": 64, "warm": 2500, "keep": 4500, "dim": 10,
+             "rho": 0.8, "key": 16}
+# AEES with the full history (no reservoir): a few draws timed at the end of
+# the aees_mixture row's length, where each rung sorts a window of about
+# n_total entries
+AEES_FULL_DRAWS = 10
 
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds below are
 # the largest of operations over the peak of their type and bytes over the
@@ -587,16 +630,17 @@ def count_syncs(step, gen, state, n):
     return sync_warnings(lambda: run(state))
 
 
-def entry_syncs_per_draw(run):
+def entry_syncs_per_draw(run, draws_of=lambda n: 2 * n):
     """``(syncs per draw, syncs of the shorter call)`` of an entry point:
-    ``run(n)`` calls it with ``n`` warmup and ``n`` kept draws; it is run
-    at both ``SYNC_PROBE_LENGTHS`` under CUDA's sync debug mode, and the
-    difference of the syncs over the difference of the draws is counted
-    per draw, the set-up's syncs cancelled."""
+    ``run(n)`` calls it with ``n`` warmup and ``n`` kept draws (or, with
+    ``draws_of``, ``draws_of(n)`` draws in all); it is run at both
+    ``SYNC_PROBE_LENGTHS`` under CUDA's sync debug mode, and the difference
+    of the syncs over the difference of the draws is counted per draw, the
+    set-up's syncs cancelled."""
     a, b = SYNC_PROBE_LENGTHS
     sa, _ = sync_warnings(lambda: run(a))
     sb, _ = sync_warnings(lambda: run(b))
-    return (sb - sa) / (2 * (b - a)), sa
+    return (sb - sa) / (draws_of(b) - draws_of(a)), sa
 
 
 def sampler_line(prefix, step, gen, init, n_warm, n_keep, thin=1):
@@ -1082,6 +1126,191 @@ def suite_rows(dev):
     return mala_path, (rm_step, gen, init(prob.first_draw))
 
 
+def tempering_rows(dev):
+    """Phase 15: the suite's rows of AEES, PT, SMC, the stretch ensemble and
+    DE-MC(Z) at their full settings, through the entry points from numpy
+    inputs with no ``device=`` (module docstring), then the cost of an AEES
+    draw with the full history at the row's length. Returns AEES's and PT's
+    kernels, generators and states at the rows' shapes, for the profile."""
+    from mcmc_tpu_torch import (AEESSettings, DEMCZSettings, PTSettings,
+                                SMCSettings, StretchSettings, aees, demcz,
+                                pt, smc, stretch)
+    from mcmc_tpu_torch.models import gaussian_mixture_model
+    from mcmc_tpu_torch.samplers.aees import build_aees_kernel, make_temps
+    from mcmc_tpu_torch.samplers.pt import build_pt_kernel
+
+    t_phase = time.perf_counter()
+    mu = np.array([[-2.0, -2.0], [2.0, 2.0]])
+    lk_hard = gaussian_mixture_model(mu, np.array([0.1, 0.1]),
+                                     np.array([0.5, 0.5]))
+    zero = lambda d: {"mean": torch.zeros(d, device=dev),
+                      "mcse": torch.zeros(d, device=dev)}
+
+    # aees_mixture: K * (n_initial + n_burnin) discarded draws, then kept
+    r = AEES_ROW
+    K = len(r["temps"]) + 1
+    aees_s = lambda i, b, k: AEESSettings(
+        n_initial_draws=i, n_burnin_draws=b, n_keep_draws=k,
+        n_rings=r["rings"], ee_prob_par=r["ee_prob"],
+        temper_vec=np.array(r["temps"]), cov_mat=r["cov"] * np.eye(2))
+    run = lambda i, b, k: aees(mu[0], lk_hard, aees_s(i, b, k), key=r["key"],
+                               n_runs=r["runs"],
+                               history_capacity=r["capacity"])
+    out, row, summ = suite_record(
+        "aees_mixture", lambda: run(r["initial"], r["burnin"], r["keep"]))
+    n_draws = K * (r["initial"] + r["burnin"]) + r["keep"]
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, 0, n),
+                                             lambda n: (K + 1) * n),
+             draws=n_draws, ms_per_draw=1e3 * row["seconds"] / n_draws,
+             temperatures=out.diagnostics["temperatures"].tolist(),
+             ee_accept_rate=out.diagnostics["ee_accept_rate"].tolist(),
+             mode_share=float((out.draws[..., 0] > 0).float().mean()))
+    mean_gate("aees_mixture vs the exact mean 0", summ, zero(2))
+
+    # pt_mixture
+    r = PT_ROW
+    run = lambda w, k: pt(mu[0], lk_hard, PTSettings(
+        n_burnin_draws=w, n_keep_draws=k, n_temps=r["temps"],
+        max_temp=r["max_temp"], adapt_temps=True, inner="hmc",
+        step_size=r["step"], n_leap_steps=r["leap"]), n_chains=r["chains"],
+        key=r["key"])
+    out, row, summ = suite_record("pt_mixture",
+                                  lambda: run(r["warm"], r["keep"]))
+    trips = out.diagnostics["round_trip_rate"]
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)),
+             ms_per_draw=1e3 * row["seconds"] / (r["warm"] + r["keep"]),
+             accept_rate=float(out.accept_rate.mean()),
+             temperatures=out.diagnostics["temperatures"].tolist(),
+             swap_accept_rate=out.diagnostics["swap_accept_rate"]
+             .mean(dim=0).tolist(),
+             round_trip_rate=float(trips.mean()),
+             min_round_trip_rate=float(trips.min()),
+             mode_share=float((out.draws[..., 0] > 0).float().mean()))
+    check(float(trips.mean()) > 0, "pt_mixture: round_trip_rate > 0")
+    mean_gate("pt_mixture vs the exact mean 0", summ, zero(2))
+
+    # smc_mixture: one cloud, the suite's own gates (benchmarks/suite.py
+    # :234-264), and one host sync a stage
+    r = SMC_ROW
+    lk_mix = gaussian_mixture_model(mu, np.array([0.5, 0.5]),
+                                    np.array([0.5, 0.5]))
+    run = lambda m: smc(np.zeros(2), lk_mix, SMCSettings(
+        n_particles=r["particles"], n_mcmc_steps=r["mcmc"],
+        init_scale=r["init_scale"], max_stages=m), key=r["key"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(100)
+    torch.cuda.synchronize()
+    el = time.perf_counter() - t0
+    cloud = out.draws
+    check(cloud.is_cuda and tuple(cloud.shape) == (r["particles"], 2),
+          "smc_mixture: the cloud on the card, (particles, 2)")
+    check(bool(torch.isfinite(cloud).all()), "smc_mixture: every particle "
+          "finite")
+    n_stages = out.diagnostics["n_stages"]
+    log_z_err = abs(float(out.diagnostics["log_z"]))
+    mass_err = abs(float((cloud[:, 0] > 0).float().mean()) - 0.5)
+    s1, _ = sync_warnings(lambda: run(1))
+    s2, _ = sync_warnings(lambda: run(2))
+    s_all, _ = sync_warnings(lambda: run(100))
+    row = {"config": "smc_mixture", "seconds": el,
+           "particles_per_sec": r["particles"] / el, "n_stages": n_stages,
+           "ms_per_stage": 1e3 * el / n_stages,
+           "abs_log_z_error": log_z_err, "abs_log_z_gate": r["log_z_gate"],
+           "mode_mass_error": mass_err, "mode_mass_gate": r["mass_gate"],
+           "lambdas": out.diagnostics["lambdas"].tolist(),
+           "mutation_accept_rate":
+               out.diagnostics["mutation_accept_rate"].tolist(),
+           "syncs_per_stage": s2 - s1, "syncs_one_stage_run": s1,
+           "syncs_whole_run": s_all}
+    row["passed"] = log_z_err <= r["log_z_gate"] and mass_err <= r["mass_gate"]
+    print(f"smc_mixture: {json.dumps(row)}")
+    check(out.diagnostics["completed"], "smc_mixture: lambda reached 1")
+    check(log_z_err <= r["log_z_gate"], f"smc_mixture: |log Z| "
+          f"{log_z_err:.4f} <= {r['log_z_gate']}")
+    check(mass_err <= r["mass_gate"], f"smc_mixture: |mode mass - 0.5| "
+          f"{mass_err:.4f} <= {r['mass_gate']}")
+    # a run stopped by max_stages tests no lambda after its last stage; one
+    # that reaches lambda 1 tests it once more, to end
+    check(s2 - s1 == 1, f"smc_mixture: {s2 - s1} host syncs for a stage, 1 "
+          "expected")
+    check(s_all - s1 == n_stages, f"smc_mixture: {s_all - s1} host syncs "
+          f"for {n_stages - 1} more stages and the end, {n_stages} expected")
+
+    # stretch_correlated
+    r = STRETCH_ROW
+    prec = torch.tensor(np.linalg.inv([[1.0, r["rho"]], [r["rho"], 1.0]]),
+                        dtype=torch.float32, device=dev)
+    lk_c = lambda v: -0.5 * ((v @ prec) * v).sum(-1)
+    run = lambda w, k: stretch(np.zeros(2), lk_c, StretchSettings(
+        n_walkers=r["walkers"], n_burnin_draws=w, n_keep_draws=k),
+        key=r["key"])
+    out, row, summ = suite_record("stretch_correlated",
+                                  lambda: run(r["warm"], r["keep"]))
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)),
+             ms_per_sweep=1e3 * row["seconds"] / (r["warm"] + r["keep"]),
+             accept_rate=int(out.n_accept_draws)
+             / (r["keep"] * r["walkers"]),
+             correlation=float(torch.corrcoef(out.draws.reshape(-1, 2).T)
+                               [0, 1]))
+    mean_gate("stretch_correlated vs the exact mean 0", summ, zero(2))
+
+    # demcz_correlated_10d
+    r = DEMCZ_ROW
+    d = r["dim"]
+    cov = r["rho"] * np.ones((d, d)) + (1 - r["rho"]) * np.eye(d)
+    P = torch.tensor(np.linalg.inv(cov), dtype=torch.float32, device=dev)
+    lk_z = lambda v: -0.5 * ((v @ P) * v).sum(-1)
+    run = lambda w, k: demcz(np.zeros(d), lk_z, DEMCZSettings(
+        n_pop=r["n_pop"], n_burnin_draws=w, n_keep_draws=k),
+        n_runs=r["runs"], key=r["key"])
+    out, row, summ = suite_record("demcz_correlated_10d",
+                                  lambda: run(r["warm"], r["keep"]))
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)),
+             ms_per_generation=1e3 * row["seconds"] / (r["warm"] + r["keep"]),
+             accept_rate=int(out.n_accept_draws)
+             / (r["keep"] * r["runs"] * r["n_pop"]),
+             min_variance=float(out.draws.reshape(-1, d).var(dim=0).min()),
+             max_variance=float(out.draws.reshape(-1, d).var(dim=0).max()))
+    mean_gate("demcz_correlated_10d vs the exact mean 0", summ, zero(d))
+
+    # AEES's full history at the row's length: each rung sorts its window
+    r = AEES_ROW
+    s = aees_s(r["initial"], r["burnin"], r["keep"])
+    make0, full_step = build_aees_kernel(
+        lk_hard, make_temps(s), s, 2, torch.float32, dev, None)
+    first = torch.tensor(mu[0], dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(55)
+    st = make0(first, lk_hard(first[None])[0], r["runs"])
+    st = st._replace(draw_ind=full_step.H - AEES_FULL_DRAWS - 1)
+    with torch.no_grad():
+        st, _ = full_step(gen, st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(AEES_FULL_DRAWS):
+            st, _ = full_step(gen, st)
+        torch.cuda.synchronize()
+    full_ms = 1e3 * (time.perf_counter() - t0) / AEES_FULL_DRAWS
+    print(f"aees full history: {r['runs']} runs, windows of about "
+          f"{full_step.H} entries a rung: {full_ms:.3f} ms a draw (the row "
+          f"keeps a reservoir of {r['capacity']})")
+    print(f"tempering rows: phase seconds {time.perf_counter() - t_phase:.1f}")
+
+    # steady draws at the rows' shapes, for the profile
+    make0, aees_step = build_aees_kernel(lk_hard, make_temps(s), s, 2,
+                                         torch.float32, dev, r["capacity"])
+    st = make0(first, lk_hard(first[None])[0], r["runs"])
+    st = st._replace(draw_ind=K * (r["initial"] + r["burnin"]) + 600)
+    r = PT_ROW
+    make0, pt_step = build_pt_kernel(lk_hard, PTSettings(
+        n_temps=r["temps"], max_temp=r["max_temp"], adapt_temps=True,
+        inner="hmc", step_size=r["step"], n_leap_steps=r["leap"]), 2,
+        torch.float32, dev, r["warm"])
+    x0 = first.expand(r["chains"], 2)
+    pst = make0(x0, lk_hard(x0))._replace(draw_ind=r["warm"])
+    return (aees_step, gen, st), (pt_step, gen, pst)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1398,6 +1627,9 @@ def main():
     # --- the suite's rows of RWMH, MALA, DE and RM-HMC, at full settings
     mala_path, rmhmc_path = suite_rows(dev)
 
+    # --- the suite's rows of AEES, PT, SMC, stretch and DE-MC(Z), likewise
+    aees_path, pt_path = tempering_rows(dev)
+
     # --- where the time of a steady transition goes (printed, not gated)
     gen = torch.Generator(device=dev).manual_seed(30)
     glm_step = fl.make_fused_hmc_step(X_np, y_np, PRIOR_SCALE, STEP_SIZE,
@@ -1409,6 +1641,11 @@ def main():
                 for name, path in (("chees", chees_path), ("ghmc", ghmc_path),
                                    ("mclmc", mclmc_path), ("mala", mala_path),
                                    ("rmhmc", rmhmc_path))]
+    samplers += [(f"{name} draw ({path[2].X.shape[0]} {what}, "
+                  f"{path[2].X.shape[1]} rungs)", *path,
+                  *SAMPLER_PROFILE[name])
+                 for name, what, path in (("aees", "runs", aees_path),
+                                          ("pt", "ladders", pt_path))]
     profile_transitions([   # the launch-bound ones first
         ("NUTS draw (1024 chains, sampling kernel)", nuts_step, nuts_gen,
          nuts_state, NUTS_PROFILE_WARM, NUTS_PROFILE_DRAWS),

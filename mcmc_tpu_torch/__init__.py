@@ -18,8 +18,11 @@ batched lockstep tree), the bench's other quality samplers ``chees``,
 ``ghmc``, ``mclmc`` and ``mams`` (plain PyTorch, lockstep across the chain
 batch, with the windowed adaptation they share), the reference library's
 ``rwmh`` (with delayed rejection, DRAM), ``mala``, ``rmhmc`` (with the
-``softabs_metric``) and the population sampler ``de``, the ``stats``
-densities, and the diagnostics.
+``softabs_metric``), the population sampler ``de`` and the equi-energy
+sampler ``aees`` (with that, all seven of the reference library's
+samplers), the tempering and ensemble samplers beside them (``pt``,
+``smc``, ``stretch``, ``demcz``), the ``stats`` densities, and the
+diagnostics.
 The CUDA kernels are built at their first launch, so this package imports
 without CUDA, nvcc or Triton.
 
@@ -64,6 +67,11 @@ from mcmc_tpu_torch.samplers.rwmh import rwmh
 from mcmc_tpu_torch.samplers.mala import mala
 from mcmc_tpu_torch.samplers.rmhmc import rmhmc
 from mcmc_tpu_torch.samplers.de import de
+from mcmc_tpu_torch.samplers.pt import pt
+from mcmc_tpu_torch.samplers.aees import aees
+from mcmc_tpu_torch.samplers.smc import smc
+from mcmc_tpu_torch.samplers.stretch import stretch
+from mcmc_tpu_torch.samplers.demcz import demcz
 from mcmc_tpu_torch.metrics import softabs_metric
 from mcmc_tpu_torch.ops.fused_sampler import fused_glm_hmc, fused_gaussian_hmc
 from mcmc_tpu_torch import diagnostics, models, stats
@@ -76,7 +84,8 @@ __all__ = [
     "EllipticalSettings", "SliceSettings", "GibbsSettings", "MCLMCSettings",
     "MAMSSettings", "EvidenceSettings", "BarkerSettings", "MMALASettings",
     "SamplerResult", "hmc", "nuts", "chees", "ghmc", "mclmc", "mams",
-    "rwmh", "mala", "rmhmc", "de", "softabs_metric",
+    "rwmh", "mala", "rmhmc", "de", "pt", "aees", "smc", "stretch", "demcz",
+    "softabs_metric",
     "fused_glm_hmc", "fused_gaussian_hmc",
     "diagnostics", "models", "stats",
 ]

@@ -14,19 +14,25 @@ import torch
 from mcmc_tpu_torch import adaptation
 from mcmc_tpu_torch.ops.fused_logreg import FusedHMCState
 from mcmc_tpu_torch.samplers._resolve import resolve_device
+from mcmc_tpu_torch.samplers.aees import AEESState
 from mcmc_tpu_torch.samplers.chees import ChEESState
 from mcmc_tpu_torch.samplers.de import DEState
+from mcmc_tpu_torch.samplers.demcz import DEMCZState
 from mcmc_tpu_torch.samplers.ghmc import GHMCState
 from mcmc_tpu_torch.samplers.hmc import HMCState
 from mcmc_tpu_torch.samplers.mala import MALAState
 from mcmc_tpu_torch.samplers.mclmc import MAMSState, MCLMCState
+from mcmc_tpu_torch.samplers.pt import PTState
 from mcmc_tpu_torch.samplers.rmhmc import RMHMCState
 from mcmc_tpu_torch.samplers.rwmh import RWMHState
+from mcmc_tpu_torch.samplers.smc import SMCState
+from mcmc_tpu_torch.samplers.stretch import StretchState
 
 __all__ = ["to_tensor", "glm_data", "gaussian_target", "fused_state",
            "hmc_state", "chees_state", "ghmc_state", "mclmc_state",
            "mams_state", "rwmh_state", "mala_state", "rmhmc_state",
-           "de_state"]
+           "de_state", "pt_state", "aees_state", "smc_state",
+           "stretch_state", "demcz_state"]
 
 
 def to_tensor(a, device=None, dtype=None):
@@ -154,3 +160,68 @@ def de_state(state, device=None) -> DEState:
     package's ``DEState`` (the population on the leading axis, the
     generation counter a scalar)."""
     return _sampler_state(DEState, state, device)
+
+
+def _host_counter(v, name):
+    """A counter the port keeps on the host: JAX's scalar, or its batched
+    copies, which must all be equal."""
+    a = np.asarray(v).reshape(-1)
+    if a.size == 0 or not (a == a[0]).all():
+        raise ValueError(f"{name} differs across the batch: {a}")
+    return int(a[0])
+
+
+def _with_host_counters(cls, state, device, counters, batch_ndim=None):
+    """A state of the port's ``cls`` from the JAX package's, the fields in
+    ``counters`` as host integers. With ``batch_ndim`` (field -> the rank
+    of one replica's array), an unbatched JAX state (one run) gains the
+    leading run axis the port always carries."""
+    out = {}
+    for f in cls._fields:
+        v = getattr(state, f)
+        if f in counters:
+            out[f] = _host_counter(v, f)
+            continue
+        t = to_tensor(v, device)
+        if batch_ndim is not None and t.ndim == batch_ndim[f]:
+            t = t[None]
+        out[f] = t
+    return cls(**out)
+
+
+def pt_state(state, device=None) -> PTState:
+    """A :class:`~mcmc_tpu_torch.samplers.pt.PTState` from the JAX
+    package's chain-batched ``PTState`` (the draw counter, equal across
+    chains, as a host integer)."""
+    return _with_host_counters(PTState, state, device, ("draw_ind",))
+
+
+def aees_state(state, device=None) -> AEESState:
+    """An :class:`~mcmc_tpu_torch.samplers.aees.AEESState` from the JAX
+    package's ``AEESState``, of one ladder or batched over runs (the draw
+    counter as a host integer)."""
+    return _with_host_counters(
+        AEESState, state, device, ("draw_ind",),
+        {"X": 2, "cur_kv": 1, "kv2": 2, "hist_kv": 2, "hist_draws": 3})
+
+
+def smc_state(state, device=None) -> SMCState:
+    """An :class:`~mcmc_tpu_torch.samplers.smc.SMCState` from the JAX
+    package's ``SMCState``, without its key (the port draws from its run's
+    generator); the stage count as a host integer."""
+    return _with_host_counters(SMCState, state, device, ("stage",))
+
+
+def stretch_state(state, device=None) -> StretchState:
+    """A :class:`~mcmc_tpu_torch.samplers.stretch.StretchState` from the JAX
+    package's ``StretchState``."""
+    return _sampler_state(StretchState, state, device)
+
+
+def demcz_state(state, device=None) -> DEMCZState:
+    """A :class:`~mcmc_tpu_torch.samplers.demcz.DEMCZState` from the JAX
+    package's ``DEMCZState``, of one run or batched over runs (the archive's
+    fill count and the generation counter as host integers)."""
+    return _with_host_counters(DEMCZState, state, device,
+                               ("m_total", "gen_ind"),
+                               {"X": 2, "kernel_vals": 1, "Z": 2})

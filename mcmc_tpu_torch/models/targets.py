@@ -162,11 +162,13 @@ def gaussian_mixture_model(mu, sig_sq, weights, dtype=torch.float32,
     sig_sq = _data(sig_sq, dtype, mu.device)
     weights = _data(weights, dtype, mu.device)
     n_vals = mu.shape[1]
+    # the terms that do not depend on x, once (the same values per call)
+    log_w = torch.log(weights)
+    log_norm = 0.5 * n_vals * torch.log(2.0 * math.pi * sig_sq)
 
     def log_kernel(x):
         dist_sq = ((x[..., None, :] - mu) ** 2).sum(dim=-1)
-        log_comp = torch.log(weights) - 0.5 * dist_sq / sig_sq \
-            - 0.5 * n_vals * torch.log(2.0 * math.pi * sig_sq)
+        log_comp = log_w - 0.5 * dist_sq / sig_sq - log_norm
         return torch.logsumexp(log_comp, dim=-1)
 
     return log_kernel

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-and the port's NUTS, ChEES, GHMC, MCLMC, MAMS, RWMH, MALA, RM-HMC and DE
-(plain PyTorch) run on it.
+and the port's NUTS, ChEES, GHMC, MCLMC, MAMS, RWMH, MALA, RM-HMC, DE, PT,
+AEES, SMC, the stretch ensemble and DE-MC(Z) (plain PyTorch) run on it.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports no JAX, so that it runs on a machine without it:
@@ -422,3 +422,60 @@ def test_sampler_on_the_card_repeats_under_one_seed(name):
     for k, v in a.diagnostics.items():
         if torch.is_tensor(v):
             assert torch.equal(v, b.diagnostics[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pt", "aees", "aees_capped", "smc",
+                                  "stretch", "demcz"])
+def test_tempering_and_ensemble_on_the_card_repeat_under_one_seed(name):
+    """Each of ``pt`` (adapted ladder, HMC inner moves, 64 ladders),
+    ``aees`` (16 runs, with the full history and with a 64-entry
+    reservoir), ``smc`` (4,096 particles),
+    ``stretch`` (256 walkers) and ``demcz`` (16 runs of 6 walkers) on the
+    suite's two-mode mixture, from numpy start with no ``device=``: it runs
+    on the card, its draws are finite, and two runs with one seed are
+    bit-equal, diagnostics included."""
+    _require_card()
+    import mcmc_tpu_torch
+    from mcmc_tpu_torch.models import gaussian_mixture_model
+
+    mu = np.array([[-2.0, -2.0], [2.0, 2.0]], np.float32)
+    lk = gaussian_mixture_model(mu, np.array([0.1, 0.1]),
+                                np.array([0.5, 0.5]))
+    aees_s = mcmc_tpu_torch.AEESSettings(
+        n_initial_draws=40, n_burnin_draws=40, n_keep_draws=30, n_rings=5,
+        ee_prob_par=0.2, temper_vec=np.array([20.0, 4.0]),
+        cov_mat=0.35 * np.eye(2))
+    call = {
+        "pt": lambda: mcmc_tpu_torch.pt(mu[0], lk, mcmc_tpu_torch.PTSettings(
+            n_burnin_draws=30, n_keep_draws=30, n_temps=6, max_temp=60.0,
+            adapt_temps=True, step_size=0.12, n_leap_steps=5), n_chains=64,
+            key=7),
+        "aees": lambda: mcmc_tpu_torch.aees(
+            mu[0], lk, aees_s, key=7, n_runs=16),
+        "aees_capped": lambda: mcmc_tpu_torch.aees(
+            mu[0], lk, aees_s, key=7, n_runs=16, history_capacity=64),
+        "smc": lambda: mcmc_tpu_torch.smc(
+            np.zeros(2, np.float32), lk, mcmc_tpu_torch.SMCSettings(
+                n_particles=4096, init_scale=4.0), key=7),
+        "stretch": lambda: mcmc_tpu_torch.stretch(
+            np.zeros(2, np.float32), lk, mcmc_tpu_torch.StretchSettings(
+                n_walkers=256, n_burnin_draws=30, n_keep_draws=30), key=7),
+        "demcz": lambda: mcmc_tpu_torch.demcz(
+            np.zeros(2, np.float32), lk, mcmc_tpu_torch.DEMCZSettings(
+                n_pop=6, n_burnin_draws=30, n_keep_draws=30), n_runs=16,
+            key=7),
+    }[name]
+    a, b = call(), call()
+    shape = {"pt": (30, 64, 2), "aees": (30, 16, 2),
+             "aees_capped": (30, 16, 2), "smc": (4096, 2),
+             "stretch": (30, 256, 2), "demcz": (30, 96, 2)}[name]
+    assert a.draws.is_cuda and a.draws.shape == shape
+    assert bool(torch.isfinite(a.draws).all())
+    assert torch.equal(a.draws, b.draws)
+    assert torch.equal(a.n_accept_draws, b.n_accept_draws)
+    for k, v in a.diagnostics.items():
+        if torch.is_tensor(v):
+            assert torch.equal(v, b.diagnostics[k]), k
+        elif k != "resume":
+            assert v == b.diagnostics[k], k

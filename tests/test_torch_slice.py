@@ -118,6 +118,24 @@ NO_DEVICE_CALLS = {
     .gaussian_mean_scale_model(X[:, 0]),
     "moments_init": lambda X, y: mcmc_tpu_torch.diagnostics
     .moments_init(4, D),
+    "pt": lambda X, y: mcmc_tpu_torch.pt(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        mcmc_tpu_torch.PTSettings(n_burnin_draws=1, n_keep_draws=1),
+        n_chains=2),
+    "aees": lambda X, y: mcmc_tpu_torch.aees(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        mcmc_tpu_torch.AEESSettings(n_initial_draws=1, n_burnin_draws=1,
+                                    n_keep_draws=1)),
+    "smc": lambda X, y: mcmc_tpu_torch.smc(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        mcmc_tpu_torch.SMCSettings(n_particles=16)),
+    "stretch": lambda X, y: mcmc_tpu_torch.stretch(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        mcmc_tpu_torch.StretchSettings(n_walkers=2 * D, n_burnin_draws=1,
+                                       n_keep_draws=1)),
+    "demcz": lambda X, y: mcmc_tpu_torch.demcz(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        mcmc_tpu_torch.DEMCZSettings(n_burnin_draws=1, n_keep_draws=1)),
 }
 
 
@@ -147,13 +165,16 @@ def test_resolve_device_rule():
 
 def test_port_imports_no_jax():
     """Importing the port and every module of it loads neither JAX nor the
-    JAX package, and needs no CUDA."""
+    JAX package, and needs no CUDA; the tempering and ensemble entry points
+    are among its names."""
     code = (
         "import sys, pkgutil, importlib, mcmc_tpu_torch\n"
         "for m in pkgutil.walk_packages(mcmc_tpu_torch.__path__, "
         "'mcmc_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "for n in ('pt', 'aees', 'smc', 'stretch', 'demcz'):\n"
+    "    assert callable(getattr(mcmc_tpu_torch, n)), n\n"
+    "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'mcmc_tpu' or m.startswith('mcmc_tpu.')]\n"
         "assert not bad, bad\n"
     )
