@@ -84,9 +84,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    settings (``benchmarks/suite.py``), each through its entry point from
    numpy inputs with no ``device=``: ``rwmh_gaussian_2d`` (256 chains,
    2000 + 4000 draws, scale 0.1, the (mu, sigma) likelihood of 1000 points
-   2 + 2 N(0, 1)), ``rmhmc_fisher`` (1024 chains, 1500 + 4000 draws, step
-   0.15, 3 leapfrogs of 3 fixed-point steps, the Fisher metric, the same
-   data), ``mala_logreg_25d`` (256 chains, 1000 + 2000 draws, step 0.05
+   2 + 2 N(0, 1)), ``rmhmc_fisher`` (1024 chains, 500 + 4000 draws, its
+   burn-in cut from the suite's 1500, step 0.15, 3 leapfrogs of 3
+   fixed-point steps, the Fisher metric, the same data), ``mala_logreg_25d`` (256 chains, 1000 + 2000 draws, step 0.05
    with dual averaging, logistic regression on 500 x 25 data) and
    ``de_mixture`` (200 walkers, 1000 + 2000 generations, initial box +-4,
    the two-mode mixture): the suite's row keys (seconds, chain draws/s,
@@ -116,12 +116,44 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    gates (|log Z| <= 0.05, |mode mass - 0.5| <= 0.05) and on exactly one
    host sync a stage. Then, printed: an AEES draw's time with the full
    history at the row's length;
-16. printed and not gated: the Gaussian kernel's time at other chain counts,
+16. the suite's rows of the remaining chain samplers and two more lines,
+   each through its entry point from numpy inputs with no ``device=``:
+   ``barker_logreg_25d`` (256 chains, 1000 + 2000 draws, step 0.5, pooled
+   step and preconditioner adaptation, on mala_logreg_25d's posterior),
+   ``elliptical_latent_gp_64d`` (64 chains, 1500 + 12000 draws, the prior
+   ``rbf_kernel(linspace(0, 4, 64), 0.5)``, y = sin(2x), noise variance
+   0.25), ``slice_gaussian_2d`` (256 chains from (2, 2), 500 + 1000 draws
+   on the (mu, sigma) posterior) and ``gibbs_hierarchical`` (256 chains,
+   1000 + 1000 sweeps, J = 16, an exact theta block and an HMC hyperblock
+   at step 0.1 with 8 leapfrogs, its data numpy-seeded); the ellipse's,
+   slice's and Gibbs's draws cut from the suite's 3000 + 12000, 1000 + 4000
+   and 2000 + 4000 to hold the script's time, each printing its cut and its
+   margin under the R-hat gate; then the SGLD line
+   (``examples/sgld_logreg.py``'s settings: N 65,536, D 16, B 512, step
+   2e-5, decay 0.33 / 1000, 32 chains, 2000 + 4000 draws, in shared and
+   per-chain minibatch mode, and ``sghmc`` shared with its defaults at B
+   512) and the mMALA line (rmhmc_fisher's posterior and
+   ``normal_fisher_metric(1000)``, 1024 chains, 500 + 1000 draws, cut from
+   1500 + 4000, adapted step): the suite's row keys and host
+   syncs per draw (as in phase 14); gated on finite draws, and for the
+   chain rows on max rank R-hat <= 1.01, no host sync per draw (but slice
+   and ellipse, whose loops test their end once an iteration: printed, and
+   over a few draws of the kernel CUDA's sync debug mode must see the
+   kernel's own count) and each mean within 5 combined MC standard errors
+   of a reference: Barker of phase 14's hmc reference, the ellipse of the
+   exact posterior mean, slice and mMALA of the (mu, sigma) posterior's
+   closed-form mean (their distance from ``rmhmc_fisher``'s, which is
+   biased, printed), Gibbs of a converged ``nuts`` run on its log-kernel
+   from its final draws (32 chains, depth cap 4); the SGLD lines on a
+   finite-update rate of 1, no host sync per draw and max |mean - a
+   full-data ``hmc`` reference's mean| <= ``SGLD_MEAN_TOL``;
+17. printed and not gated: the Gaussian kernel's time at other chain counts,
    and for both fused transitions (``make_fused_hmc_step``,
    ``make_fused_gaussian_hmc_step``), a steady NUTS draw at 1024 chains and
    a steady transition of ChEES (1024 chains), GHMC and MCLMC (4096), MALA
-   (256) and RM-HMC (1024) at the suite rows' shapes, and a steady draw of
-   AEES (32 runs) and PT (256 ladders) at theirs, the time per step,
+   (256) and RM-HMC (1024) at the suite rows' shapes, a steady draw of AEES
+   (32 runs) and PT (256 ladders), and a steady slice sweep (256 chains),
+   ellipse draw (64) and Gibbs sweep (256) at theirs, the time per step,
    the card's busy share of it and the device time of each kernel by name,
    under ``torch.profiler``. It runs last: once the profiler has run in a
    process, launches stay slower.
@@ -134,7 +166,9 @@ the kernels' JSON record and the result line ``{"ok": true, "device":
 throughout, NUTS's gradients included.
 """
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -234,7 +268,8 @@ MC_VAR_BIAS = 0.05
 SYNC_PROBE_DRAWS = 3          # draws run under CUDA's sync debug mode
 SAMPLER_PROFILE = {"chees": (5, 20), "ghmc": (20, 100), "mclmc": (20, 100),
                    "mala": (20, 100), "rmhmc": (5, 20), "aees": (20, 100),
-                   "pt": (10, 50)}
+                   "pt": (10, 50), "slice": (5, 20), "ellipse": (10, 50),
+                   "gibbs": (5, 20)}
 
 # the suite's rows of the reference library's samplers at their full (not
 # --quick) settings: rwmh_gaussian_2d and mala_logreg_25d
@@ -246,7 +281,12 @@ RWMH_ROW = {"chains": 256, "warm": 2000, "keep": 4000, "par_scale": 0.1}
 MALA_ROW = {"chains": 256, "warm": 1000, "keep": 2000, "step": 0.05,
             "n_data": 500, "dim": 25}
 DE_ROW = {"n_pop": 200, "warm": 1000, "keep": 2000, "box": 4.0}
-RMHMC_ROW = {"chains": 1024, "warm": 1500, "keep": 4000, "step": 0.15,
+# rmhmc_fisher's warmup (no adaptation: a burn-in from (2.5, 2.5), about 20
+# autocorrelation times at 500) is cut from the suite's 1500 to hold the
+# script's time (PR 8, beside phase 16); its 4000 kept draws stay (2000
+# read rank R-hat 1.01000 in PR 7). "full" keeps the suite's (warm, keep)
+RMHMC_ROW = {"chains": 1024, "warm": 500, "keep": 4000, "full": (1500, 4000),
+             "step": 0.15,
              "leap": 3, "fp": 3}
 # MALA's reference on the same posterior: generic HMC with dual averaging
 # and windowed diagonal mass, started where MALA starts
@@ -285,6 +325,69 @@ DEMCZ_ROW = {"n_pop": 6, "runs": 64, "warm": 2500, "keep": 4500, "dim": 10,
 # the aees_mixture row's length, where each rung sorts a window of about
 # n_total entries
 AEES_FULL_DRAWS = 10
+
+# the suite's rows of the remaining chain samplers at their full settings
+# (benchmarks/suite.py), seeds the suite's keys: barker_logreg_25d (:89-94,
+# on mala_logreg_25d's posterior), elliptical_latent_gp_64d (:280-292),
+# slice_gaussian_2d (:296-300, on the (mu, sigma) posterior) and
+# gibbs_hierarchical (:331-362, its data made with numpy here, where the
+# suite draws it from a JAX key); then an SGLD line (examples/
+# sgld_logreg.py's settings) and an mMALA line (rmhmc_fisher's posterior).
+# Slice and mMALA, on rmhmc_fisher's (mu, sigma) posterior, are gated on its
+# closed-form mean (``suite_rows``' ``ms_exact``), not on rmhmc_fisher's
+# means: on the card that row sits 4.6-6.0 of its own MC standard errors
+# from the closed form (sigma about 5e-4 low: its generalized leapfrog's 3
+# fixed-point iterations leave it short of reversible), which put mMALA at
+# 6.6 combined standard errors from it while 0.7 from the exact mean
+BARKER_ROW = {"chains": 256, "warm": 1000, "keep": 2000, "step": 0.5,
+              "key": 23}
+# Depth cut to hold the script's time (under half of its 1200 s on the
+# hosts seen; one host ran the uncut script 2x slower, in 1,389 s): the
+# rows with the widest margins at the suite's settings (rank R-hat 1.0002,
+# 1.0011 and 1.0004 at 0.96, 0.19 and 0.59 ESS per draw) keep a quarter of
+# their draws; the ellipse, at rank R-hat 1.0073 and 0.012 ESS per draw,
+# only loses half its burn-in. "full" is the suite's (warm, keep); each row
+# prints its cut and its margin under the R-hat gate
+ELLIPSE_ROW = {"chains": 64, "warm": 1500, "keep": 12000, "n": 64,
+               "full": (3000, 12000),
+               "length_scale": 0.5, "noise_var": 0.25, "key": 14}
+SLICE_ROW = {"chains": 256, "warm": 500, "keep": 1000, "full": (1000, 4000),
+             "key": 15}
+GIBBS_ROW = {"chains": 256, "warm": 1000, "keep": 1000, "full": (2000, 4000),
+             "J": 16,
+             "step": 0.1, "leap": 8, "key": 26, "data_seed": 42}
+# the gibbs row's reference: adapted NUTS on the same log-kernel, started
+# from the row's final draws (as phase 9's hmc reference starts from NUTS's)
+# with its own per-chain adaptation, at 32 chains and a depth cap of 4. From
+# 0 at 256 chains some chain reached depth 6-7 every draw and the lockstep
+# batch paid its tree (318 s for 1,500 draws); pooled adaptation left chains
+# stuck in the funnel's neck (split R-hat 4.2); at 64 chains capped at
+# depth 5, 1,000 draws took 69 s (rank R-hat 1.0030), at depth 4 800 took
+# 49 s (1.0049)
+GIBBS_REF = {"chains": 32, "warm": 250, "keep": 400, "depth": 4, "key": 27}
+SGLD_ROW = {"n_data": 65536, "dim": 16, "batch": 512, "step": 2e-5,
+            "decay_gamma": 0.33, "decay_b": 1000.0, "chains": 32,
+            "warm": 2000, "keep": 4000, "seed": 0}
+# the SGLD lines' gate, max |mean - the full-data hmc reference's mean|:
+# scripts/jax_sgld_tolerance.py's tolerance, three times the largest
+# difference of the JAX package's sgld (shared 0.0043, per-chain 0.0016)
+# and sghmc (shared 0.0316) from its full-data hmc on the same data, on the
+# CPU (the posterior's sd is about 0.009; dropping the N/B scaling would
+# pull the means toward 0 by up to |beta| ~ 1)
+SGLD_MEAN_TOL = 0.095
+# the full-data reference starts at the data's coefficients, and takes 3
+# leapfrogs: the posterior is nearly isotropic (X ~ N(0, 1)), so a fixed
+# trajectory of 16 adapted steps turns every direction by about the same
+# angle, near a multiple of 2 pi, and the chains barely move (rank R-hat
+# 1.057 at 256 chains, from 0 1.071); with 3 the CPU's 32 chains read rank
+# R-hat 1.0008 and 0.50 ESS per draw
+SGLD_REF = {"chains": 256, "warm": 500, "keep": 1000, "step": 0.005,
+            "leap": 3, "key": 33}
+MMALA_ROW = {"chains": 1024, "warm": 500, "keep": 1000, "full": (1500, 4000),
+             "key": 31}
+# kernel-level sync audit of the looping samplers: draws run under CUDA's
+# sync debug mode, against the kernel's own count
+LOOP_SYNC_DRAWS = 10
 
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds below are
 # the largest of operations over the peak of their type and bytes over the
@@ -953,26 +1056,41 @@ def suite_record(config, call):
     return out, row, summ
 
 
-def gate_row(row, out, syncs, setup_syncs, **extra):
+def gate_row(row, out, syncs, setup_syncs, zero_syncs=True, cut=None,
+             **extra):
     """Print a suite row with its host syncs per draw and ``extra``, and
     gate it on finite draws, max rank R-hat <= ``SUITE_RHAT_MAX`` (the
-    suite's ``all_converged``) and no host sync per draw."""
+    suite's ``all_converged``) and, with ``zero_syncs``, no host sync per
+    draw. ``cut``, a row's settings whose draws were cut from the suite's
+    ``full`` (warm, keep), adds the cut and the margin under the gate."""
     name = row["config"]
     row = {**row, "syncs_per_draw": syncs, "setup_syncs": setup_syncs,
            **extra}
+    if cut is not None and "full" in cut:
+        row["draws_cut_from"] = list(cut["full"])
+        row["draws"] = [cut["warm"], cut["keep"]]
+        row["rank_rhat_margin"] = SUITE_RHAT_MAX - row["max_rank_rhat"]
     print(f"{name}: {json.dumps(row)}")
     check(bool(torch.isfinite(out.draws).all()), f"{name}: every draw "
           "finite")
     check(row["max_rank_rhat"] <= SUITE_RHAT_MAX, f"{name}: max rank R-hat "
           f"{row['max_rank_rhat']:.4f} <= {SUITE_RHAT_MAX}")
-    check(syncs == 0, f"{name}: {syncs} host syncs per draw, 0 expected")
+    if zero_syncs:
+        check(syncs == 0, f"{name}: {syncs} host syncs per draw, 0 "
+              "expected")
+
+
+def mean_z(a, b):
+    """The largest |mean difference| over combined MC standard errors of two
+    summaries (``b`` may be exact: MC standard error 0)."""
+    return float(((a["mean"] - b["mean"]).abs()
+                  / torch.hypot(a["mcse"], b["mcse"])).max())
 
 
 def mean_gate(what, a, b, sigmas=NUTS_MEAN_SIGMAS):
     """Each dimension's mean of ``a`` within ``sigmas`` combined MC standard
     errors of ``b``'s (``b`` may be exact: MC standard error 0)."""
-    z = float(((a["mean"] - b["mean"]).abs()
-               / torch.hypot(a["mcse"], b["mcse"])).max())
+    z = mean_z(a, b)
     print(f"{what}: max |mean difference| / combined MC standard error "
           f"{z:.3f} (tol {sigmas:g})")
     check(z <= sigmas, f"{what}: means within {sigmas:g} combined MC "
@@ -1025,7 +1143,7 @@ def suite_rows(dev):
     out, row, rm_summ = suite_record("rmhmc_fisher",
                                      lambda: run(r["warm"], r["keep"]))
     leap, fp = RMHMC_ROW["leap"], RMHMC_ROW["fp"]
-    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)),
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)), cut=r,
              accept_rate=float(out.accept_rate.mean()),
              leapfrogs_per_draw=leap,
              metric_evaluations_per_draw=leap * (fp + 2))
@@ -1123,7 +1241,20 @@ def suite_rows(dev):
                                 None)
     init, rm_step = build_rmhmc_kernel(
         prob, metric, rm_settings(RMHMC_ROW["warm"], RMHMC_ROW["keep"]))
-    return mala_path, (rm_step, gen, init(prob.first_draw))
+    # the (mu, sigma) posterior's exact mean under its flat prior: mu's is
+    # the data's mean; sigma's, E[s] = sqrt(S / 2) G(a - 1/2) / G(a) with S
+    # the sum of squared deviations and a = (n - 2) / 2
+    x32 = x2.astype(np.float32).astype(np.float64)
+    S, a = float(((x32 - x32.mean()) ** 2).sum()), (SUITE_N_DATA - 2) / 2.0
+    e_sigma = math.sqrt(S / 2.0) * math.exp(math.lgamma(a - 0.5)
+                                            - math.lgamma(a))
+    refs = {"lk_ms": lk_ms, "lk_lr": lk_lr, "mala_ref": ref_summ,
+            "rmhmc": rm_summ,
+            "ms_exact": {"mean": torch.tensor([x32.mean(), e_sigma],
+                                              dtype=torch.float32,
+                                              device=dev),
+                         "mcse": torch.zeros(2, device=dev)}}
+    return mala_path, (rm_step, gen, init(prob.first_draw)), refs
 
 
 def tempering_rows(dev):
@@ -1309,6 +1440,295 @@ def tempering_rows(dev):
     x0 = first.expand(r["chains"], 2)
     pst = make0(x0, lk_hard(x0))._replace(draw_ind=r["warm"])
     return (aees_step, gen, st), (pt_step, gen, pst)
+
+
+def sgld_data(seed, n_data, dim):
+    """The SGLD line's tall logistic regression, made with numpy (the same
+    as ``scripts/jax_sgld_tolerance.py``'s): X ~ N(0, 1), beta ~ 0.5 N(0,
+    1), y ~ Bernoulli(sigmoid(X beta))."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n_data, dim)).astype(np.float32)
+    beta = (0.5 * rng.standard_normal(dim)).astype(np.float32)
+    p = 1.0 / (1.0 + np.exp(-(X.astype(np.float64) @ beta)))
+    y = (rng.uniform(size=n_data) < p).astype(np.float32)
+    return X, y, beta
+
+
+def loop_sync_audit(name, step, gen, state, per_draw_evals):
+    """Run ``LOOP_SYNC_DRAWS`` draws of a looping kernel (slice, ellipse)
+    under CUDA's sync debug mode: the syncs it sees must be the kernel's
+    own count. Prints syncs and evaluations per draw; returns the state."""
+    before = dict(step.counts)
+    seen, state = count_syncs(step, gen, state, LOOP_SYNC_DRAWS)
+    own = step.counts["syncs"] - before["syncs"]
+    evals = (step.counts["evaluations"] - before["evaluations"]) \
+        / LOOP_SYNC_DRAWS
+    print(f"{name} kernel: {own / LOOP_SYNC_DRAWS:.2f} host syncs and "
+          f"{evals:.2f} batched evaluations per draw over "
+          f"{LOOP_SYNC_DRAWS} draws ({per_draw_evals})")
+    check(seen == own, f"{name}: CUDA's sync debug mode saw {seen} syncs, "
+          f"the kernel counted {own}")
+    return state
+
+
+def remaining_rows(dev, refs):
+    """Phase 16: the suite's rows of Barker, elliptical slice, slice and
+    block Gibbs at their full settings and the SGLD and mMALA lines,
+    through the entry points from numpy inputs with no ``device=`` (module
+    docstring). Returns the slice, ellipse and Gibbs kernels, generators
+    and states at the rows' shapes, for the profile."""
+    from mcmc_tpu_torch import (AlgoSettings, BarkerSettings,
+                                EllipticalSettings, GibbsSettings,
+                                HMCSettings, MMALASettings, NUTSSettings,
+                                SGHMCSettings, SGLDSettings, SliceSettings,
+                                barker, elliptical_slice, gibbs, hmc, mmala,
+                                nuts, sghmc, sgld, slice_sampler)
+    from mcmc_tpu_torch.models import (gp_regression_exact_posterior,
+                                       normal_fisher_metric, rbf_kernel)
+    from mcmc_tpu_torch.samplers import common
+    from mcmc_tpu_torch.samplers.ellipse import build_elliptical_kernel
+    from mcmc_tpu_torch.samplers.gibbs import (_make_blocks, _parse_blocks,
+                                               build_gibbs_kernel)
+    from mcmc_tpu_torch.samplers.slice import build_slice_kernel
+
+    t_phase = time.perf_counter()
+    lk_ms, lk_lr = refs["lk_ms"], refs["lk_lr"]
+    gen = torch.Generator(device=dev).manual_seed(56)
+
+    # barker_logreg_25d, against phase 14's hmc reference on its posterior
+    r = BARKER_ROW
+    run = lambda w, k: barker(np.zeros(MALA_ROW["dim"]), lk_lr,
+                              BarkerSettings(n_burnin_draws=w,
+                                             n_keep_draws=k,
+                                             step_size=r["step"]),
+                              n_chains=r["chains"], key=r["key"],
+                              adapt_step_size=True, adapt_precond=True,
+                              pooled_adaptation=True)
+    out, row, summ = suite_record("barker_logreg_25d",
+                                  lambda: run(r["warm"], r["keep"]))
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)),
+             accept_rate=float(out.accept_rate.mean()),
+             adapted_step_size=float(
+                 out.diagnostics["adapted_step_size"].mean()),
+             gradients_per_draw=1)
+    mean_gate("barker_logreg_25d vs mala_logreg_25d's hmc reference", summ,
+              refs["mala_ref"])
+
+    # elliptical_latent_gp_64d, against the exact posterior mean
+    r = ELLIPSE_ROW
+    xs = np.linspace(0.0, 4.0, r["n"])
+    K = rbf_kernel(xs, r["length_scale"])
+    y = torch.tensor(np.sin(2.0 * xs), dtype=torch.float32, device=dev)
+    noise_var = r["noise_var"]
+    lik = lambda f: -0.5 * ((y - f) ** 2).sum(-1) / noise_var
+    run = lambda w, k: elliptical_slice(
+        np.zeros(r["n"]), lik, EllipticalSettings(n_burnin_draws=w,
+                                                  n_keep_draws=k),
+        prior_cov=K.cpu().numpy(), n_chains=r["chains"], key=r["key"])
+    out, row, summ = suite_record("elliptical_latent_gp_64d",
+                                  lambda: run(r["warm"], r["keep"]))
+    shrink = float(out.diagnostics["mean_shrink_steps"].mean())
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)), cut=r,
+             zero_syncs=False, accept_rate=float(out.accept_rate.mean()),
+             mean_shrink_steps_per_draw=shrink,
+             ms_per_draw=1e3 * row["seconds"] / (r["warm"] + r["keep"]))
+    K64 = rbf_kernel(xs, r["length_scale"], dtype=torch.float64)
+    exact, _ = gp_regression_exact_posterior(K64, np.sin(2.0 * xs),
+                                             r["noise_var"])
+    mean_gate("elliptical_latent_gp_64d vs the exact posterior mean", summ,
+              {"mean": exact.float(), "mcse": torch.zeros_like(summ["mcse"])})
+    init, ell_step = build_elliptical_kernel(
+        lik, torch.zeros(r["n"], device=dev),
+        common.make_spd(K, r["n"], torch.float32, dev), 64)
+    ell_state = loop_sync_audit(
+        "elliptical_latent_gp_64d", ell_step, gen,
+        init(out.draws[-1].clone()), "each draw: one sync a shrink step "
+        "short of the cap, the chains' largest shrink count in evaluations")
+
+    # slice_gaussian_2d, against rmhmc_fisher's means on the same posterior
+    r = SLICE_ROW
+    run = lambda w, k: slice_sampler(np.array([2.0, 2.0]), lk_ms,
+                                     SliceSettings(n_burnin_draws=w,
+                                                   n_keep_draws=k),
+                                     n_chains=r["chains"], key=r["key"])
+    out, row, summ = suite_record("slice_gaussian_2d",
+                                  lambda: run(r["warm"], r["keep"]))
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)), cut=r,
+             zero_syncs=False, accept_rate=float(out.accept_rate.mean()),
+             mean_kernel_evals_per_draw=float(
+                 out.diagnostics["mean_kernel_evals"].mean()),
+             ms_per_draw=1e3 * row["seconds"] / (r["warm"] + r["keep"]))
+    ms_exact, rm = refs["ms_exact"], refs["rmhmc"]
+    mean_gate("slice_gaussian_2d vs the exact posterior mean", summ, ms_exact)
+    print(f"(mu, sigma) exact posterior mean {ms_exact['mean'].tolist()}: "
+          f"slice {summ['mean'].tolist()}, rmhmc_fisher {rm['mean'].tolist()} "
+          f"({mean_z(rm, ms_exact):.3f} of its MC standard errors from it); "
+          f"slice vs rmhmc_fisher {mean_z(summ, rm):.3f} combined MC standard "
+          "errors, printed, not gated: that row is biased")
+    init, sl_step = build_slice_kernel(lk_ms, 2, torch.float32, 1.0, 8, 32)
+    sl_state = loop_sync_audit(
+        "slice_gaussian_2d", sl_step, gen, init(out.draws[-1].clone()),
+        "per coordinate: the stepping-out's iterations, then the "
+        "shrinkage's, each one sync and one or two evaluations")
+
+    # gibbs_hierarchical: exact theta block + adapted HMC hyperblock,
+    # against adapted NUTS on the same log-kernel
+    r = GIBBS_ROW
+    J = r["J"]
+    rng = np.random.default_rng(r["data_seed"])
+    theta_true = 4.0 + 6.0 * rng.standard_normal(J)
+    y_np = theta_true + 4.0 * rng.standard_normal(J)
+    yg = torch.tensor(y_np, dtype=torch.float32, device=dev)
+    sg = torch.full((J,), 4.0, device=dev)
+
+    def lk_gibbs(v):
+        theta, mu_h, log_tau = v[:, :J], v[:, J], v[:, J + 1]
+        tau = torch.exp(log_tau)
+        lp = -0.5 * ((yg - theta) ** 2 / sg ** 2).sum(-1)
+        lp = lp - 0.5 * ((theta - mu_h[:, None]) ** 2).sum(-1) / tau ** 2 \
+            - J * log_tau
+        lp = lp - 0.5 * mu_h ** 2 / 25.0
+        return lp - 0.5 * tau ** 2 / 64.0 + log_tau
+
+    def cond_theta(g, full):
+        mu_h, tau = full[:, J:J + 1], torch.exp(full[:, J + 1:J + 2])
+        prec = 1.0 / sg ** 2 + 1.0 / tau ** 2
+        mean = (yg / sg ** 2 + mu_h / tau ** 2) / prec
+        return mean + torch.randn(mean.shape, generator=g,
+                                  device=full.device) / torch.sqrt(prec)
+
+    blocks = [(list(range(J)), cond_theta),
+              ([J, J + 1], "hmc", {"step_size": r["step"],
+                                   "n_leap_steps": r["leap"]})]
+    run = lambda w, k: gibbs(np.zeros(J + 2), lk_gibbs,
+                             GibbsSettings(n_burnin_draws=w, n_keep_draws=k),
+                             blocks=blocks, n_chains=r["chains"],
+                             key=r["key"])
+    out, row, summ = suite_record("gibbs_hierarchical",
+                                  lambda: run(r["warm"], r["keep"]))
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)), cut=r,
+             block_accept_rate=out.diagnostics["block_accept_rate"]
+             .mean(dim=0).tolist(),
+             ms_per_sweep=1e3 * row["seconds"] / (r["warm"] + r["keep"]),
+             data="numpy-seeded (default_rng(42)); the suite draws it "
+                  "from a JAX key")
+    g = GIBBS_REF
+    ref, ref_row, ref_summ = suite_record(
+        "gibbs_hierarchical nuts reference", lambda: nuts(
+            out.draws[-1, :g["chains"]].clone(), lk_gibbs, NUTSSettings(
+                n_burnin_draws=g["warm"], n_keep_draws=g["keep"],
+                n_adapt_draws=g["warm"], max_tree_depth=g["depth"]),
+            key=g["key"], adapt_mass_matrix=True))
+    print(f"gibbs_hierarchical nuts reference: {json.dumps(ref_row)}")
+    check(bool(torch.isfinite(ref.draws).all()), "gibbs's nuts reference: "
+          "draws finite")
+    check(max(ref_row["max_split_rhat"], ref_row["max_rank_rhat"])
+          <= SUITE_RHAT_MAX, "gibbs's nuts reference converged (split and "
+          f"rank R-hat <= {SUITE_RHAT_MAX})")
+    mean_gate("gibbs_hierarchical vs nuts reference", summ, ref_summ)
+    prob = common.setup_problem(out.draws[-1].clone(), lk_gibbs,
+                                AlgoSettings(), None)
+    init, gibbs_step = build_gibbs_kernel(
+        _make_blocks(_parse_blocks(blocks, J + 2), prob, r["warm"]), prob)
+    gibbs_state = init(prob.first_draw)
+
+    # the SGLD line: sgld shared and per-chain, sghmc shared, against a
+    # full-data hmc reference
+    r = SGLD_ROW
+    X_np, y_np, beta = sgld_data(r["seed"], r["n_data"], r["dim"])
+    Xs, ys = torch.tensor(X_np, device=dev), torch.tensor(y_np, device=dev)
+    prior = lambda b: -0.5 * (b * b).sum(-1) / 100.0
+
+    def lik(theta, batch):
+        Xb, yb = batch
+        eta = (Xb @ theta[:, :, None])[..., 0]
+        return (yb * eta - torch.nn.functional.softplus(eta)).sum(-1)
+
+    def full(b):
+        eta = b @ Xs.T
+        return (ys * eta - torch.nn.functional.softplus(eta)).sum(-1) \
+            + prior(b)
+
+    g = SGLD_REF
+    ref, ref_row, ref_summ = suite_record("sgld full-data hmc reference",
+                                          lambda: hmc(
+        beta, full, HMCSettings(
+            n_burnin_draws=g["warm"], n_keep_draws=g["keep"],
+            step_size=g["step"], n_leap_steps=g["leap"]),
+        n_chains=g["chains"], key=g["key"], adapt_step_size=True,
+        adapt_mass_matrix=True))
+    off = float((ref_summ["mean"].cpu() - torch.from_numpy(beta)).abs().max())
+    print(f"sgld full-data hmc reference: {json.dumps(ref_row)}; max |mean "
+          f"- beta_true| {off}")
+    check(max(ref_row["max_split_rhat"], ref_row["max_rank_rhat"])
+          <= SUITE_RHAT_MAX, "sgld's hmc reference converged (split and "
+          f"rank R-hat <= {SUITE_RHAT_MAX})")
+    sg_settings = {
+        "sgld": SGLDSettings(step_size=r["step"], batch_size=r["batch"],
+                             decay_gamma=r["decay_gamma"],
+                             decay_b=r["decay_b"]),
+        "sghmc": SGHMCSettings(batch_size=r["batch"])}
+
+    def sg_run(name, n_warm=None, n_keep=None, key=1):
+        """One SG-MCMC line: sgld shared or per-chain with the example's
+        settings (``n_warm`` and ``n_keep`` its own unless given), sghmc
+        shared with its defaults at B 512."""
+        kind, mb = name.split("_")
+        s = sg_settings[kind]
+        if kind == "sgld" and n_warm is None:
+            n_warm, n_keep = r["warm"], r["keep"]
+        if n_warm is not None:
+            s = dataclasses.replace(s, n_burnin_draws=n_warm,
+                                    n_keep_draws=n_keep)
+        return (sgld if kind == "sgld" else sghmc)(
+            np.zeros(r["dim"]), prior, lik, (X_np, y_np), s,
+            n_chains=r["chains"], key=key, minibatch=mb)
+
+    for name in ("sgld_shared", "sgld_per-chain", "sghmc_shared"):
+        out, row, summ = suite_record(name, lambda: sg_run(name))
+        s = sg_settings[name.split("_")[0]]
+        n_draws = s.n_burnin_draws + s.n_keep_draws \
+            if name.startswith("sghmc") else r["warm"] + r["keep"]
+        diff = float((summ["mean"] - ref_summ["mean"]).abs().max())
+        rate = float(out.accept_rate.mean())
+        syncs, setup = entry_syncs_per_draw(
+            lambda n: sg_run(name, n, n, key=3))
+        row = {**row, "finite_update_rate": rate,
+               "max_abs_mean_diff_vs_hmc": diff, "tolerance": SGLD_MEAN_TOL,
+               "draws_per_sec_with_warmup": n_draws * r["chains"]
+               / row["seconds"], "syncs_per_draw": syncs,
+               "setup_syncs": setup}
+        print(f"{name}: {json.dumps(row)}")
+        check(bool(torch.isfinite(out.draws).all()), f"{name}: draws finite")
+        check(rate == 1.0, f"{name}: finite-update rate {rate} == 1.0")
+        check(diff <= SGLD_MEAN_TOL, f"{name}: max |mean - hmc mean| "
+              f"{diff:.5f} <= {SGLD_MEAN_TOL}")
+        check(syncs == 0, f"{name}: {syncs} host syncs per draw, 0 "
+              "expected")
+
+    # the mMALA line, against rmhmc_fisher's means on the same posterior
+    r = MMALA_ROW
+    metric = normal_fisher_metric(SUITE_N_DATA)
+    run = lambda w, k: mmala(np.array([2.5, 2.5]), lk_ms, metric,
+                             MMALASettings(n_burnin_draws=w,
+                                           n_keep_draws=k),
+                             n_chains=r["chains"], key=r["key"],
+                             adapt_step_size=True)
+    out, row, summ = suite_record("mmala_fisher",
+                                  lambda: run(r["warm"], r["keep"]))
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)), cut=r,
+             accept_rate=float(out.accept_rate.mean()),
+             adapted_step_size=float(
+                 out.diagnostics["adapted_step_size"].mean()),
+             ms_per_draw=1e3 * row["seconds"] / (r["warm"] + r["keep"]))
+    mean_gate("mmala_fisher vs the exact posterior mean", summ,
+              refs["ms_exact"])
+    print(f"mmala_fisher {summ['mean'].tolist()}: vs rmhmc_fisher "
+          f"{mean_z(summ, refs['rmhmc']):.3f} combined MC standard errors, "
+          "printed, not gated: that row is biased")
+    print(f"remaining rows: phase seconds {time.perf_counter() - t_phase:.1f}")
+    return ((sl_step, gen, sl_state), (ell_step, gen, ell_state),
+            (gibbs_step, gen, gibbs_state))
 
 
 def main():
@@ -1625,10 +2045,14 @@ def main():
     mclmc_path = microcanonical_lines(X, y, ref)
 
     # --- the suite's rows of RWMH, MALA, DE and RM-HMC, at full settings
-    mala_path, rmhmc_path = suite_rows(dev)
+    mala_path, rmhmc_path, refs = suite_rows(dev)
 
     # --- the suite's rows of AEES, PT, SMC, stretch and DE-MC(Z), likewise
     aees_path, pt_path = tempering_rows(dev)
+
+    # --- the suite's rows of slice, elliptical slice, Barker and Gibbs,
+    # and the SGLD and mMALA lines
+    slice_path, ellipse_path, gibbs_path = remaining_rows(dev, refs)
 
     # --- where the time of a steady transition goes (printed, not gated)
     gen = torch.Generator(device=dev).manual_seed(30)
@@ -1646,6 +2070,11 @@ def main():
                   *SAMPLER_PROFILE[name])
                  for name, what, path in (("aees", "runs", aees_path),
                                           ("pt", "ladders", pt_path))]
+    samplers += [(f"{name} {what} ({path[2].position.shape[0]} chains)",
+                  *path, *SAMPLER_PROFILE[name])
+                 for name, what, path in (("slice", "sweep", slice_path),
+                                          ("ellipse", "draw", ellipse_path),
+                                          ("gibbs", "sweep", gibbs_path))]
     profile_transitions([   # the launch-bound ones first
         ("NUTS draw (1024 chains, sampling kernel)", nuts_step, nuts_gen,
          nuts_state, NUTS_PROFILE_WARM, NUTS_PROFILE_DRAWS),

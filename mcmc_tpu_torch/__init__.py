@@ -21,8 +21,19 @@ batch, with the windowed adaptation they share), the reference library's
 ``softabs_metric``), the population sampler ``de`` and the equi-energy
 sampler ``aees`` (with that, all seven of the reference library's
 samplers), the tempering and ensemble samplers beside them (``pt``,
-``smc``, ``stretch``, ``demcz``), the ``stats`` densities, and the
-diagnostics.
+``smc``, ``stretch``, ``demcz``), the self-tuning and latent-Gaussian
+samplers ``slice_sampler`` and ``elliptical_slice``, the gradient samplers
+``barker`` and ``mmala``, the minibatch samplers ``sgld`` (with pSGLD) and
+``sghmc``, and block ``gibbs``: with these, every sampler of the JAX
+package. Also the ``stats`` densities, every target of ``models``, the
+diagnostics, and ``entry.entry()``, one batched HMC transition on the
+flagship posterior.
+
+Two more API differences: SGLD's and SGHMC's likelihood is batched,
+``log_lik(theta: (n_chains, d), batch) -> (n_chains,)`` with every leaf of
+``batch`` shaped ``(n_chains, B, ...)``; a Gibbs block's exact conditional
+is ``fn(gen, full: (n_chains, d)) -> (n_chains, d_b)``, drawing from the
+run's ``torch.Generator``.
 The CUDA kernels are built at their first launch, so this package imports
 without CUDA, nvcc or Triton.
 
@@ -72,6 +83,12 @@ from mcmc_tpu_torch.samplers.aees import aees
 from mcmc_tpu_torch.samplers.smc import smc
 from mcmc_tpu_torch.samplers.stretch import stretch
 from mcmc_tpu_torch.samplers.demcz import demcz
+from mcmc_tpu_torch.samplers.slice import slice_sampler
+from mcmc_tpu_torch.samplers.ellipse import elliptical_slice
+from mcmc_tpu_torch.samplers.barker import barker
+from mcmc_tpu_torch.samplers.mmala import mmala
+from mcmc_tpu_torch.samplers.sgld import sghmc, sgld
+from mcmc_tpu_torch.samplers.gibbs import gibbs
 from mcmc_tpu_torch.metrics import softabs_metric
 from mcmc_tpu_torch.ops.fused_sampler import fused_glm_hmc, fused_gaussian_hmc
 from mcmc_tpu_torch import diagnostics, models, stats
@@ -85,6 +102,8 @@ __all__ = [
     "MAMSSettings", "EvidenceSettings", "BarkerSettings", "MMALASettings",
     "SamplerResult", "hmc", "nuts", "chees", "ghmc", "mclmc", "mams",
     "rwmh", "mala", "rmhmc", "de", "pt", "aees", "smc", "stretch", "demcz",
+    "slice_sampler", "elliptical_slice", "barker", "mmala", "sgld", "sghmc",
+    "gibbs",
     "softabs_metric",
     "fused_glm_hmc", "fused_gaussian_hmc",
     "diagnostics", "models", "stats",

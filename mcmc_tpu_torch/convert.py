@@ -15,16 +15,22 @@ from mcmc_tpu_torch import adaptation
 from mcmc_tpu_torch.ops.fused_logreg import FusedHMCState
 from mcmc_tpu_torch.samplers._resolve import resolve_device
 from mcmc_tpu_torch.samplers.aees import AEESState
+from mcmc_tpu_torch.samplers.barker import BarkerState
 from mcmc_tpu_torch.samplers.chees import ChEESState
 from mcmc_tpu_torch.samplers.de import DEState
 from mcmc_tpu_torch.samplers.demcz import DEMCZState
+from mcmc_tpu_torch.samplers.ellipse import EllipticalSliceState
+from mcmc_tpu_torch.samplers.gibbs import GibbsState
 from mcmc_tpu_torch.samplers.ghmc import GHMCState
 from mcmc_tpu_torch.samplers.hmc import HMCState
 from mcmc_tpu_torch.samplers.mala import MALAState
 from mcmc_tpu_torch.samplers.mclmc import MAMSState, MCLMCState
+from mcmc_tpu_torch.samplers.mmala import MMALAState
 from mcmc_tpu_torch.samplers.pt import PTState
 from mcmc_tpu_torch.samplers.rmhmc import RMHMCState
 from mcmc_tpu_torch.samplers.rwmh import RWMHState
+from mcmc_tpu_torch.samplers.sgld import SGHMCState, SGLDState
+from mcmc_tpu_torch.samplers.slice import SliceState
 from mcmc_tpu_torch.samplers.smc import SMCState
 from mcmc_tpu_torch.samplers.stretch import StretchState
 
@@ -32,7 +38,9 @@ __all__ = ["to_tensor", "glm_data", "gaussian_target", "fused_state",
            "hmc_state", "chees_state", "ghmc_state", "mclmc_state",
            "mams_state", "rwmh_state", "mala_state", "rmhmc_state",
            "de_state", "pt_state", "aees_state", "smc_state",
-           "stretch_state", "demcz_state"]
+           "stretch_state", "demcz_state", "barker_state", "mmala_state",
+           "slice_state", "elliptical_state", "sgld_state", "sghmc_state",
+           "gibbs_state"]
 
 
 def to_tensor(a, device=None, dtype=None):
@@ -225,3 +233,73 @@ def demcz_state(state, device=None) -> DEMCZState:
     return _with_host_counters(DEMCZState, state, device,
                                ("m_total", "gen_ind"),
                                {"X": 2, "kernel_vals": 1, "Z": 2})
+
+
+def barker_state(state, device=None) -> BarkerState:
+    """A :class:`~mcmc_tpu_torch.samplers.barker.BarkerState` from the JAX
+    package's chain-batched ``BarkerState``."""
+    return _sampler_state(BarkerState, state, device)
+
+
+def mmala_state(state, device=None) -> MMALAState:
+    """A :class:`~mcmc_tpu_torch.samplers.mmala.MMALAState` from the JAX
+    package's chain-batched ``MMALAState``."""
+    return _sampler_state(MMALAState, state, device)
+
+
+def slice_state(state, device=None) -> SliceState:
+    """A :class:`~mcmc_tpu_torch.samplers.slice.SliceState` from the JAX
+    package's chain-batched ``SliceState`` (the draw counter, equal across
+    chains, as a host integer)."""
+    wv = state.wv
+    return SliceState(
+        position=to_tensor(state.position, device),
+        log_prob=to_tensor(state.log_prob, device),
+        wv=adaptation.WindowedVariance(
+            count=to_tensor(wv.count, device, torch.int32),
+            mean=to_tensor(wv.mean, device), m2=to_tensor(wv.m2, device),
+            var=to_tensor(wv.var, device)),
+        draw_ind=_host_counter(state.draw_ind, "draw_ind"))
+
+
+def elliptical_state(state, device=None) -> EllipticalSliceState:
+    """An :class:`~mcmc_tpu_torch.samplers.ellipse.EllipticalSliceState`
+    from the JAX package's chain-batched ``EllipticalSliceState``."""
+    return _sampler_state(EllipticalSliceState, state, device)
+
+
+def sgld_state(state, device=None) -> SGLDState:
+    """An :class:`~mcmc_tpu_torch.samplers.sgld.SGLDState` from the JAX
+    package's chain-batched ``SGLDState`` (the draw counter as a host
+    integer)."""
+    return _with_host_counters(SGLDState, state, device, ("draw_ind",))
+
+
+def sghmc_state(state, device=None) -> SGHMCState:
+    """An :class:`~mcmc_tpu_torch.samplers.sgld.SGHMCState` from the JAX
+    package's chain-batched ``SGHMCState`` (the draw counter as a host
+    integer)."""
+    return _with_host_counters(SGHMCState, state, device, ("draw_ind",))
+
+
+# a Gibbs block's sub-state by the fields that tell the kinds apart
+_GIBBS_SUBSTATES = ((("potential",), hmc_state), (("pchol",), rwmh_state),
+                    (("wv", "log_prob"), slice_state))
+
+
+def gibbs_state(state, device=None) -> GibbsState:
+    """A :class:`~mcmc_tpu_torch.samplers.gibbs.GibbsState` from the JAX
+    package's chain-batched ``GibbsState``: each block's sub-state by its
+    kind (HMC, RWMH or slice; an exact block's empty array as a ``(c,
+    0)`` tensor)."""
+    subs = []
+    for sub in state.substates:
+        fields = getattr(sub, "_fields", ())
+        for names, conv in _GIBBS_SUBSTATES:
+            if all(n in fields for n in names):
+                subs.append(conv(sub, device))
+                break
+        else:
+            subs.append(to_tensor(sub, device))
+    return GibbsState(position=to_tensor(state.position, device),
+                      substates=tuple(subs))

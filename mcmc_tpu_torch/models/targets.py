@@ -1,7 +1,9 @@
-"""Target log-kernels (PyTorch port of the flagship target, the
-ill-conditioned Gaussian, the NUTS test targets, and the reference examples'
-Gaussian-mean, mixture, Fisher-metric and funnel targets of
-``mcmc_tpu.models.targets``).
+"""Target log-kernels (PyTorch port of ``mcmc_tpu.models.targets``: the
+flagship target, the ill-conditioned Gaussian, the NUTS test targets, the
+reference examples' Gaussian-mean, mixture, Fisher-metric and funnel
+targets, the Poisson, Student-t and horseshoe regressions, and the latent-GP
+pieces: the RBF Gram matrix, the Poisson latent GP and GP regression's exact
+posterior).
 
 Log-kernels here are batched: ``log_kernel(theta: (n_chains, d)) ->
 (n_chains,)``; a single ``(d,)`` vector gives a scalar.
@@ -20,7 +22,10 @@ __all__ = ["make_logistic_regression_data", "logistic_regression_model",
            "ill_conditioned_gaussian", "gaussian_mean_model",
            "gaussian_mean_scale_model", "normal_fisher_metric",
            "banana_model", "gaussian_mixture_model", "neals_funnel",
-           "eight_schools_model"]
+           "eight_schools_model", "poisson_regression_model",
+           "student_t_regression_model", "horseshoe_regression_model",
+           "rbf_kernel", "latent_gp_poisson_model",
+           "gp_regression_exact_posterior"]
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -224,3 +229,109 @@ def eight_schools_model(y=None, sigma=None, non_centered=True,
 
     log_kernel.dim = 10
     return log_kernel
+
+
+def poisson_regression_model(X, y, prior_scale=5.0, dtype=torch.float32,
+                             device=None):
+    """Poisson GLM with log link: ``y_i ~ Poisson(exp(x_i . beta))`` and a
+    ``N(0, prior_scale^2)`` prior (the normalising ``log y!`` dropped)."""
+    X = _data(X, dtype, device)
+    y = _data(y, dtype, X.device)
+
+    def log_kernel(beta):
+        eta = beta @ X.T
+        ll = (y * eta - torch.exp(eta)).sum(dim=-1)
+        return ll - 0.5 * (beta ** 2).sum(dim=-1) / prior_scale ** 2
+
+    return log_kernel
+
+
+def student_t_regression_model(X, y, df=4.0, scale=1.0, prior_scale=10.0,
+                               dtype=torch.float32, device=None):
+    """Robust linear regression with Student-t errors (``df`` degrees of
+    freedom, residual ``scale``) and a ``N(0, prior_scale^2)`` prior."""
+    X = _data(X, dtype, device)
+    y = _data(y, dtype, X.device)
+
+    def log_kernel(beta):
+        resid = (y - beta @ X.T) / scale
+        ll = -0.5 * (df + 1.0) * torch.log1p(resid ** 2 / df).sum(dim=-1)
+        return ll - 0.5 * (beta ** 2).sum(dim=-1) / prior_scale ** 2
+
+    return log_kernel
+
+
+def horseshoe_regression_model(X, y, sigma=1.0, tau_scale=1.0,
+                               dtype=torch.float32, device=None):
+    """Sparse linear regression with the horseshoe prior (Carvalho, Polson,
+    Scott 2010), non-centered: parameters ``[beta_tilde_1..p,
+    log_lambda_1..p, log_tau]`` (2p + 1 dims) with ``beta_j = beta_tilde_j
+    * lambda_j * tau``, ``lambda_j ~ C+(0, 1)``, ``tau ~ C+(0,
+    tau_scale)``; the half-Cauchy priors carry their log-transform
+    Jacobians."""
+    X = _data(X, dtype, device)
+    y = _data(y, dtype, X.device)
+    p = X.shape[1]
+
+    def log_kernel(params):
+        beta_t = params[..., :p]
+        log_lam = params[..., p:2 * p]
+        log_tau = params[..., 2 * p]
+        lam = torch.exp(log_lam)
+        tau = torch.exp(log_tau)
+        beta = beta_t * lam * tau[..., None]
+        ll = -0.5 * ((y - beta @ X.T) ** 2).sum(dim=-1) / sigma ** 2
+        lp = -0.5 * (beta_t ** 2).sum(dim=-1)
+        lp = lp + (-torch.log1p(lam ** 2) + log_lam).sum(dim=-1)
+        lp = lp - torch.log1p((tau / tau_scale) ** 2) + log_tau
+        return ll + lp
+
+    log_kernel.dim = 2 * p + 1
+    return log_kernel
+
+
+def rbf_kernel(xs, length_scale=1.0, amplitude=1.0, jitter=1e-4,
+               dtype=torch.float32, device=None):
+    """Squared-exponential (RBF) Gram matrix over inputs ``xs`` of shape
+    ``(n,)`` or ``(n, p)``, with ``jitter * amplitude**2`` on the diagonal:
+    the prior covariance of the latent-GP models. The default jitter is
+    sized for float32: a smooth kernel's Gram matrix over tens of points
+    has eigenvalues below f32 resolution (1e-6 measured indefinite at
+    n = 64, length_scale 0.5)."""
+    xs = _data(xs, dtype, device)
+    if xs.ndim == 1:
+        xs = xs[:, None]
+    d2 = ((xs[:, None, :] - xs[None, :, :]) ** 2).sum(dim=-1)
+    n = xs.shape[0]
+    return amplitude ** 2 * (torch.exp(-0.5 * d2 / length_scale ** 2)
+                             + jitter * torch.eye(n, dtype=xs.dtype,
+                                                  device=xs.device))
+
+
+def latent_gp_poisson_model(xs, counts, length_scale=1.0, amplitude=1.0,
+                            jitter=1e-4, dtype=torch.float32, device=None):
+    """Latent GP with Poisson counts: ``f ~ GP(0, RBF)``, ``counts_i ~
+    Poisson(exp(f_i))``. Returns ``(log_lik, prior_cov)`` shaped for
+    :func:`mcmc_tpu_torch.elliptical_slice`, which handles the GP prior
+    through the ellipse; ``log_lik`` is batched."""
+    K = rbf_kernel(xs, length_scale, amplitude, jitter, dtype, device)
+    counts = _data(counts, dtype, K.device)
+
+    def log_lik(f):
+        return (counts * f - torch.exp(f)).sum(dim=-1)
+
+    return log_lik, K
+
+
+def gp_regression_exact_posterior(K, y, noise_var):
+    """Closed-form latent posterior of GP regression with Gaussian noise:
+    ``mean = K (K + noise_var I)^-1 y``, ``cov = K - K (K + noise_var
+    I)^-1 K``, the anchor of the latent-GP samplers. ``K`` and ``y`` as
+    tensors (``y`` may be array-like: it goes to ``K``'s device)."""
+    K = torch.as_tensor(K)
+    y = torch.as_tensor(np.asarray(y) if not torch.is_tensor(y) else y,
+                        dtype=K.dtype, device=K.device)
+    n = K.shape[0]
+    A = K + noise_var * torch.eye(n, dtype=K.dtype, device=K.device)
+    sol = torch.linalg.solve(A, K)
+    return K @ torch.linalg.solve(A, y), K - K @ sol

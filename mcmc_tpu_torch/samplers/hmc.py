@@ -53,7 +53,9 @@ def build_hmc_kernel(box_log_kernel, grad_fn, precond: common.SPD,
     :func:`mcmc_tpu_torch.adaptation.window_schedule`, and ``mode`` ("diag"
     or "dense"). With mass adaptation on, the preconditioner must be
     identity (the mass is learned). Returns batched ``init(positions)`` and
-    ``step(gen, state) -> (state, info)``."""
+    ``step(gen, state) -> (state, info)``, whose two halves are
+    ``step.draw(gen, state) -> (noise, u)`` (the momentum's normals and the
+    accept uniform) and ``step.transition(state, noise, u)``."""
     adapt_mass = mass_cfg is not None
     mass_mode = mass_cfg.get("mode", "diag") if adapt_mass else None
 
@@ -90,7 +92,12 @@ def build_hmc_kernel(box_log_kernel, grad_fn, precond: common.SPD,
             w_m2=w_m2_0,
         )
 
-    def step(gen, state: HMCState):
+    def draw(gen, state: HMCState):
+        pos = state.position
+        kw = {"generator": gen, "dtype": pos.dtype, "device": pos.device}
+        return torch.randn(pos.shape, **kw), torch.rand(pos.shape[:1], **kw)
+
+    def transition(state: HMCState, noise, u):
         pos = state.position
         if adapt_cfg is None:
             eps = step_size
@@ -101,8 +108,6 @@ def build_hmc_kernel(box_log_kernel, grad_fn, precond: common.SPD,
                                         state.da.log_eps_bar))
 
         inv_mass = state.inv_mass
-        noise = torch.randn(pos.shape, generator=gen, dtype=pos.dtype,
-                            device=pos.device)
         if mass_mode == "diag":
             momentum = noise * torch.rsqrt(inv_mass)
             inv_mv = lambda v: inv_mass * v
@@ -126,8 +131,6 @@ def build_hmc_kernel(box_log_kernel, grad_fn, precond: common.SPD,
 
         comp = torch.clamp_max(
             -(prop_U + prop_K) + (state.potential + prev_K), 0.01)
-        u = torch.rand(comp.shape, generator=gen, dtype=pos.dtype,
-                       device=pos.device)
         accepted = u < torch.exp(comp)
 
         position = common.where_chains(accepted, new_pos, pos)
@@ -183,6 +186,10 @@ def build_hmc_kernel(box_log_kernel, grad_fn, precond: common.SPD,
                 "energy_error": -(prop_U + prop_K) + (state.potential + prev_K)}
         return new_state, info
 
+    def step(gen, state: HMCState):
+        return transition(state, *draw(gen, state))
+
+    step.draw, step.transition = draw, transition
     return init, step
 
 

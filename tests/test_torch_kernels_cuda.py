@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
 and the port's NUTS, ChEES, GHMC, MCLMC, MAMS, RWMH, MALA, RM-HMC, DE, PT,
-AEES, SMC, the stretch ensemble and DE-MC(Z) (plain PyTorch) run on it.
+AEES, SMC, the stretch ensemble, DE-MC(Z), slice, elliptical slice, Barker,
+mMALA, SGLD, pSGLD, SGHMC, block Gibbs and ``entry()`` (plain PyTorch) run
+on it.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports no JAX, so that it runs on a machine without it:
@@ -479,3 +481,99 @@ def test_tempering_and_ensemble_on_the_card_repeat_under_one_seed(name):
             assert torch.equal(v, b.diagnostics[k]), k
         elif k != "resume":
             assert v == b.diagnostics[k], k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["slice", "slice_adapt", "elliptical",
+                                  "barker", "mmala", "sgld", "psgld_shared",
+                                  "sghmc_shared", "gibbs", "entry"])
+def test_remaining_samplers_on_the_card_repeat_under_one_seed(name):
+    """Each of ``slice_sampler`` (and with pooled width adaptation),
+    ``elliptical_slice`` (a 32-point GP prior), ``barker`` (pooled step and
+    preconditioner adaptation on the flagship target), ``mmala`` (the
+    Fisher metric), ``sgld`` (per-chain minibatches), pSGLD and ``sghmc``
+    (shared minibatches) on a logistic regression of 4,096 rows, ``gibbs``
+    (an exact block drawing from the run's generator and an HMC block), and
+    ``entry.entry()``, from numpy inputs with no ``device=``: it runs on
+    the card, its draws are finite, and two runs with one seed are
+    bit-equal, diagnostics included."""
+    _require_card()
+    import mcmc_tpu_torch
+    from mcmc_tpu_torch.convert import glm_data
+    from mcmc_tpu_torch.entry import entry
+    from mcmc_tpu_torch.models import (gaussian_mean_scale_model,
+                                       logistic_regression_model,
+                                       make_logistic_regression_data,
+                                       normal_fisher_metric, rbf_kernel)
+
+    dev = torch.device("cuda")
+    x2 = 2.0 + 2.0 * np.random.default_rng(0).standard_normal(500)
+    lk_ms = gaussian_mean_scale_model(x2)
+    rng = np.random.default_rng(1)
+    Xs = rng.standard_normal((4096, 8)).astype(np.float32)
+    ys = (rng.uniform(size=4096) < 0.5).astype(np.float32)
+    lik = lambda th, b: (b[1] * (b[0] @ th[:, :, None])[..., 0]
+                         - torch.nn.functional.softplus(
+                             (b[0] @ th[:, :, None])[..., 0])).sum(-1)
+    prior = lambda th: -0.5 * (th * th).sum(-1) / 100.0
+    sgs = dict(batch_size=128, n_burnin_draws=20, n_keep_draws=30)
+    s = lambda cls, **kw: getattr(mcmc_tpu_torch, cls)(
+        n_burnin_draws=20, n_keep_draws=30, **kw)
+    xs = np.linspace(0.0, 4.0, 32)
+    yt = torch.tensor(np.sin(2.0 * xs), dtype=torch.float32, device=dev)
+
+    def cond(g, full):
+        return full[:, :1] * 0.5 + torch.randn(
+            (full.shape[0], 1), generator=g, device=full.device)
+
+    if name == "entry":
+        def call():
+            fn, (gen, state) = entry()
+            return fn(gen, state)
+        (pa, aa), (pb, ab) = call(), call()
+        assert pa.is_cuda and pa.shape == (1024, 100)
+        assert torch.equal(pa, pb) and torch.equal(aa, ab)
+        return
+    call = {
+        "slice": lambda: mcmc_tpu_torch.slice_sampler(
+            np.array([2.0, 2.0]), lk_ms, s("SliceSettings"), n_chains=64,
+            key=7),
+        "slice_adapt": lambda: mcmc_tpu_torch.slice_sampler(
+            np.array([2.0, 2.0]), lk_ms, s("SliceSettings"), n_chains=64,
+            key=7, adapt_w=True, pooled_adaptation=True),
+        "elliptical": lambda: mcmc_tpu_torch.elliptical_slice(
+            np.zeros(32), lambda f: -0.5 * ((yt - f) ** 2).sum(-1) / 0.25,
+            s("EllipticalSettings"), prior_cov=rbf_kernel(xs, 0.5),
+            n_chains=64, key=7),
+        "barker": lambda: mcmc_tpu_torch.barker(
+            np.full(100, 0.01, np.float32), logistic_regression_model(
+                *glm_data(*[a.numpy() for a in make_logistic_regression_data(
+                    0, 1000, 100, device="cpu")[:2]])),
+            s("BarkerSettings"), n_chains=64, key=7, adapt_step_size=True,
+            adapt_precond=True, pooled_adaptation=True),
+        "mmala": lambda: mcmc_tpu_torch.mmala(
+            np.array([2.0, 2.0]), lk_ms, normal_fisher_metric(500),
+            s("MMALASettings"), n_chains=64, key=7, adapt_step_size=True),
+        "sgld": lambda: mcmc_tpu_torch.sgld(
+            np.zeros(8), prior, lik, (Xs, ys), mcmc_tpu_torch.SGLDSettings(
+                step_size=1e-4, **sgs), n_chains=32, key=7),
+        "psgld_shared": lambda: mcmc_tpu_torch.sgld(
+            np.zeros(8), prior, lik, (Xs, ys), mcmc_tpu_torch.SGLDSettings(
+                step_size=1e-4, **sgs), n_chains=32, key=7,
+            adapt_precond=True, minibatch="shared"),
+        "sghmc_shared": lambda: mcmc_tpu_torch.sghmc(
+            np.zeros(8), prior, lik, (Xs, ys), mcmc_tpu_torch.SGHMCSettings(
+                **sgs), n_chains=32, key=7, minibatch="shared"),
+        "gibbs": lambda: mcmc_tpu_torch.gibbs(
+            np.zeros(3), lambda v: -0.5 * (v * v).sum(-1),
+            s("GibbsSettings"), blocks=[([0], cond), ([1, 2], "hmc")],
+            n_chains=64, key=7),
+    }[name]
+    a, b = call(), call()
+    assert a.draws.is_cuda and a.draws.ndim == 3 and a.draws.shape[0] == 30
+    assert bool(torch.isfinite(a.draws).all())
+    assert torch.equal(a.draws, b.draws)
+    assert torch.equal(a.n_accept_draws, b.n_accept_draws)
+    for k, v in a.diagnostics.items():
+        if torch.is_tensor(v):
+            assert torch.equal(v, b.diagnostics[k]), k

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import mcmc_tpu_torch
+import mcmc_tpu_torch.entry
 from mcmc_tpu.ops import fused_glm_hmc as jax_fused_glm_hmc
 from mcmc_tpu_torch import convert
 from mcmc_tpu_torch.models import make_logistic_regression_data
@@ -136,6 +137,37 @@ NO_DEVICE_CALLS = {
     "demcz": lambda X, y: mcmc_tpu_torch.demcz(
         np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
         mcmc_tpu_torch.DEMCZSettings(n_burnin_draws=1, n_keep_draws=1)),
+    "slice_sampler": lambda X, y: mcmc_tpu_torch.slice_sampler(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        mcmc_tpu_torch.SliceSettings(n_burnin_draws=1, n_keep_draws=1)),
+    "elliptical_slice": lambda X, y: mcmc_tpu_torch.elliptical_slice(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        mcmc_tpu_torch.EllipticalSettings(n_burnin_draws=1, n_keep_draws=1)),
+    "barker": lambda X, y: mcmc_tpu_torch.barker(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        mcmc_tpu_torch.BarkerSettings(n_burnin_draws=1, n_keep_draws=1)),
+    "mmala": lambda X, y: mcmc_tpu_torch.mmala(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        lambda b: torch.eye(D).expand(b.shape[0], D, D),
+        mcmc_tpu_torch.MMALASettings(n_burnin_draws=1, n_keep_draws=1)),
+    "sgld": lambda X, y: mcmc_tpu_torch.sgld(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        lambda b, batch: (batch[0] @ b[:, :, None]).sum(dim=(1, 2)), (X, y),
+        mcmc_tpu_torch.SGLDSettings(batch_size=4, n_burnin_draws=1,
+                                    n_keep_draws=1)),
+    "sghmc": lambda X, y: mcmc_tpu_torch.sghmc(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        lambda b, batch: (batch[0] @ b[:, :, None]).sum(dim=(1, 2)), (X, y),
+        mcmc_tpu_torch.SGHMCSettings(batch_size=4, n_burnin_draws=1,
+                                     n_keep_draws=1)),
+    "gibbs": lambda X, y: mcmc_tpu_torch.gibbs(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        mcmc_tpu_torch.GibbsSettings(n_burnin_draws=1, n_keep_draws=1),
+        blocks=[(list(range(D)), "rwmh")]),
+    "entry": lambda X, y: mcmc_tpu_torch.entry.entry(n_chains=4),
+    "rbf_kernel": lambda X, y: mcmc_tpu_torch.models.rbf_kernel(X[:, 0]),
+    "poisson_regression_model": lambda X, y: mcmc_tpu_torch.models
+    .poisson_regression_model(X, y),
 }
 
 
@@ -166,16 +198,37 @@ def test_resolve_device_rule():
 def test_port_imports_no_jax():
     """Importing the port and every module of it loads neither JAX nor the
     JAX package, and needs no CUDA; the tempering and ensemble entry points
-    are among its names."""
+    and the seven of the last slice (slice, elliptical slice, Barker,
+    mMALA, SGLD, SGHMC, Gibbs) are among its names."""
     code = (
         "import sys, pkgutil, importlib, mcmc_tpu_torch\n"
         "for m in pkgutil.walk_packages(mcmc_tpu_torch.__path__, "
         "'mcmc_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "for n in ('pt', 'aees', 'smc', 'stretch', 'demcz'):\n"
+        "for n in ('pt', 'aees', 'smc', 'stretch', 'demcz', "
+        "'slice_sampler', 'elliptical_slice', 'barker', 'mmala', 'sgld', "
+        "'sghmc', 'gibbs'):\n"
     "    assert callable(getattr(mcmc_tpu_torch, n)), n\n"
     "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'mcmc_tpu' or m.startswith('mcmc_tpu.')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_entry_one_flagship_transition_on_the_cpu():
+    """``mcmc_tpu_torch.entry.entry``, the counterpart of the JAX package's
+    driver hook: one batched HMC transition of the 100-d flagship
+    posterior at 1,024 chains, here on the CPU: positions ``(1024, 100)``
+    finite, accept decisions ``(1024,)``, mostly accepted at step 0.01;
+    the same generator state gives the same transition."""
+    from mcmc_tpu_torch.entry import (ENTRY_CHAINS, FLAGSHIP_DIM, entry)
+    fn, (gen, state) = entry(device="cpu")
+    snap = gen.get_state()
+    pos, acc = fn(gen, state)
+    assert pos.shape == (ENTRY_CHAINS, FLAGSHIP_DIM) == (1024, 100)
+    assert acc.shape == (1024,) and acc.dtype == torch.bool
+    assert bool(torch.isfinite(pos).all()) and float(acc.float().mean()) > 0.9
+    gen.set_state(snap)
+    pos2, acc2 = fn(gen, state)
+    assert torch.equal(pos, pos2) and torch.equal(acc, acc2)
