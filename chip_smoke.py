@@ -40,7 +40,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``build_nuts_kernel`` with pooled dual averaging, windowed diagonal mass
    and the learned depth budget over 500 warmup draws from ``0.05 N(0,
    1)``, target accept 0.65, then the sampling kernel rebuilt at the
-   learned cap and 1000 timed draws through ``run_sampler_loop``): the
+   learned cap and 500 timed draws through ``run_sampler_loop``, the
+   bench's 1000 halved): the
    bench's ``nuts_*`` keys, warmup-inclusive min ESS/s, host
    synchronisations and leaves per draw; gated on max split and rank
    R-hat <= 1.01, finite draws and divergences under 1% of draws. Then a
@@ -58,7 +59,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 11. ChEES-HMC at 1024 chains, the bench's ``chees`` line (``bench.py``'s
    ``measure_chees_quality``): pooled dual averaging, Adam on the shared
    trajectory length and pooled windowed diagonal mass over 500 warmup
-   draws from ``0.05 N(0, 1)``, then 1000 timed draws; the bench's
+   draws from ``0.05 N(0, 1)``, then 500 timed draws (the bench's 1000,
+   halved); the bench's
    ``chees_*`` keys with bulk/tail ESS and rank R-hat; gated on finite
    draws, split and rank R-hat <= 1.01, each dimension's mean within 5
    combined MC standard errors of phase 9's ``hmc`` reference, and exactly
@@ -66,14 +68,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    CUDA's synchronisation debug mode over a few draws);
 12. GHMC at 4096 chains, the bench's ``ghmc`` line: step 0.05, persistence
    0.98, 3 leapfrogs, jitter 0.2, per-chain dual averaging to 0.95 over the
-   first 1000 transitions, ``thin_step(., 4)``, 500 warmup sweeps and 500
-   timed kept draws (the bench's 1000 each, halved); ESS, bulk, tail and split R-hat on the card (chunks of
-   256 chains); gated on finite draws, split R-hat, the mean against the
-   ``hmc`` reference and no host synchronisation;
+   first 1000 transitions, ``thin_step(., 4)``, 250 warmup sweeps and 250
+   timed kept draws (the bench's 1000 each, cut to a quarter); ESS, bulk,
+   tail and split R-hat on the card (chunks of 256 chains); gated on finite
+   draws, split R-hat, the mean against the ``hmc`` reference and no host
+   synchronisation;
 13. MAMS and MCLMC at 4096 chains, the bench's microcanonical lines:
    diagonal preconditioning, the McLachlan integrator, L0 = sqrt(100) and
    eps0 = 0.1 sqrt(100), MAMS at thin 1 and MCLMC at thin 2, 500 warmup and
-   1000 timed kept draws, diagnostics on the card (chunks of 512); gated on
+   500 timed kept draws (the bench's 1000, halved), diagnostics on the card
+   (chunks of 512); gated on
    finite draws and split R-hat for both, MAMS's mean against the ``hmc``
    reference and one host synchronisation per draw, MCLMC's none, and its
    bias audit against MAMS under the bound derived beside ``MC_VAR_BIAS``;
@@ -147,7 +151,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    from its final draws (32 chains, depth cap 4); the SGLD lines on a
    finite-update rate of 1, no host sync per draw and max |mean - a
    full-data ``hmc`` reference's mean| <= ``SGLD_MEAN_TOL``;
-17. printed and not gated: the Gaussian kernel's time at other chain counts,
+17. the one-call workflow on the flagship posterior, from numpy with no
+   ``device=``: ``pathfinder`` as ``fit`` calls it (timed on its own: its
+   seconds, line-search host syncs and chosen iterates), then ``fit`` with
+   NUTS and fit's defaults from a Pathfinder start (1024 chains, 300 + 300
+   draws, rank R-hat target 1.01, at most 3 rounds); ``map_laplace`` at its
+   defaults (gated on its ``grad_norm`` and max |mode - posterior mean| /
+   sd against phase 9's ``hmc`` reference, under bounds from
+   ``scripts/jax_workflow_tolerance.py``), then ``fit`` with ChEES from a
+   Laplace start (200 + 300 draws); each fit gated on converging, finite
+   draws and each mean within 5 combined MC standard errors of the ``hmc``
+   reference. Then over the NUTS fit's last 300 draws of its first 64
+   chains (19,200 draws x 1,000 outcomes, in chunks): the posterior
+   predictive of the Bernoulli outcomes (its mean within 5 binomial
+   standard errors of ``generated_quantities``' mean fitted probability;
+   the predictive p-value of mean(y) printed), ``psis_loo`` and ``waic``
+   (every Pareto k <= 0.7, |elpd_loo - elpd_waic| under its bound, the
+   card's ``psis_loo`` equal to the CPU's), and ``compare`` against a
+   reduced model (the first 50 columns, a ChEES fit): the full model ranks
+   first and its elpd difference agrees with the JAX package's;
+18. printed and not gated: the Gaussian kernel's time at other chain counts,
    and for both fused transitions (``make_fused_hmc_step``,
    ``make_fused_gaussian_hmc_step``), a steady NUTS draw at 1024 chains and
    a steady transition of ChEES (1024 chains), GHMC and MCLMC (4096), MALA
@@ -224,7 +247,13 @@ G_SWEEP_CHAINS = (256, 1024, 4096, 16384)
 
 # adapted NUTS at the bench's protocol (bench.py:45-58, :128-243)
 NUTS_CHAINS, NUTS_BIG_CHAINS = 1024, 4096
-NUTS_WARMUP, NUTS_KEEP = 500, 1000
+# kept draws of the NUTS 1024-chain, ChEES, MAMS and MCLMC lines: the
+# bench's BENCH_KEEP until the workflow (phase 17) joined the script, halved
+# then to hold its run time (their margins under the R-hat gate were 0.0084
+# and more: rank R-hat 1.0016, 1.0026, split 0.9997, 0.9994); each line
+# prints its cut and its margin
+BENCH_KEEP = 1000
+NUTS_WARMUP, NUTS_KEEP = 500, 500
 # kept draws of the 4096-chain line: 1000 until the suite's rows (phase 14)
 # joined the script, halved then to hold its run time
 NUTS_BIG_KEEP = 500
@@ -251,9 +280,10 @@ CHEES_CHAINS = 1024
 GHMC_CHAINS, GHMC_STEP, GHMC_ALPHA, GHMC_LEAP = 4096, 0.05, 0.98, 3
 GHMC_JITTER, GHMC_TARGET, GHMC_THIN, GHMC_WARM = 0.2, 0.95, 4, 1000
 # warmup sweeps and kept draws of the GHMC line (1000 each, the bench's,
-# until the suite's rows joined the script); dual averaging still spans its
-# first GHMC_WARM transitions
-GHMC_WARM_SWEEPS, GHMC_KEEP = 500, 500
+# until the suite's rows joined the script, then 500; 250 since the workflow
+# (phase 17) joined it, at a margin of 0.0116 under the split R-hat gate);
+# dual averaging spans the first GHMC_WARM transitions, all of warmup
+GHMC_WARM_SWEEPS, GHMC_KEEP = 250, 250
 GHMC_ESS_CHUNK = 256
 MC_CHAINS, MC_ESS_CHUNK = 4096, 512
 MC_THIN = {"mams": 1, "mclmc": 2}
@@ -388,6 +418,40 @@ MMALA_ROW = {"chains": 1024, "warm": 500, "keep": 1000, "full": (1500, 4000),
 # kernel-level sync audit of the looping samplers: draws run under CUDA's
 # sync debug mode, against the kernel's own count
 LOOP_SYNC_DRAWS = 10
+
+# the one-call workflow (phase 17) on the flagship posterior: fit() with a
+# Pathfinder start (NUTS, fit's defaults), map_laplace and a Laplace-started
+# ChEES fit, the posterior predictive of the Bernoulli outcomes and PSIS-LOO
+# / WAIC over the last 300 draws of the first 64 chains (19,200 draws x
+# 1,000 observations, in chunks of PP_BATCH draws), and a reduced model
+# (the first 50 columns) ranked below the full one by compare()
+WF_NUTS = {"chains": 1024, "warm": 300, "keep": 300, "rhat": 1.01,
+           "rounds": 3, "key": 170}
+WF_CHEES = {"chains": 1024, "warm": 200, "keep": 300, "rhat": 1.01,
+            "rounds": 3, "key": 171}
+WF_REDUCED = {"cols": 50, "key": 172}
+WF_PP = {"chains": 64, "draws": 300, "batch": 4800, "key": 173}
+WF_PF_DRAWS = 256             # fit(init="pathfinder")'s pathfinder draws
+# bounds fixed before the first chip run from
+# scripts/jax_workflow_tolerance.py (the JAX package on the CPU, the same
+# numpy data), each three times the JAX package's own number rounded up to
+# two digits: map_laplace's grad_norm at its defaults (JAX 0.00476), max
+# |mode - posterior mean| / posterior sd against its adapted hmc reference
+# (JAX 0.436: the posterior is skewed, its mode is not its mean), |elpd_loo
+# - elpd_waic| on 19,200 of the reference's draws (JAX 1.233, elpd_loo
+# -685.96, max Pareto k 0.411)
+WF_GRAD_NORM_MAX = 0.015
+WF_MODE_SD_MAX = 1.4
+WF_LOO_WAIC_MAX = 3.7
+# the reduced model's elpd_diff behind the full one: the JAX package's
+# mean over three reference seeds (17.71, 17.14, 15.75) and three times its
+# largest distance from it. Not "elpd_diff > 2 paired standard errors":
+# with the weak N(0, 10^2) prior the full model overfits (p_loo about 118),
+# so its predictive lead is real but small, 1.1-1.3 of its paired standard
+# error (about 14) in the JAX package at every seed
+WF_DIFF_JAX, WF_DIFF_TOL = 16.87, 3.4
+WF_PARETO_K_MAX = 0.7         # PSIS-LOO's reliability threshold
+WF_PP_SIGMAS = 5.0            # binomial standard errors
 
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds below are
 # the largest of operations over the peak of their type and bytes over the
@@ -653,6 +717,9 @@ def nuts_line(X, y, n_chains, prefix, seed, full_diag, n_keep=NUTS_KEEP):
         f"{p}_ms_per_leaf_warmup": 1e3 * t_warm / warm_counts["leaves"],
         f"{p}_ms_per_leaf_sample": 1e3 * t_samp / samp_counts["leaves"],
         f"{p}_diagnostics_seconds": t_diag,
+        f"{p}_draws_cut_from": BENCH_KEEP,
+        f"{p}_rhat_margin": NUTS_RHAT_MAX - max(
+            rhat, res.get(f"{p}_max_rank_rhat", rhat)),
     })
     print(f"{prefix}: {n_chains} chains, {NUTS_WARMUP} warmup draws in "
           f"{t_warm:.3f} s, {n_keep} draws in {t_samp:.3f} s at cap {cap} "
@@ -702,8 +769,9 @@ def nuts_reference(X, y, nuts_state):
     check(bool(torch.isfinite(draws).all()), "hmc reference: draws finite")
     check(rhat <= NUTS_RHAT_MAX, f"hmc reference: max split R-hat {rhat:.4f} "
           f"<= {NUTS_RHAT_MAX}")
-    return {"mean": draws.mean(dim=(0, 1)),
-            "mcse": draws.std(dim=(0, 1)) / torch.sqrt(ess)}
+    sd = draws.std(dim=(0, 1))
+    return {"mean": draws.mean(dim=(0, 1)), "sd": sd,
+            "mcse": sd / torch.sqrt(ess)}
 
 
 def sync_warnings(fn):
@@ -820,6 +888,10 @@ def line_stats(prefix, draws, seconds, per_draw, chunk, rank=False):
             rank_rhat <= NUTS_RHAT_MAX
     torch.cuda.synchronize()
     res[f"{p}_diagnostics_seconds"] = time.perf_counter() - t0
+    if n_keep < BENCH_KEEP:
+        res[f"{p}_draws_cut_from"] = BENCH_KEEP
+    res[f"{p}_rhat_margin"] = NUTS_RHAT_MAX - max(
+        rhat, res.get(f"{p}_max_rank_rhat", rhat))
     sd = draws.std(dim=(0, 1))
     summary = {"mean": draws.mean(dim=(0, 1)), "sd": sd, "ess": ess,
                "mcse": sd / torch.sqrt(ess)}
@@ -1731,6 +1803,154 @@ def remaining_rows(dev, refs):
             (gibbs_step, gen, gibbs_state))
 
 
+def workflow_phase(X_np, y_np, ref):
+    """Phase 17: the one-call workflow through ``fit`` on the flagship
+    posterior, from numpy with no ``device=``."""
+    from mcmc_tpu_torch import (compare, fit, generated_quantities,
+                                map_laplace, pathfinder, pointwise_log_lik,
+                                posterior_predictive, psis_loo, waic)
+    from mcmc_tpu_torch.convert import glm_data
+    from mcmc_tpu_torch.models import logistic_regression_model
+
+    t_phase = time.perf_counter()
+    Xd, yd = glm_data(X_np, y_np)
+    lk = logistic_regression_model(Xd, yd, PRIOR_SCALE)
+
+    def bernoulli_ll(X):
+        def ll(p):
+            eta = p @ X.T
+            return yd * eta - torch.nn.functional.softplus(eta)
+        return ll
+    x0 = np.zeros(DIM, np.float32)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def fit_line(name, out, seconds, extra):
+        summ = out.diagnostics["summary"]
+        ess = float(summ["ess_bulk"].min())
+        rhat = float(summ["rhat_rank"].max())
+        row = {"seconds": seconds, "n_rounds": out.diagnostics["n_rounds"],
+               "converged": bool(out.diagnostics["converged"]),
+               "max_rank_rhat": rhat, "min_bulk_ess": ess,
+               "draws": list(out.draws.shape), **extra}
+        print(f"{name}: {json.dumps(row)}")
+        check(out.draws.is_cuda, f"{name}: draws on the card")
+        check(bool(torch.isfinite(out.draws).all()), f"{name}: draws finite")
+        check(row["converged"], f"{name}: converged (rank R-hat {rhat:.4f} "
+              f"<= {WF_NUTS['rhat']})")
+        mean_gate(f"{name} vs hmc reference", summ, ref)
+        return ess
+
+    # (a) the default fit from a Pathfinder start; Pathfinder as fit calls
+    # it, timed on its own first
+    pf, pf_s = timed(lambda: pathfinder(x0, lk, n_draws=WF_PF_DRAWS,
+                                        key=WF_NUTS["key"]))
+    print(f"pathfinder: {pf_s:.3f} s, {pf.host_syncs} line-search host "
+          f"syncs, chosen iterates {pf.best_iter.tolist()}, ELBO "
+          f"{[round(v, 3) for v in pf.elbo.tolist()]}, pareto k "
+          f"{float(pf.pareto_k):.3f}")
+    check(bool(torch.isfinite(pf.draws).all()), "pathfinder draws finite")
+    w = WF_NUTS
+    out, secs = timed(lambda: fit(
+        x0, lk, n_chains=w["chains"], n_warmup=w["warm"], n_draws=w["keep"],
+        key=w["key"], init="pathfinder", rhat_target=w["rhat"],
+        max_rounds=w["rounds"]))
+    ess = out.diagnostics["summary"]["ess_bulk"].min()
+    fit_line("fit nuts (pathfinder start)", out, secs, {
+        "min_ess_per_sec_after_search": float(ess) / (secs - pf_s),
+        "min_ess_per_sec_with_search": float(ess) / secs})
+
+    # (b) Laplace at its defaults, then a Laplace-started ChEES fit
+    lap, lap_s = timed(lambda: map_laplace(x0, lk, key=WF_CHEES["key"]))
+    dev_sd = float(((lap.mode - ref["mean"]).abs() / ref["sd"]).max())
+    print(f"map_laplace: {lap_s:.3f} s, grad_norm {float(lap.grad_norm):.4g} "
+          f"(tol {WF_GRAD_NORM_MAX}), log_post {float(lap.log_post):.4f}, "
+          f"max |mode - reference mean| / reference sd {dev_sd:.4f} (tol "
+          f"{WF_MODE_SD_MAX})")
+    check(float(lap.grad_norm) <= WF_GRAD_NORM_MAX, "map_laplace grad_norm")
+    check(dev_sd <= WF_MODE_SD_MAX, "map_laplace mode near the posterior")
+    w = WF_CHEES
+    ch, secs = timed(lambda: fit(
+        x0, lk, algorithm="chees", init="laplace", n_chains=w["chains"],
+        n_warmup=w["warm"], n_draws=w["keep"], key=w["key"],
+        rhat_target=w["rhat"], max_rounds=w["rounds"]))
+    fit_line("fit chees (laplace start)", ch, secs, {})
+
+    # (c) the posterior predictive of the outcomes over (a)'s last draws of
+    # its first chains, in chunks
+    d = out.draws[-WF_PP["draws"]:, :WF_PP["chains"]]
+    n_draws = d.shape[0] * d.shape[1]
+    prob = lambda p: torch.sigmoid(p @ Xd.T)
+    (gq, yrep), pp_s = timed(lambda: (
+        generated_quantities(d, prob, batch_size=WF_PP["batch"]),
+        posterior_predictive(
+            d, lambda g, p: torch.bernoulli(prob(p), generator=g),
+            key=WF_PP["key"], batch_size=WF_PP["batch"])))
+    check(tuple(yrep.shape) == (d.shape[0], d.shape[1], N_DATA),
+          "posterior predictive shape")
+    p_bar = float(gq.double().mean())
+    y_bar = float(yrep.double().mean())
+    se = math.sqrt(float((gq.double() * (1 - gq.double())).mean())
+                   / gq.numel())
+    t_rep = yrep.mean(dim=-1)
+    p_value = float((t_rep >= float(yd.mean())).double().mean())
+    print(f"posterior predictive: {n_draws} draws x {N_DATA} outcomes in "
+          f"{pp_s:.3f} s; mean replicated outcome {y_bar:.6f}, mean fitted "
+          f"probability {p_bar:.6f}, {abs(y_bar - p_bar) / se:.3f} binomial "
+          f"standard errors (tol {WF_PP_SIGMAS:g}); predictive p-value of "
+          f"mean(y) {p_value:.4f}")
+    check(abs(y_bar - p_bar) <= WF_PP_SIGMAS * se,
+          "replicated outcomes match the fitted probabilities")
+
+    # (d) PSIS-LOO and WAIC, the card against the port on the CPU, and a
+    # reduced model ranked by compare()
+    ll = pointwise_log_lik(d, bernoulli_ll(Xd))
+    (loo, wa), loo_s = timed(lambda: (psis_loo(ll), waic(ll)))
+    t0 = time.perf_counter()
+    loo_cpu = psis_loo(ll.cpu())
+    cpu_s = time.perf_counter() - t0
+    k_max = float(loo["pareto_k"].max())
+    gap = abs(float(loo["elpd"]) - float(wa["elpd"]))
+    cpu_err = max(abs(float(loo[k]) - float(loo_cpu[k]))
+                  / abs(float(loo_cpu[k])) for k in ("elpd", "p_eff", "se"))
+    k_err = float((loo["pareto_k"].cpu() - loo_cpu["pareto_k"]).abs().max())
+    print(f"psis_loo + waic on the card: {loo_s:.3f} s ({cpu_s:.3f} s for "
+          f"psis_loo on the CPU); elpd_loo {float(loo['elpd']):.4f} (se "
+          f"{float(loo['se']):.4f}, p_loo {float(loo['p_eff']):.4f}), "
+          f"elpd_waic {float(wa['elpd']):.4f}, |difference| {gap:.4f} (tol "
+          f"{WF_LOO_WAIC_MAX}); max Pareto k {k_max:.4f} (tol "
+          f"{WF_PARETO_K_MAX}); card vs CPU: max relative error {cpu_err:.2e}"
+          f", max |k difference| {k_err:.2e}")
+    check(k_max <= WF_PARETO_K_MAX, "every Pareto k within 0.7")
+    check(gap <= WF_LOO_WAIC_MAX, "elpd_loo and elpd_waic agree")
+    check(cpu_err <= 1e-5 and k_err <= 2e-5,
+          "psis_loo on the card equals the CPU's (rtol 1e-5, k 2e-5)")
+    w = WF_REDUCED
+    lk_red = logistic_regression_model(Xd[:, :w["cols"]], yd, PRIOR_SCALE)
+    red, secs = timed(lambda: fit(
+        np.zeros(w["cols"], np.float32), lk_red, algorithm="chees",
+        n_chains=WF_CHEES["chains"], n_warmup=WF_CHEES["warm"],
+        n_draws=WF_CHEES["keep"], key=w["key"]))
+    check(bool(torch.isfinite(red.draws).all()), "reduced fit draws finite")
+    ll_red = pointwise_log_lik(red.draws[-WF_PP["draws"]:, :WF_PP["chains"]],
+                               bernoulli_ll(Xd[:, :w["cols"]]))
+    ranking = compare({"full": loo, "reduced": psis_loo(ll_red)})
+    print(f"compare: reduced chees fit {secs:.3f} s; "
+          f"{json.dumps(ranking)}")
+    diff = ranking[1]["elpd_diff"]
+    print(f"compare: elpd_diff {diff:.4f} = {diff / ranking[1]['se_diff']:.3f}"
+          f" paired standard errors; JAX {WF_DIFF_JAX} (tol {WF_DIFF_TOL})")
+    check(ranking[0]["name"] == "full", "the full model ranks first")
+    check(abs(diff - WF_DIFF_JAX) <= WF_DIFF_TOL,
+          "the reduced model's elpd_diff agrees with the JAX package's")
+    print(f"workflow: phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2054,7 +2274,11 @@ def main():
     # and the SGLD and mMALA lines
     slice_path, ellipse_path, gibbs_path = remaining_rows(dev, refs)
 
+    # --- the one-call workflow on the flagship posterior
+    workflow_phase(X_np, y_np, ref)
+
     # --- where the time of a steady transition goes (printed, not gated)
+    t_profile = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(30)
     glm_step = fl.make_fused_hmc_step(X_np, y_np, PRIOR_SCALE, STEP_SIZE,
                                       N_LEAP)
@@ -2086,6 +2310,7 @@ def main():
         ("GLM transition", glm_step, gen, glm_step.init(0.05 * torch.randn(
             (N_CHAINS, DIM), generator=gen, device=dev)),
          PROFILE_WARM, PROFILE_STEPS)])
+    print(f"profiles: phase seconds {time.perf_counter() - t_profile:.1f}")
 
     # bounds from the model's own sizes (the work the function needs); the
     # padded shapes the kernels are handed give the *_padded figures

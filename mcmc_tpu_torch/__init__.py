@@ -27,13 +27,23 @@ samplers ``slice_sampler`` and ``elliptical_slice``, the gradient samplers
 ``sghmc``, and block ``gibbs``: with these, every sampler of the JAX
 package. Also the ``stats`` densities, every target of ``models``, the
 diagnostics, and ``entry.entry()``, one batched HMC transition on the
-flagship posterior.
+flagship posterior. And the one-call workflow: ``fit`` and ``sample``
+(``umbrella``), pytree models (``ravel_model``, ``unravel_draws``,
+``bounds_like``), the Laplace and Pathfinder starts (``map_laplace``,
+``pathfinder``), the posterior predictive (``generated_quantities``,
+``posterior_predictive``), model comparison (``pointwise_log_lik``,
+``waic``, ``psis_loo``, ``compare``) and simulation-based calibration
+(``sbc``).
 
 Two more API differences: SGLD's and SGHMC's likelihood is batched,
 ``log_lik(theta: (n_chains, d), batch) -> (n_chains,)`` with every leaf of
 ``batch`` shaped ``(n_chains, B, ...)``; a Gibbs block's exact conditional
 is ``fn(gen, full: (n_chains, d)) -> (n_chains, d_b)``, drawing from the
-run's ``torch.Generator``.
+run's ``torch.Generator``. In the workflow, a pytree log-kernel gets leaves
+with a leading chain axis, ``log_lik_fn`` and a predictive function are
+batched over draws (``(B, d) -> (B, ...)``), ``map_laplace``'s
+``optimizer=`` is a PyTorch optimizer factory, and callbacks that draw
+take a ``torch.Generator`` where the JAX package passes a key.
 The CUDA kernels are built at their first launch, so this package imports
 without CUDA, nvcc or Triton.
 
@@ -91,7 +101,20 @@ from mcmc_tpu_torch.samplers.sgld import sghmc, sgld
 from mcmc_tpu_torch.samplers.gibbs import gibbs
 from mcmc_tpu_torch.metrics import softabs_metric
 from mcmc_tpu_torch.ops.fused_sampler import fused_glm_hmc, fused_gaussian_hmc
-from mcmc_tpu_torch import diagnostics, models, stats
+from mcmc_tpu_torch.laplace import map_laplace, LaplaceResult
+from mcmc_tpu_torch.pathfinder import pathfinder, PathfinderResult
+from mcmc_tpu_torch.model_compare import (
+    pointwise_log_lik,
+    waic,
+    psis_loo,
+    compare,
+)
+from mcmc_tpu_torch.pytree import ravel_model, unravel_draws, bounds_like
+from mcmc_tpu_torch.predictive import (generated_quantities,
+                                       posterior_predictive)
+from mcmc_tpu_torch.sbc import sbc
+from mcmc_tpu_torch.umbrella import sample, fit
+from mcmc_tpu_torch import bounds, diagnostics, models, stats
 
 __all__ = [
     "AlgoSettings", "RWMHSettings", "MALASettings", "HMCSettings",
@@ -106,5 +129,10 @@ __all__ = [
     "gibbs",
     "softabs_metric",
     "fused_glm_hmc", "fused_gaussian_hmc",
-    "diagnostics", "models", "stats",
+    "sample", "fit", "map_laplace", "LaplaceResult",
+    "pathfinder", "PathfinderResult",
+    "pointwise_log_lik", "waic", "psis_loo", "compare",
+    "ravel_model", "unravel_draws", "bounds_like",
+    "generated_quantities", "posterior_predictive", "sbc",
+    "bounds", "diagnostics", "models", "stats",
 ]

@@ -12,7 +12,9 @@ import numpy as np
 import torch
 
 from mcmc_tpu_torch import adaptation
+from mcmc_tpu_torch.laplace import LaplaceResult
 from mcmc_tpu_torch.ops.fused_logreg import FusedHMCState
+from mcmc_tpu_torch.pathfinder import PathfinderResult
 from mcmc_tpu_torch.samplers._resolve import resolve_device
 from mcmc_tpu_torch.samplers.aees import AEESState
 from mcmc_tpu_torch.samplers.barker import BarkerState
@@ -40,7 +42,7 @@ __all__ = ["to_tensor", "glm_data", "gaussian_target", "fused_state",
            "de_state", "pt_state", "aees_state", "smc_state",
            "stretch_state", "demcz_state", "barker_state", "mmala_state",
            "slice_state", "elliptical_state", "sgld_state", "sghmc_state",
-           "gibbs_state"]
+           "gibbs_state", "laplace_result", "pathfinder_result"]
 
 
 def to_tensor(a, device=None, dtype=None):
@@ -303,3 +305,42 @@ def gibbs_state(state, device=None) -> GibbsState:
             subs.append(to_tensor(sub, device))
     return GibbsState(position=to_tensor(state.position, device),
                       substates=tuple(subs))
+
+
+def _box_fields(res, device):
+    """The bound fields of a Laplace or Pathfinder result: transform codes
+    as int32, bounds as tensors, ``vals_bound`` as a bool."""
+    return dict(_codes=to_tensor(res._codes, device, torch.int32),
+                _lb=to_tensor(res._lb, device), _ub=to_tensor(res._ub, device),
+                _vals_bound=bool(res._vals_bound))
+
+
+def laplace_result(res, device=None) -> LaplaceResult:
+    """A :class:`~mcmc_tpu_torch.laplace.LaplaceResult` from the JAX
+    package's ``LaplaceResult`` (or any object with its fields): the mode,
+    covariance and factor as tensors, so that the port's ``draw_init``,
+    ``init_box`` and ``log_evidence`` run on JAX's pieces."""
+    return LaplaceResult(
+        mode=to_tensor(res.mode, device), mode_z=to_tensor(res.mode_z, device),
+        cov=to_tensor(res.cov, device),
+        cov_sqrt=to_tensor(res.cov_sqrt, device),
+        log_post=to_tensor(res.log_post, device),
+        grad_norm=to_tensor(res.grad_norm, device),
+        restart_log_posts=to_tensor(res.restart_log_posts, device),
+        **_box_fields(res, device))
+
+
+def pathfinder_result(res, device=None) -> PathfinderResult:
+    """A :class:`~mcmc_tpu_torch.pathfinder.PathfinderResult` from the JAX
+    package's ``PathfinderResult`` (or any object with its fields): the
+    draws (constrained and unconstrained) and their diagnostics as tensors,
+    so that the port's ``draw_init``, ``center``, ``init_box`` and
+    ``spread_z`` run on JAX's draws."""
+    return PathfinderResult(
+        draws=to_tensor(res.draws, device), log_p=to_tensor(res.log_p, device),
+        log_q=to_tensor(res.log_q, device),
+        pareto_k=to_tensor(res.pareto_k, device),
+        elbo=to_tensor(res.elbo, device),
+        best_iter=to_tensor(res.best_iter, device, torch.int64),
+        n_lbfgs_iters=to_tensor(res.n_lbfgs_iters, device, torch.int64),
+        _draws_z=to_tensor(res._draws_z, device), **_box_fields(res, device))

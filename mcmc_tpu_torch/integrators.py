@@ -27,7 +27,8 @@ import torch
 
 from mcmc_tpu_torch import bounds as bounds_mod
 
-__all__ = ["grad_of", "make_kick_grad", "leapfrog", "kinetic_energy"]
+__all__ = ["grad_of", "value_and_grad_of", "make_kick_grad", "leapfrog",
+           "kinetic_energy"]
 
 
 def grad_of(log_kernel):
@@ -41,6 +42,19 @@ def grad_of(log_kernel):
         return torch.zeros_like(z) if g is None else g
 
     return grad_fn
+
+
+def value_and_grad_of(fn):
+    """``value_and_grad(z) -> (fn(z), grad)``: a batched function's values
+    ``(n,)`` and each row's gradient ``(n, d)``, by autograd of the sum;
+    neither carries a graph."""
+    def value_and_grad(z):
+        with torch.enable_grad():
+            zz = z.detach().requires_grad_(True)
+            f = fn(zz)
+            (g,) = torch.autograd.grad(f.sum(), zz)
+        return f.detach(), g
+    return value_and_grad
 
 
 def make_kick_grad(prob, mode: str = "reference"):

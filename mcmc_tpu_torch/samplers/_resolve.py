@@ -2,11 +2,13 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mcmc_tpu_torch.settings import AlgoSettings
 
-__all__ = ["resolve_settings", "resolve_key", "resolve_device"]
+__all__ = ["resolve_settings", "resolve_key", "resolve_device", "key_seed",
+           "stream_generator"]
 
 
 def resolve_device(device, *args) -> torch.device:
@@ -56,4 +58,27 @@ def resolve_key(key, algo: AlgoSettings, device) -> torch.Generator:
     seed = int(algo.rng_seed_value) if key is None else int(key)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    return gen
+
+
+def key_seed(key) -> int:
+    """An integer seed from ``key``: an integer as is; from a
+    ``torch.Generator``, one 62-bit integer drawn from it (advancing it; on
+    the card one host synchronisation)."""
+    if isinstance(key, torch.Generator):
+        return int(torch.randint(0, 2 ** 62, (1,), generator=key,
+                                 device=key.device))
+    return int(key)
+
+
+def stream_generator(seed: int, *stream, device) -> torch.Generator:
+    """The generator of one named stream of ``seed`` on ``device``: seeded
+    from numpy's ``SeedSequence(seed, spawn_key=stream)``, so streams with
+    different ``stream`` tuples are independent and none replays another
+    (where JAX splits a key into disjoint subkeys)."""
+    ss = np.random.SeedSequence(int(seed) % 2 ** 128,
+                                spawn_key=tuple(int(i) for i in stream))
+    state = ss.generate_state(2, np.uint32)
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed((int(state[0]) << 31) ^ int(state[1]))
     return gen

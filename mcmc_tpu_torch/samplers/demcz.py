@@ -253,8 +253,9 @@ def demcz(initial_vals, log_kernel, settings=None, *, key=None, n_runs=None,
         capacity = n_init + n_pop * (n_gens // int(s.archive_stride))
     R = 1 if n_runs is None else int(n_runs)
 
-    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dt,
-                                     device=prob.device)
+    as_t = lambda a: torch.as_tensor(
+        a if torch.is_tensor(a) else np.asarray(a), dtype=dt,
+        device=prob.device)
     x0_c = as_t(initial_vals)            # constrained center for the box
     init_lb = as_t(s.initial_lb) if s.initial_lb is not None else x0_c - 0.5
     init_ub = as_t(s.initial_ub) if s.initial_ub is not None else x0_c + 0.5

@@ -152,8 +152,10 @@ def stretch(initial_vals, log_kernel, settings=None, *, key=None, mesh=None,
     gen = resolve_key(key, algo, prob.device)
 
     center = prob.first_draw[0]
-    spread = torch.as_tensor(np.asarray(s.init_spread), dtype=dt,
-                             device=prob.device).expand(n_vals)
+    spread = s.init_spread
+    spread = torch.as_tensor(
+        spread if torch.is_tensor(spread) else np.asarray(spread), dtype=dt,
+        device=prob.device).expand(n_vals)
     with torch.no_grad():
         X0 = center + spread * torch.randn((n_w, n_vals), generator=gen,
                                            dtype=dt, device=prob.device)

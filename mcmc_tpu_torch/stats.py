@@ -17,7 +17,8 @@ import math
 
 import torch
 
-__all__ = ["dnorm", "dmvnorm", "LOG_2PI", "gumbel_topk", "cholesky_or_nan"]
+__all__ = ["dnorm", "dmvnorm", "LOG_2PI", "gumbel_topk",
+           "gumbel_topk_from_uniforms", "cholesky_or_nan"]
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -87,6 +88,12 @@ def gumbel_topk(gen, log_weights, n):
     with the uniforms drawn from the ``torch.Generator`` ``gen``."""
     u = torch.rand(log_weights.shape, generator=gen, dtype=log_weights.dtype,
                    device=log_weights.device)
+    return gumbel_topk_from_uniforms(u, log_weights, n)
+
+
+def gumbel_topk_from_uniforms(u, log_weights, n):
+    """:func:`gumbel_topk` given its uniforms ``u`` in [0, 1), one per
+    weight (mapped to [1e-12, 1) as the JAX package's ``minval`` does)."""
     u = 1e-12 + (1.0 - 1e-12) * u
     g = -torch.log(-torch.log(u))
     return torch.argsort(log_weights + g, descending=True)[: int(n)]

@@ -2,7 +2,8 @@
 and the port's NUTS, ChEES, GHMC, MCLMC, MAMS, RWMH, MALA, RM-HMC, DE, PT,
 AEES, SMC, the stretch ensemble, DE-MC(Z), slice, elliptical slice, Barker,
 mMALA, SGLD, pSGLD, SGHMC, block Gibbs and ``entry()`` (plain PyTorch) run
-on it.
+on it, and the workflow: ``fit`` (NUTS, and ChEES from a Laplace start),
+``pathfinder`` and ``psis_loo`` against the CPU.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports no JAX, so that it runs on a machine without it:
@@ -577,3 +578,77 @@ def test_remaining_samplers_on_the_card_repeat_under_one_seed(name):
     for k, v in a.diagnostics.items():
         if torch.is_tensor(v):
             assert torch.equal(v, b.diagnostics[k]), k
+
+
+def _flagship_kernel():
+    from mcmc_tpu_torch.convert import glm_data
+    from mcmc_tpu_torch.models import (logistic_regression_model,
+                                       make_logistic_regression_data)
+    X, y, _ = make_logistic_regression_data(0, 1000, 100, device="cpu")
+    return logistic_regression_model(*glm_data(X.numpy(), y.numpy()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,init", [("nuts", None), ("chees", "laplace"),
+                                       ("stretch", "laplace"),
+                                       ("demcz", "pathfinder")])
+def test_fit_on_the_card_repeats_under_one_seed(algo, init):
+    """``fit`` at 64 chains on the flagship target from a numpy start with
+    no ``device=``: on the card, finite, bit-equal under one seed (an
+    extension round included). The ensembles take the search's card
+    tensors as their center, spread and box."""
+    _require_card()
+    import mcmc_tpu_torch
+    lk = _flagship_kernel()
+    kw = dict(algorithm=algo, init=init, n_chains=64, n_warmup=40,
+              n_draws=20, key=5, rhat_target=1.0, max_rounds=2)
+    a = mcmc_tpu_torch.fit(np.zeros(100, np.float32), lk, **kw)
+    b = mcmc_tpu_torch.fit(np.zeros(100, np.float32), lk, **kw)
+    assert a.draws.is_cuda and a.draws.shape[0] == 40
+    assert a.draws.shape[2] == 100
+    assert bool(torch.isfinite(a.draws).all())
+    assert torch.equal(a.draws, b.draws)
+    assert a.diagnostics["n_rounds"] == 2
+
+
+@pytest.mark.cuda
+def test_pathfinder_on_the_card():
+    """``pathfinder`` on the flagship target from numpy: finite draws on
+    the card, one host synchronisation per line-search iteration (at least
+    one per L-BFGS iteration), bit-equal under one seed."""
+    _require_card()
+    import mcmc_tpu_torch
+    lk = _flagship_kernel()
+    a = mcmc_tpu_torch.pathfinder(np.zeros(100, np.float32), lk, n_paths=4,
+                                  n_draws=200, max_iters=30, key=3)
+    b = mcmc_tpu_torch.pathfinder(np.zeros(100, np.float32), lk, n_paths=4,
+                                  n_draws=200, max_iters=30, key=3)
+    assert a.draws.is_cuda and a.draws.shape == (200, 100)
+    assert bool(torch.isfinite(a.draws).all())
+    assert 30 <= a.host_syncs <= 30 * 20
+    assert torch.equal(a.draws, b.draws) and a.host_syncs == b.host_syncs
+
+
+@pytest.mark.cuda
+def test_psis_loo_on_the_card_equals_the_cpu():
+    """``psis_loo`` of a card tensor equals the CPU's on the same array at
+    rtol 1e-5: elpd, p_loo and se; each observation's elpd and Pareto k
+    also within 1e-5 and 2e-5 absolute (a term near 0 is a float32
+    log-sum of thousands of weights, summed in another order on the card:
+    measured 1.9e-6 absolute on terms of about 0.1)."""
+    _require_card()
+    from mcmc_tpu_torch import psis_loo, waic
+    rng = np.random.default_rng(0)
+    ll = (-0.5 * (rng.normal(size=(4000, 1)) * 0.3
+                  + rng.normal(size=(1, 50))) ** 2).astype(np.float32)
+    cpu = psis_loo(torch.tensor(ll))
+    card = psis_loo(torch.tensor(ll, device="cuda"))
+    for k in ("elpd", "p_eff", "se"):
+        torch.testing.assert_close(card[k].cpu(), cpu[k], rtol=1e-5, atol=0)
+    torch.testing.assert_close(card["pointwise"].cpu(), cpu["pointwise"],
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(card["pareto_k"].cpu(), cpu["pareto_k"],
+                               rtol=1e-5, atol=2e-5)
+    torch.testing.assert_close(waic(torch.tensor(ll, device="cuda"))["elpd"]
+                               .cpu(), waic(torch.tensor(ll))["elpd"],
+                               rtol=1e-5, atol=0)

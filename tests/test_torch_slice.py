@@ -168,6 +168,29 @@ NO_DEVICE_CALLS = {
     "rbf_kernel": lambda X, y: mcmc_tpu_torch.models.rbf_kernel(X[:, 0]),
     "poisson_regression_model": lambda X, y: mcmc_tpu_torch.models
     .poisson_regression_model(X, y),
+    "fit": lambda X, y: mcmc_tpu_torch.fit(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        algorithm="chees", n_chains=4, n_warmup=1, n_draws=1),
+    "sample": lambda X, y: mcmc_tpu_torch.sample(
+        "hmc", np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        mcmc_tpu_torch.HMCSettings(n_burnin_draws=1, n_keep_draws=1)),
+    "map_laplace": lambda X, y: mcmc_tpu_torch.map_laplace(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        n_steps=1),
+    "pathfinder": lambda X, y: mcmc_tpu_torch.pathfinder(
+        np.zeros(D, np.float32), lambda b: -0.5 * (b * b).sum(dim=-1),
+        n_paths=2, n_draws=10, max_iters=2),
+    "ravel_model": lambda X, y: mcmc_tpu_torch.ravel_model(
+        {"b": np.zeros(D, np.float32)}),
+    "pointwise_log_lik": lambda X, y: mcmc_tpu_torch.pointwise_log_lik(
+        X[:, :D], lambda b: b),
+    "psis_loo": lambda X, y: mcmc_tpu_torch.psis_loo(X),
+    "waic": lambda X, y: mcmc_tpu_torch.waic(X),
+    "posterior_predictive": lambda X, y: mcmc_tpu_torch.posterior_predictive(
+        X[:, :D], lambda g, b: b, 0),
+    "sbc": lambda X, y: mcmc_tpu_torch.sbc(
+        0, lambda g: np.zeros(1), lambda g, th: th, lambda g, d: d,
+        n_sims=1, n_rank_draws=7, n_bins=8),
 }
 
 
@@ -198,8 +221,9 @@ def test_resolve_device_rule():
 def test_port_imports_no_jax():
     """Importing the port and every module of it loads neither JAX nor the
     JAX package, and needs no CUDA; the tempering and ensemble entry points
-    and the seven of the last slice (slice, elliptical slice, Barker,
-    mMALA, SGLD, SGHMC, Gibbs) are among its names."""
+    the self-tuning, latent-Gaussian, minibatch and blocked samplers
+    (slice, elliptical slice, Barker, mMALA, SGLD, SGHMC, Gibbs) and the
+    workflow are among its names."""
     code = (
         "import sys, pkgutil, importlib, mcmc_tpu_torch\n"
         "for m in pkgutil.walk_packages(mcmc_tpu_torch.__path__, "
@@ -207,7 +231,10 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "for n in ('pt', 'aees', 'smc', 'stretch', 'demcz', "
         "'slice_sampler', 'elliptical_slice', 'barker', 'mmala', 'sgld', "
-        "'sghmc', 'gibbs'):\n"
+        "'sghmc', 'gibbs', 'fit', 'sample', 'map_laplace', 'pathfinder', "
+        "'pointwise_log_lik', 'waic', 'psis_loo', 'compare', "
+        "'generated_quantities', 'posterior_predictive', 'sbc', "
+        "'ravel_model', 'unravel_draws', 'bounds_like'):\n"
     "    assert callable(getattr(mcmc_tpu_torch, n)), n\n"
     "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'mcmc_tpu' or m.startswith('mcmc_tpu.')]\n"
