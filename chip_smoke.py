@@ -170,7 +170,33 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    card's ``psis_loo`` equal to the CPU's), and ``compare`` against a
    reduced model (the first 50 columns, a ChEES fit): the full model ranks
    first and its elpd difference agrees with the JAX package's;
-18. printed and not gated: the Gaussian kernel's time at other chain counts,
+18. evidence, approximate inference and durability, each entry point from
+   numpy with no ``device=``, each step timed by the port's ``PhaseTimer``:
+   ``thermo_evidence`` on the flagship posterior split into its normalised
+   N(0, 10^2) prior and Bernoulli likelihood (16 ladders of 24 rungs, 500 +
+   500 draws, cut from 1000 + 1000), gated on its stepping-stone log Z
+   within 5 combined standard errors of the JAX package's on the same data
+   and settings (``scripts/jax_evidence_tolerance.py``), every rung's
+   acceptance above 0.2 and every pair's swap rate above 0.02, TI and the
+   Laplace evidence printed beside it; ``advi`` (mean-field and full-rank)
+   and ``svgd`` (256 particles) at their defaults, each ELBO at most log Z +
+   3 standard errors of the difference (SS's and the ELBO's own), each
+   mean within the script's bound of phase 9's
+   ``hmc`` reference, and no host sync per step (CUDA's sync debug mode at
+   two lengths); ``examples/evidence_bayes_factor.py``'s two polynomial
+   models, whose log Z is exact, through ``thermo_evidence`` (16 ladders of
+   24 rungs, 250 + 250 draws; within 5 standard errors),
+   ``nested_sampling`` (512 live points, within 3 error
+   bars; its rounds and host syncs a round printed) and ``map_laplace``
+   (within 1e-2), the Bayes factor favouring the quadratic model; and
+   ``checkpoint_dir=`` on the card: ``hmc`` at 1,024 chains (100 + 500 draws
+   of 6 leapfrogs, 204.8 MB of draws, checkpointed every 100 under
+   ``chiprun_out/``, removed after) bit-equal to the in-memory run, a
+   subprocess killed with SIGKILL after two chunks and resumed here
+   bit-equal, the sink native, and the durability tax of
+   ``benchmarks/checkpoint_overhead.py`` printed (max(t_compute, bytes /
+   pinned D2H bandwidth) / t_checkpointed, the bandwidth measured here);
+19. printed and not gated: the Gaussian kernel's time at other chain counts,
    and for both fused transitions (``make_fused_hmc_step``,
    ``make_fused_gaussian_hmc_step``), a steady NUTS draw at 1024 chains and
    a steady transition of ChEES (1024 chains), GHMC and MCLMC (4096), MALA
@@ -178,7 +204,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (32 runs) and PT (256 ladders), and a steady slice sweep (256 chains),
    ellipse draw (64) and Gibbs sweep (256) at theirs, the time per step,
    the card's busy share of it and the device time of each kernel by name,
-   under ``torch.profiler``. It runs last: once the profiler has run in a
+   under ``torch.profiler``; then one fused GLM step captured by the port's
+   ``observability.capture_trace`` as a Chrome trace under ``chiprun_out/``,
+   gated on not being empty. It runs last: once the profiler has run in a
    process, launches stay slower.
 
 Before the last two lines it prints each kernel's bound beside its time: for
@@ -192,6 +220,7 @@ throughout, NUTS's gradients included.
 import dataclasses
 import json
 import math
+import signal
 import subprocess
 import sys
 import time
@@ -221,7 +250,12 @@ N_BURNIN, N_KEEP, STEPS_PER_DRAW = 100, 200, 2
 HMC_CHAINS = 1024
 MEAN_ATOL = 0.3
 RT_CALLS = 10
-PROFILE_WARM, PROFILE_STEPS = 50, 200
+# steady transitions profiled in the last phase (printed, not gated): cut to
+# a quarter when the evidence phase joined the script, to hold its time: a
+# host that ran phases 14-16 in 700 s took about 1,180 s for the whole
+# script, the profiles 135.4 s of it (71.1 s at half the transitions on a
+# slower host); their time goes mostly to the profiler's own processing
+PROFILE_WARM, PROFILE_STEPS = 50, 50
 
 # the suite's ill-conditioned row (benchmarks/suite.py
 # hmc_ill_conditioned_100d_fused): 100-d Gaussian, variances logspace(0, 4)
@@ -272,7 +306,7 @@ NUTS_MEAN_SIGMAS = 5.0
 # half period, so no resonance)
 REF_STEP_FRACTION, REF_LEAP = 0.5, 6
 REF_BURNIN, REF_KEEP = 100, 1000
-NUTS_PROFILE_WARM, NUTS_PROFILE_DRAWS = 5, 20
+NUTS_PROFILE_WARM, NUTS_PROFILE_DRAWS = 5, 5
 
 # the bench's other quality lines (bench.py:246-487), at its widths and
 # protocols: warmup and kept draws as NUTS's, starts 0.05 N(0, 1)
@@ -296,10 +330,10 @@ MC_THIN = {"mams": 1, "mclmc": 2}
 # sqrt(1 / (2 ESS)) per line, as for a Gaussian)
 MC_VAR_BIAS = 0.05
 SYNC_PROBE_DRAWS = 3          # draws run under CUDA's sync debug mode
-SAMPLER_PROFILE = {"chees": (5, 20), "ghmc": (20, 100), "mclmc": (20, 100),
-                   "mala": (20, 100), "rmhmc": (5, 20), "aees": (20, 100),
-                   "pt": (10, 50), "slice": (5, 20), "ellipse": (10, 50),
-                   "gibbs": (5, 20)}
+SAMPLER_PROFILE = {"chees": (5, 5), "ghmc": (20, 25), "mclmc": (20, 25),
+                   "mala": (20, 25), "rmhmc": (5, 5), "aees": (20, 25),
+                   "pt": (10, 12), "slice": (5, 5), "ellipse": (10, 12),
+                   "gibbs": (5, 5)}
 
 # the suite's rows of the reference library's samplers at their full (not
 # --quick) settings: rwmh_gaussian_2d and mala_logreg_25d
@@ -452,6 +486,61 @@ WF_LOO_WAIC_MAX = 3.7
 WF_DIFF_JAX, WF_DIFF_TOL = 16.87, 3.4
 WF_PARETO_K_MAX = 0.7         # PSIS-LOO's reliability threshold
 WF_PP_SIGMAS = 5.0            # binomial standard errors
+
+# evidence, approximate inference and durability (phase 18). (a) The
+# flagship posterior split into the normalised N(0, 10^2) prior and the
+# Bernoulli likelihood, thermo_evidence with EvidenceSettings' ladder (16
+# ladders of 24 rungs, 384 rows) and its burn-in and kept draws cut from
+# 1000 + 1000 to 500 + 500 to hold the phase's 90 s (the line prints its
+# margins); gated on its stepping-stone log Z within EV_SIGMAS combined
+# standard errors of the JAX package's on the same data and settings
+# (scripts/jax_evidence_tolerance.py on the CPU: -828.600 +- 0.471, TI
+# -827.035 +- 0.351, per-rung accept >= 0.625, swap >= 0.0707), every
+# rung's acceptance above EV_ACCEPT_MIN and every pair's swap rate above
+# EV_SWAP_MIN (about a third of the JAX package's smallest)
+EV_FLAG = {"chains": 16, "n_temps": 24, "burnin": 500, "keep": 500, "key": 7}
+EV_SS_JAX, EV_SS_SE_JAX = -828.600, 0.471
+EV_SIGMAS, EV_ACCEPT_MIN, EV_SWAP_MIN = 5.0, 0.2, 0.02
+# (b) ADVI (mean-field and full-rank) and SVGD (256 particles) at their
+# defaults: each ELBO at most log Z (SS) + EV_ELBO_SE standard errors of
+# the difference (a lower bound; the ELBO is itself a Monte Carlo estimate,
+# the mean of its last n_steps / 20 steps, whose standard error joins SS's:
+# with SS's alone the full-rank ELBO reads +3.16 on an H100, 0.43 below
+# TI, the SS being biased low at this cut as the JAX
+# package's is: its full-rank ELBO sits 1.07 of SS's standard errors above
+# its SS), and each max |mean - phase 9's hmc reference mean| / its sd under
+# three times the JAX package's own on the same data (same script, against
+# its adapted hmc reference), rounded up to two digits
+EV_ELBO_SE = 3.0
+APPROX_KEYS = {"advi_mean_field": 181, "advi_full_rank": 182, "svgd": 183}
+# (JAX 0.0451, 0.0445 and 0.408: SVGD's 256 particles in 100 dims shrink
+# the cloud, and its mean moves with it)
+APPROX_DEV_MAX = {"advi_mean_field": 0.14, "advi_full_rank": 0.14,
+                  "svgd": 1.3}
+SVGD_PARTICLES = 256
+APPROX_SYNC_STEPS = (20, 40)  # no host sync per step: equal syncs at both
+# (c) examples/evidence_bayes_factor.py's two models (n 60, degrees 1 and 2,
+# known noise variance 0.25, N(0, 2^2) coefficients; its data drawn with
+# numpy here), whose log Z is exact: y ~ N(0, 0.25 I + 4 F F^T).
+# thermo_evidence within EV_SIGMAS of its standard error, nested sampling
+# within NS_SIGMAS of its error bar, the Laplace evidence within
+# LAPLACE_EV_TOL (the posterior is Gaussian)
+# (800 + 800 draws cut to 250 + 250 to hold the phase's 90 s: at 400 + 400
+# the models took 14.1 and 15.0 s on an H100, 1.23 and 1.75 standard errors
+# from the exact log Z, and the phase 83.1 s on a host that ran phases 14-16
+# in 430 s; the line prints its margins)
+EV_POLY = {"chains": 16, "n_temps": 24, "burnin": 250, "keep": 250, "key": 1}
+POLY_N, POLY_SIG2, POLY_PRIOR_VAR = 60, 0.25, 4.0
+NS_LIVE, NS_SIGMAS, NS_KEY = 512, 3.0, 4
+LAPLACE_EV_TOL = 1e-2
+# (d) durability: hmc at 1,024 chains on the flagship posterior, 6
+# leapfrogs, 100 + 500 draws (500 x 1024 x 100 float32: 204.8 MB of draws),
+# checkpointed every 100 under chiprun_out/ (removed after the phase); a
+# subprocess killed with SIGKILL after DUR_KILL_AFTER chunks, resumed here
+DUR = {"chains": 1024, "leap": 6, "step": 0.05, "burnin": 100, "keep": 500,
+       "every": 100, "key": 190}
+DUR_KILL_AFTER = 2
+EV_PHASE_BUDGET_S = 90.0
 
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds below are
 # the largest of operations over the peak of their type and bytes over the
@@ -1951,6 +2040,263 @@ def workflow_phase(X_np, y_np, ref):
     print(f"workflow: phase seconds {time.perf_counter() - t_phase:.1f}")
 
 
+
+_DUR_CHILD = """
+import os, signal, sys
+sys.path.insert(0, os.getcwd())
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+from mcmc_tpu_torch import checkpoint
+sys.path.insert(0, os.path.dirname(sys.argv[2]))
+from chip_smoke import durability_run
+orig, n = checkpoint.DrawSink.append, [0]
+def killing(self, arr):
+    orig(self, arr)
+    n[0] += 1
+    if n[0] >= int(sys.argv[3]):
+        self.flush()
+        os.kill(os.getpid(), signal.SIGKILL)
+checkpoint.DrawSink.append = killing
+durability_run(sys.argv[1])
+"""
+
+
+def durability_run(checkpoint_dir=None):
+    """Phase 18 (d)'s ``hmc`` run on the flagship posterior, from numpy with
+    no ``device=`` (in memory, or checkpointed into ``checkpoint_dir``)."""
+    from mcmc_tpu_torch import HMCSettings, hmc
+    from mcmc_tpu_torch.models import (logistic_regression_model,
+                                       make_logistic_regression_data)
+    X, y, _ = make_logistic_regression_data(0, N_DATA, DIM)
+    s = HMCSettings(n_burnin_draws=DUR["burnin"], n_keep_draws=DUR["keep"],
+                    step_size=DUR["step"], n_leap_steps=DUR["leap"])
+    init = 0.05 * np.random.default_rng(DUR["key"]).standard_normal(
+        (DUR["chains"], DIM)).astype(np.float32)
+    return hmc(init, logistic_regression_model(X, y, PRIOR_SCALE), s,
+               key=DUR["key"], checkpoint_dir=checkpoint_dir,
+               checkpoint_every=DUR["every"])
+
+
+def evidence_phase(X_np, y_np, ref):
+    """Phase 18: evidence, approximate inference and durability, each entry
+    point from numpy with no ``device=``, each step timed by the port's
+    ``PhaseTimer``."""
+    import os
+    import shutil
+    from mcmc_tpu_torch import (AlgoSettings, EvidenceSettings, advi,
+                                map_laplace, nested_sampling, svgd,
+                                thermo_evidence)
+    from mcmc_tpu_torch.convert import glm_data
+    from mcmc_tpu_torch.observability import PhaseTimer
+
+    t_phase = time.perf_counter()
+    timer = PhaseTimer()
+    Xd, yd = glm_data(X_np, y_np)
+    c_prior = 0.5 * DIM * math.log(2 * math.pi * PRIOR_SCALE ** 2)
+    log_prior = lambda b: -0.5 * (b * b).sum(-1) / PRIOR_SCALE ** 2 - c_prior
+
+    def log_lik(b):
+        eta = b @ Xd.T
+        return (yd * eta - torch.nn.functional.softplus(eta)).sum(-1)
+    log_post = lambda b: log_prior(b) + log_lik(b)
+    x0 = np.zeros(DIM, np.float32)
+
+    def ev_settings(cfg):
+        return AlgoSettings(evidence_settings=EvidenceSettings(
+            n_burnin_draws=cfg["burnin"], n_keep_draws=cfg["keep"],
+            n_temps=cfg["n_temps"]))
+
+    # (a) evidence at full width
+    with timer.phase("thermo_evidence", sync=True):
+        ev = thermo_evidence(x0, log_prior, log_lik, ev_settings(EV_FLAG),
+                             n_chains=EV_FLAG["chains"], key=EV_FLAG["key"])
+    with timer.phase("map_laplace", sync=True):
+        lap = map_laplace(x0, log_post, key=EV_FLAG["key"])
+    ss, se = float(ev.log_z), float(ev.log_z_se)
+    z_jax = abs(ss - EV_SS_JAX) / math.hypot(se, EV_SS_SE_JAX)
+    acc_min = float(ev.accept_rate.min())
+    swap_min = float(ev.swap_accept_rate.min())
+    rows = EV_FLAG["chains"] * EV_FLAG["n_temps"]
+    print(f"thermo_evidence (flagship, {EV_FLAG['chains']} ladders x "
+          f"{EV_FLAG['n_temps']} rungs = {rows} rows, {EV_FLAG['burnin']} + "
+          f"{EV_FLAG['keep']} draws, cut from 1000 + 1000): "
+          f"{timer.timings['thermo_evidence']:.3f} s, "
+          f"{1e3 * timer.timings['thermo_evidence'] / (EV_FLAG['burnin'] + EV_FLAG['keep']):.3f}"
+          f" ms a draw; SS {ss:.4f} +- {se:.4f}, TI {float(ev.log_z_ti):.4f} "
+          f"+- {float(ev.log_z_ti_se):.4f}, Laplace {float(lap.log_evidence):.4f}"
+          f" ({timer.timings['map_laplace']:.3f} s); JAX SS {EV_SS_JAX} +- "
+          f"{EV_SS_SE_JAX}: {z_jax:.3f} combined standard errors (tol "
+          f"{EV_SIGMAS:g}, margin {EV_SIGMAS - z_jax:.3f}); per-rung accept "
+          f">= {acc_min:.4f} (tol {EV_ACCEPT_MIN}), swap >= {swap_min:.4f} "
+          f"(tol {EV_SWAP_MIN}); adapted steps {float(ev.step_sizes[0]):.4f}"
+          f"..{float(ev.step_sizes[-1]):.4f}")
+    check(math.isfinite(ss) and math.isfinite(se), "evidence finite")
+    check(z_jax <= EV_SIGMAS, "SS within 5 combined standard errors of JAX's")
+    check(acc_min > EV_ACCEPT_MIN, "every rung accepts above 0.2")
+    check(swap_min > EV_SWAP_MIN, f"every pair swaps above {EV_SWAP_MIN}")
+
+    # (b) ADVI and SVGD on the same posterior, and their host syncs
+    approx = {}
+    for name in APPROX_KEYS:
+        key = APPROX_KEYS[name]
+        if name == "svgd":
+            run = lambda n=None: svgd(x0, log_post,
+                                      n_particles=SVGD_PARTICLES, key=key,
+                                      **({} if n is None else {"n_steps": n}))
+        else:
+            fr = name == "advi_full_rank"
+            run = lambda n=None, fr=fr: advi(
+                x0, log_post, full_rank=fr, key=key,
+                **({} if n is None else {"n_steps": n}))
+        with timer.phase(name, sync=True):
+            out = run()
+        syncs = [sync_warnings(lambda: run(n))[0] for n in APPROX_SYNC_STEPS]
+        mean = out.particles.mean(0) if name == "svgd" else out.mean
+        dev = float(((mean - ref["mean"]).abs() / ref["sd"]).max())
+        tol = APPROX_DEV_MAX[name]
+        line = {"seconds": timer.timings[name], "max_mean_dev_sd": dev,
+                "tol": tol, "syncs_at_steps": dict(zip(APPROX_SYNC_STEPS,
+                                                       syncs))}
+        if name != "svgd":
+            elbo = float(out.elbo)
+            tail = out.elbo_trace[-out.elbo_trace.shape[0] // 20:]
+            se_elbo = float(tail.std()) / math.sqrt(tail.shape[0])
+            se_diff = math.hypot(se, se_elbo)
+            line.update(elbo=elbo, elbo_se=se_elbo,
+                        elbo_minus_log_z_se=(elbo - ss) / se_diff,
+                        elbo_margin_se=EV_ELBO_SE - (elbo - ss) / se_diff,
+                        elbo_minus_ti=elbo - float(ev.log_z_ti))
+        else:
+            line["bandwidth"] = float(out.bandwidth)
+        print(f"{name}: {json.dumps(line)}")
+        if name != "svgd":
+            check(elbo <= ss + EV_ELBO_SE * se_diff,
+                  f"{name}: ELBO at most log Z + {EV_ELBO_SE:g} SE")
+        check(bool(torch.isfinite(mean).all()), f"{name}: mean finite")
+        check(dev <= tol, f"{name}: mean within {tol} sd of the reference")
+        check(syncs[0] == syncs[1], f"{name}: no host sync per step")
+        approx[name] = line
+
+    # (c) the closed-form models of examples/evidence_bayes_factor.py
+    rng = np.random.default_rng(0)
+    xp = rng.standard_normal(POLY_N)
+    yp = 0.5 + 1.2 * xp + 0.8 * xp ** 2 + 0.5 * rng.standard_normal(POLY_N)
+    xp, yp = xp.astype(np.float32), yp.astype(np.float32)
+    ypt = torch.from_numpy(yp).to(Xd.device)
+    log_zs = {}
+    for name, degree in (("linear", 1), ("quadratic", 2)):
+        F64 = np.stack([xp.astype(np.float64) ** k
+                        for k in range(degree + 1)], 1)
+        cov = POLY_SIG2 * np.eye(POLY_N) + POLY_PRIOR_VAR * F64 @ F64.T
+        y64 = yp.astype(np.float64)
+        exact = float(-0.5 * (POLY_N * math.log(2 * math.pi)
+                              + np.linalg.slogdet(cov)[1]
+                              + y64 @ np.linalg.solve(cov, y64)))
+        F = torch.from_numpy(F64.astype(np.float32)).to(Xd.device)
+        d = degree + 1
+        lp = lambda t: (-0.5 * t * t / POLY_PRIOR_VAR - 0.5 * math.log(
+            2 * math.pi * POLY_PRIOR_VAR)).sum(-1)
+        ll = lambda t, F=F: (-0.5 * (ypt - t @ F.T) ** 2 / POLY_SIG2 - 0.5
+                             * math.log(2 * math.pi * POLY_SIG2)).sum(-1)
+        with timer.phase(f"thermo_{name}", sync=True):
+            r = thermo_evidence(np.zeros(d, np.float32), lp, ll,
+                                ev_settings(EV_POLY),
+                                n_chains=EV_POLY["chains"],
+                                key=EV_POLY["key"])
+        with timer.phase(f"nested_{name}", sync=True):
+            ns = nested_sampling(
+                lambda u: math.sqrt(POLY_PRIOR_VAR) * torch.special.ndtri(u),
+                ll, d, n_live=NS_LIVE, key=NS_KEY)
+        with timer.phase(f"laplace_{name}", sync=True):
+            la = map_laplace(np.zeros(d, np.float32),
+                             lambda t, ll=ll: lp(t) + ll(t), n_steps=600,
+                             learning_rate=0.1, key=EV_POLY["key"])
+        ss_p, se_p = float(r.log_z), float(r.log_z_se)
+        ns_z, ns_err = float(ns.log_z), float(ns.log_z_err)
+        la_z = float(la.log_evidence)
+        log_zs[name] = ss_p
+        print(f"{name} model (exact log Z {exact:.4f}): thermo SS {ss_p:.4f} "
+              f"+- {se_p:.4f} ({EV_POLY['burnin']} + {EV_POLY['keep']} draws, "
+              f"cut from 800 + 800; {abs(ss_p - exact) / se_p:.3f} SE, tol "
+              f"{EV_SIGMAS:g}, margin {EV_SIGMAS - abs(ss_p - exact) / se_p:.3f}"
+              f"; {timer.timings[f'thermo_{name}']:.3f} s), TI "
+              f"{float(r.log_z_ti):.4f}; nested {ns_z:.4f} +- {ns_err:.4f} "
+              f"({abs(ns_z - exact) / ns_err:.3f} error bars, tol "
+              f"{NS_SIGMAS:g}; {ns.n_rounds} rounds, "
+              f"{ns.host_syncs / ns.n_rounds:.3f} host syncs a round, "
+              f"{timer.timings[f'nested_{name}']:.3f} s); Laplace "
+              f"{la_z:.5f} (|error| {abs(la_z - exact):.2e}, tol "
+              f"{LAPLACE_EV_TOL:g}; {timer.timings[f'laplace_{name}']:.3f} s)")
+        check(abs(ss_p - exact) <= EV_SIGMAS * se_p,
+              f"{name}: thermo_evidence within 5 SE of the exact log Z")
+        check(ns.converged and abs(ns_z - exact) <= NS_SIGMAS * ns_err,
+              f"{name}: nested sampling within 3 error bars")
+        check(abs(la_z - exact) <= LAPLACE_EV_TOL,
+              f"{name}: the Laplace evidence within {LAPLACE_EV_TOL:g}")
+    log_bf = log_zs["quadratic"] - log_zs["linear"]
+    print(f"log Bayes factor, quadratic over linear: {log_bf:.4f}")
+    check(log_bf > 0, "the Bayes factor favours the quadratic model")
+
+    # (d) durability on the card
+    root = os.path.join("chiprun_out", "phase18_checkpoint")
+    shutil.rmtree(root, ignore_errors=True)
+    with timer.phase("hmc_in_memory", sync=True):
+        plain = durability_run()
+    with timer.phase("hmc_checkpointed", sync=True):
+        ck = durability_run(os.path.join(root, "a"))
+    n_bytes = plain.draws.numel() * plain.draws.element_size()
+    same = torch.equal(ck.draws, plain.draws.cpu())
+    # the accept counts (the rates divide on the card by a reciprocal)
+    same_rate = torch.equal(ck.n_accept_draws,
+                            plain.n_accept_draws.cpu())
+    from mcmc_tpu_torch.checkpoint import DrawSink
+    with DrawSink(os.path.join(root, "probe.bin"), (1,)) as probe:
+        native = probe.native
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", _DUR_CHILD, os.path.join(root, "b"),
+         os.path.abspath(__file__), str(DUR_KILL_AFTER)],
+        capture_output=True, text=True, timeout=300)
+    t_child = time.perf_counter() - t0
+    with timer.phase("hmc_resumed", sync=True):
+        resumed = durability_run(os.path.join(root, "b"))
+    same_resumed = torch.equal(resumed.draws, plain.draws.cpu())
+    # pinned device-to-host bandwidth, in this process
+    src = plain.draws.reshape(-1)
+    dst = torch.empty(src.shape, dtype=src.dtype, pin_memory=src.is_cuda)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    bw = n_bytes / sorted(times)[1]
+    t_c, t_k = timer.timings["hmc_in_memory"], timer.timings["hmc_checkpointed"]
+    tax = max(t_c, n_bytes / bw) / t_k
+    print(f"durability: hmc {DUR['chains']} chains, {DUR['burnin']} + "
+          f"{DUR['keep']} draws of {DUR['leap']} leapfrogs, "
+          f"{n_bytes / 1e6:.1f} MB of draws, checkpoint every {DUR['every']}"
+          f": in memory {t_c:.3f} s, checkpointed {t_k:.3f} s, bit-equal "
+          f"{same} (accept counts {same_rate}); the sink native {native}; child "
+          f"killed with SIGKILL after {DUR_KILL_AFTER} chunks (exit "
+          f"{child.returncode}, {t_child:.3f} s), resumed here in "
+          f"{timer.timings['hmc_resumed']:.3f} s, bit-equal {same_resumed}; "
+          f"pinned D2H {bw / 1e9:.2f} GB/s; durability tax max(t_compute, "
+          f"bytes / D2H) / t_checkpointed = {tax:.4f}")
+    shutil.rmtree(root, ignore_errors=True)
+    check(same and same_rate, "checkpointed hmc bit-equal to in-memory")
+    check(native, "the draw sink is native")
+    check(child.returncode == -signal.SIGKILL,
+          f"the child was killed ({child.returncode}): {child.stderr[-600:]}")
+    check(same_resumed, "the SIGKILLed run resumed bit-equal")
+    seconds = time.perf_counter() - t_phase
+    print(f"evidence and durability: phase seconds {seconds:.1f} (budget "
+          f"{EV_PHASE_BUDGET_S:g}); PhaseTimer {json.dumps(timer.timings)}")
+    return approx
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2277,6 +2623,9 @@ def main():
     # --- the one-call workflow on the flagship posterior
     workflow_phase(X_np, y_np, ref)
 
+    # --- evidence, approximate inference and durability
+    evidence_phase(X_np, y_np, ref)
+
     # --- where the time of a steady transition goes (printed, not gated)
     t_profile = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(30)
@@ -2310,6 +2659,21 @@ def main():
         ("GLM transition", glm_step, gen, glm_step.init(0.05 * torch.randn(
             (N_CHAINS, DIM), generator=gen, device=dev)),
          PROFILE_WARM, PROFILE_STEPS)])
+    # one profiled fused step as a Chrome trace, through the port's own
+    # capture (the profiler has run already in this phase)
+    from mcmc_tpu_torch.observability import capture_trace, trace
+    z0 = glm_step.init(0.05 * torch.randn((N_CHAINS, DIM), generator=gen,
+                                          device=dev))
+    with capture_trace("chiprun_out") as cap:
+        with trace("fused_glm_step"):
+            glm_step(gen, z0)
+        torch.cuda.synchronize()
+    trace_bytes = cap.path.stat().st_size
+    with open(cap.path) as f:
+        n_events = len(json.load(f)["traceEvents"])
+    print(f"capture_trace: {cap.path} ({trace_bytes} bytes, {n_events} "
+          f"events) of one profiled fused GLM step")
+    check(trace_bytes > 0 and n_events > 0, "the Chrome trace is not empty")
     print(f"profiles: phase seconds {time.perf_counter() - t_profile:.1f}")
 
     # bounds from the model's own sizes (the work the function needs); the

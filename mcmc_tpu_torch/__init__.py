@@ -33,13 +33,23 @@ flagship posterior. And the one-call workflow: ``fit`` and ``sample``
 ``pathfinder``), the posterior predictive (``generated_quantities``,
 ``posterior_predictive``), model comparison (``pointwise_log_lik``,
 ``waic``, ``psis_loo``, ``compare``) and simulation-based calibration
-(``sbc``).
+(``sbc``). And the rest of the inference layer: power-posterior evidence
+(``thermo_evidence``), nested sampling (``nested_sampling``), ADVI
+(``advi``) and SVGD (``svgd``), the ``observability`` timers and profiler
+capture, and durability: ``checkpoint_dir=`` on every sampler entry point
+and on ``fit`` (``checkpoint``'s chunked runner, ``runtime``'s native draw
+sink, built with ``g++`` at first use).
 
 Two more API differences: SGLD's and SGHMC's likelihood is batched,
 ``log_lik(theta: (n_chains, d), batch) -> (n_chains,)`` with every leaf of
 ``batch`` shaped ``(n_chains, B, ...)``; a Gibbs block's exact conditional
 is ``fn(gen, full: (n_chains, d)) -> (n_chains, d_b)``, drawing from the
-run's ``torch.Generator``. In the workflow, a pytree log-kernel gets leaves
+run's ``torch.Generator``. Nested sampling's ``prior_transform`` and
+``log_lik`` are batched, ``(B, d) -> (B, d)`` and ``(B, d) -> (B,)``; a
+checkpointed run draws from one generator whose state the checkpoint
+holds, where the JAX package splits per-chain keys, and its draw sink never
+falls back quietly to Python (``DrawSink(..., native=False)`` asks for
+that writer). In the workflow, a pytree log-kernel gets leaves
 with a leading chain axis, ``log_lik_fn`` and a predictive function are
 batched over draws (``(B, d) -> (B, ...)``), ``map_laplace``'s
 ``optimizer=`` is a PyTorch optimizer factory, and callbacks that draw
@@ -113,8 +123,13 @@ from mcmc_tpu_torch.pytree import ravel_model, unravel_draws, bounds_like
 from mcmc_tpu_torch.predictive import (generated_quantities,
                                        posterior_predictive)
 from mcmc_tpu_torch.sbc import sbc
+from mcmc_tpu_torch.evidence import thermo_evidence, EvidenceResult
+from mcmc_tpu_torch.nested import nested_sampling, NestedResult
+from mcmc_tpu_torch.advi import advi, ADVIResult
+from mcmc_tpu_torch.svgd import svgd, SVGDResult
 from mcmc_tpu_torch.umbrella import sample, fit
-from mcmc_tpu_torch import bounds, diagnostics, models, stats
+from mcmc_tpu_torch import (bounds, checkpoint, diagnostics, models,
+                            observability, runtime, stats)
 
 __all__ = [
     "AlgoSettings", "RWMHSettings", "MALASettings", "HMCSettings",
@@ -134,5 +149,8 @@ __all__ = [
     "pointwise_log_lik", "waic", "psis_loo", "compare",
     "ravel_model", "unravel_draws", "bounds_like",
     "generated_quantities", "posterior_predictive", "sbc",
-    "bounds", "diagnostics", "models", "stats",
+    "thermo_evidence", "EvidenceResult", "nested_sampling", "NestedResult",
+    "advi", "ADVIResult", "svgd", "SVGDResult",
+    "bounds", "checkpoint", "diagnostics", "models", "observability",
+    "runtime", "stats",
 ]

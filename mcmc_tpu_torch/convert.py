@@ -12,7 +12,10 @@ import numpy as np
 import torch
 
 from mcmc_tpu_torch import adaptation
+from mcmc_tpu_torch._optim import AdamState
+from mcmc_tpu_torch.evidence import _EvState
 from mcmc_tpu_torch.laplace import LaplaceResult
+from mcmc_tpu_torch.nested import _NSState
 from mcmc_tpu_torch.ops.fused_logreg import FusedHMCState
 from mcmc_tpu_torch.pathfinder import PathfinderResult
 from mcmc_tpu_torch.samplers._resolve import resolve_device
@@ -42,7 +45,8 @@ __all__ = ["to_tensor", "glm_data", "gaussian_target", "fused_state",
            "de_state", "pt_state", "aees_state", "smc_state",
            "stretch_state", "demcz_state", "barker_state", "mmala_state",
            "slice_state", "elliptical_state", "sgld_state", "sghmc_state",
-           "gibbs_state", "laplace_result", "pathfinder_result"]
+           "gibbs_state", "laplace_result", "pathfinder_result",
+           "evidence_state", "nested_state", "advi_phi", "adam_state"]
 
 
 def to_tensor(a, device=None, dtype=None):
@@ -344,3 +348,49 @@ def pathfinder_result(res, device=None) -> PathfinderResult:
         best_iter=to_tensor(res.best_iter, device, torch.int64),
         n_lbfgs_iters=to_tensor(res.n_lbfgs_iters, device, torch.int64),
         _draws_z=to_tensor(res._draws_z, device), **_box_fields(res, device))
+
+
+def evidence_state(state, device=None) -> _EvState:
+    """The evidence ladder's ``_EvState`` from the JAX package's
+    chain-batched one (``X`` ``(c, K, d)``, ``ll`` and ``lp`` ``(c, K)``,
+    the dual averaging over ``(c, K)``; the draw counter, equal across
+    chains, as a host integer)."""
+    return _EvState(
+        X=to_tensor(state.X, device), ll=to_tensor(state.ll, device),
+        lp=to_tensor(state.lp, device),
+        da=adaptation.DualAveraging(*[to_tensor(v, device)
+                                      for v in state.da]),
+        draw_ind=_host_counter(state.draw_ind, "draw_ind"))
+
+
+def nested_state(loop_state, device=None) -> _NSState:
+    """The nested sampler's round state from the JAX package's
+    ``lax.while_loop`` carry ``(live_u, live_L, logX, logZ, h, r, done,
+    key, scale, dead_u, dead_L, dead_logw, acc)``: the live set, its
+    scalars and the dead-point buffers (the key dropped; the round count
+    as a host integer)."""
+    (live_u, live_L, logX, logZ, h, r, _done, _key, scale, dead_u, dead_L,
+     dead_logw, acc) = loop_state
+    t = lambda v: to_tensor(v, device)
+    return _NSState(live_u=t(live_u), live_L=t(live_L), logX=t(logX),
+                    logZ=t(logZ), h=t(h), scale=t(scale), acc=t(acc),
+                    rounds=_host_counter(r, "r"), dead_u=t(dead_u),
+                    dead_L=t(dead_L), dead_logw=t(dead_logw))
+
+
+def advi_phi(phi, device=None) -> dict:
+    """ADVI's variational parameters ``{"mu", "log_diag"[, "off"]}`` (the
+    strict lower triangle ``off`` in ``jnp.tril_indices(d, k=-1)``'s
+    row-major order, which ``torch.tril_indices(d, d, -1)`` shares)."""
+    return {k: to_tensor(v, device) for k, v in phi.items()}
+
+
+def adam_state(opt_state, device=None) -> AdamState:
+    """The written-out Adam's state from ``optax.adam``'s (its
+    ``ScaleByAdamState`` first: ``count``, ``mu``, ``nu``, each moment an
+    array or a dict of arrays)."""
+    adam = opt_state[0]
+    conv = lambda m: {k: to_tensor(v, device) for k, v in m.items()} \
+        if isinstance(m, dict) else to_tensor(m, device)
+    return AdamState(mu=conv(adam.mu), nu=conv(adam.nu),
+                     count=int(np.asarray(adam.count)))

@@ -37,10 +37,10 @@ import dataclasses
 import math
 from typing import Any
 
-import numpy as np
 import torch
 
 from mcmc_tpu_torch import bounds as bounds_mod
+from mcmc_tpu_torch._optim import adam_direction
 from mcmc_tpu_torch.integrators import grad_of, value_and_grad_of
 from mcmc_tpu_torch.pytree import coerce_model
 from mcmc_tpu_torch.samplers import common
@@ -48,9 +48,6 @@ from mcmc_tpu_torch.samplers._resolve import resolve_key
 from mcmc_tpu_torch.settings import AlgoSettings
 
 __all__ = ["map_laplace", "LaplaceResult"]
-
-_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
-
 
 def _generator(key, device):
     """A ``torch.Generator`` on ``device`` from a seed or a generator."""
@@ -127,12 +124,6 @@ class LaplaceResult:
                 self._to_user(self.mode_z + scale * sd))
 
 
-def _bias_correction(decay, t):
-    """``1 - decay**t`` in float32, as optax computes it (a host number:
-    no device tensor a step)."""
-    return float(np.float32(1.0) - np.float32(decay) ** np.float32(t))
-
-
 def _adam_search(neg, z0, n_steps, learning_rate):
     """Batched Adam on ``neg`` (``(R, d) -> (R,)``) from ``z0``, tracking
     each row's best finite iterate; returns the last iterate, ``best_z``
@@ -151,10 +142,7 @@ def _adam_search(neg, z0, n_steps, learning_rate):
         best_z = common.where_chains(better, z, best_z)
         best_f = torch.where(better, f, best_f)
         g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-        mu = (1 - _ADAM_B1) * g + _ADAM_B1 * mu
-        nu = (1 - _ADAM_B2) * (g * g) + _ADAM_B2 * nu
-        upd = (mu / _bias_correction(_ADAM_B1, t)) \
-            / (torch.sqrt(nu / _bias_correction(_ADAM_B2, t)) + _ADAM_EPS)
+        upd, mu, nu = adam_direction(g, mu, nu, t)
         z = z + (-learning_rate) * upd
     return z, best_z, best_f
 

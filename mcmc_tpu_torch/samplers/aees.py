@@ -504,10 +504,11 @@ def aees(initial_vals, log_kernel, settings=None, *, key=None, n_runs=None,
     the cold chain moved (the reference's AEES tracks no acceptance).
 
     ``key`` is a ``torch.Generator`` or an integer seed; ``device`` defaults
-    to that of ``initial_vals``, else the card. ``mesh`` and
-    ``checkpoint_dir`` are not ported yet and raise."""
+    to that of ``initial_vals``, else the card. ``mesh`` is not ported yet and
+    raises; ``checkpoint_dir`` runs in restartable chunks
+    (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "aees_settings", AEESSettings)
-    common._no_mesh_or_checkpoint(mesh, checkpoint_dir)
+    common._no_mesh(mesh)
 
     prob = common.setup_problem(initial_vals, log_kernel, algo, None, dtype,
                                 device)
@@ -561,10 +562,15 @@ def aees(initial_vals, log_kernel, settings=None, *, key=None, n_runs=None,
 
     _, draws, infos = common.run_sampler_loop(
         gen, state0, step, K * block, s.n_keep_draws,
-        collect_fn=lambda st: st.X[:, K - 1])
+        collect_fn=lambda st: st.X[:, K - 1], checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every)
     draws = common.finalize_draws(draws, prob)            # (n_keep, R, d)
-    att = infos["ee_attempt"].sum(dim=(0, 1))             # (K,)
-    acc = infos["ee_accept"].sum(dim=(0, 1))
+    if "totals" in infos:     # checkpointed run: per-run totals (R, K)
+        att = torch.as_tensor(infos["totals"]["ee_attempt"]).sum(dim=0)
+        acc = torch.as_tensor(infos["totals"]["ee_accept"]).sum(dim=0)
+    else:
+        att = infos["ee_attempt"].sum(dim=(0, 1))         # (K,)
+        acc = infos["ee_accept"].sum(dim=(0, 1))
     # rung 0 never jumps; rate over KEPT draws (reference counting
     # convention, src/rwmh.cpp:140-142). The reference's AEES tracks no
     # acceptance; report the cold chain's kept-draw move count

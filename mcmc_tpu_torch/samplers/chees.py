@@ -299,8 +299,9 @@ def chees(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
     settings' ``rng_seed_value``); ``device`` defaults to that of
     ``initial_vals``, else the card. ``return_resume=True`` attaches
     ``diagnostics["resume"](key, n_keep)``, a warm continuation from the
-    final kernel state. ``mesh`` and ``checkpoint_dir`` are not ported yet
-    and raise."""
+    final kernel state. ``mesh`` is not ported yet and raises;
+    ``checkpoint_dir`` runs in restartable chunks
+    (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "chees_settings", ChEESSettings)
     if return_resume and checkpoint_dir is not None:
         raise ValueError("return_resume is incompatible with checkpoint_dir")
@@ -333,14 +334,25 @@ def chees(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
 
         n_accept = common.tally_accepts(infos)
         draws = common.finalize_draws(draws, prob)
-        diagnostics = {
-            "accept_stat": infos["accept_stat"],
-            "n_leap": infos["n_leap"],
-            "trajectory_length": infos["trajectory_length"],
-            "step_size": infos["step_size"],
-            "adapted_step_size": torch.exp(final_state.da.log_eps_bar),
-            "adapted_trajectory_length": torch.exp(final_state.log_T),
-        }
+        if "accepted" in infos:
+            diagnostics = {
+                "accept_stat": infos["accept_stat"],
+                "n_leap": infos["n_leap"],
+                "trajectory_length": infos["trajectory_length"],
+                "step_size": infos["step_size"],
+            }
+        else:
+            # checkpointed run: the per-chain totals as means
+            totals = infos["totals"]
+            diagnostics = {
+                "mean_accept_stat": torch.as_tensor(totals["accept_stat"])
+                / n_keep,
+                "mean_n_leap": torch.as_tensor(totals["n_leap"]) / n_keep,
+            }
+        diagnostics["adapted_step_size"] = torch.exp(
+            final_state.da.log_eps_bar)
+        diagnostics["adapted_trajectory_length"] = torch.exp(
+            final_state.log_T)
         if prob.squeeze:
             draws = draws[:, 0, :]
             n_accept = n_accept[0]

@@ -133,9 +133,10 @@ def de(initial_vals, log_kernel, settings=None, *, key=None, mesh=None,
     kept-phase generations, and the every-10th-generation jump cadence
     counts generations, not rows. ``key`` is a ``torch.Generator`` or an
     integer seed; ``device`` defaults to that of ``initial_vals``, else the
-    card. ``mesh`` and ``checkpoint_dir`` are not ported yet and raise."""
+    card. ``mesh`` is not ported yet and raises; ``checkpoint_dir`` runs in
+    restartable chunks (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "de_settings", DESettings)
-    common._no_mesh_or_checkpoint(mesh, checkpoint_dir)
+    common._no_mesh(mesh)
 
     prob = common.setup_problem(initial_vals, log_kernel, algo, None, dtype,
                                 device)
@@ -161,6 +162,18 @@ def de(initial_vals, log_kernel, settings=None, *, key=None, mesh=None,
 
     sweep = common.thin_step(build_de_sweep(prob.box_log_kernel, s, n_vals),
                              thin)
+    if checkpoint_dir is not None:
+        # restartable chunked execution: the same sweeps on the same
+        # generator as the in-memory path below, bit for bit
+        _, draws, totals = common.run_checkpointed(
+            gen, state0, sweep, s.n_burnin_draws, s.n_keep_draws,
+            lambda st: st.X, checkpoint_dir, checkpoint_every)
+        per_walker = torch.as_tensor(totals["accepted"])
+        return SamplerResult(
+            draws=common.finalize_draws(draws, prob),
+            n_accept_draws=per_walker.sum(),
+            diagnostics=common.population_accept_diag_totals(
+                per_walker, s.n_keep_draws, thin))
     _, (draws, accepted) = common.make_population_runner(sweep)(
         state0, gen, s.n_burnin_draws, s.n_keep_draws)
     n_accept = accepted.to(torch.int64).sum()

@@ -204,8 +204,9 @@ def demcz(initial_vals, log_kernel, settings=None, *, key=None, n_runs=None,
     archive (the default capacity is sized for this run, so a continuation
     that appends past it overwrites the oldest entries). ``key`` is a
     ``torch.Generator`` or an integer seed; ``device`` defaults to that of
-    ``initial_vals``, else the card. ``mesh`` and ``checkpoint_dir`` are not
-    ported yet and raise."""
+    ``initial_vals``, else the card. ``mesh`` is not ported yet and raises;
+    ``checkpoint_dir`` runs in restartable chunks
+    (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "demcz_settings", DEMCZSettings)
     if return_resume and checkpoint_dir is not None:
         raise ValueError("return_resume is incompatible with checkpoint_dir")
@@ -213,7 +214,7 @@ def demcz(initial_vals, log_kernel, settings=None, *, key=None, n_runs=None,
         raise ValueError(
             "mesh shards the replica axis — pass n_runs (the population "
             "itself is deliberately tiny and is not sharded)")
-    common._no_mesh_or_checkpoint(mesh, checkpoint_dir)
+    common._no_mesh(mesh)
     if n_runs is not None and int(n_runs) < 1:
         raise ValueError(f"n_runs must be >= 1, got {n_runs}")
 
@@ -281,8 +282,21 @@ def demcz(initial_vals, log_kernel, settings=None, *, key=None, n_runs=None,
     state0 = DEMCZState(X=X0, kernel_vals=kv0, Z=Z0, m_total=n_init,
                         gen_ind=0)
 
-    run = common.make_population_runner(common.thin_step(
-        build_demcz_sweep(prob.box_log_kernel, s, n_vals, capacity), thin))
+    sweep = common.thin_step(build_demcz_sweep(prob.box_log_kernel, s,
+                                               n_vals, capacity), thin)
+    if checkpoint_dir is not None:
+        _, draws, totals = common.run_checkpointed(
+            gen, state0, sweep, s.n_burnin_draws, s.n_keep_draws,
+            lambda st: st.X, checkpoint_dir, checkpoint_every)
+        # (n_keep, R, n_pop, .) -> (n_keep, R * n_pop, .)
+        draws = draws.reshape(draws.shape[0], R * n_pop, n_vals)
+        per_walker = torch.as_tensor(totals["accepted"]).reshape(R * n_pop)
+        return SamplerResult(
+            draws=common.finalize_draws(draws, prob),
+            n_accept_draws=per_walker.sum(),
+            diagnostics=common.population_accept_diag_totals(
+                per_walker, s.n_keep_draws, thin))
+    run = common.make_population_runner(sweep)
 
     def assemble(key, state0, n_burnin, n_keep):
         final_state, (draws, accepted) = run(

@@ -143,8 +143,9 @@ def elliptical_slice(initial_vals, log_lik, settings=None, *,
     ``diagnostics["mean_shrink_steps"]`` reports the likelihood evaluations
     per draw. Box constraints (``vals_bound``) are rejected. ``key`` is a
     ``torch.Generator`` or an integer seed; ``device`` defaults to that of
-    ``initial_vals``, else the card. ``mesh`` and ``checkpoint_dir`` are not
-    ported yet and raise."""
+    ``initial_vals``, else the card. ``mesh`` is not ported yet and raises;
+    ``checkpoint_dir`` runs in restartable chunks
+    (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "elliptical_settings",
                                EllipticalSettings)
     if return_resume and checkpoint_dir is not None:
@@ -178,8 +179,12 @@ def elliptical_slice(initial_vals, log_lik, settings=None, *,
             checkpoint_dir=checkpoint_dir,
             checkpoint_every=checkpoint_every, thin=thin)
         n_accept = common.tally_accepts(infos)
-        diagnostics = {"mean_shrink_steps":
-                       infos["shrink_steps"].to(prob.dtype).mean(dim=0)}
+        if "shrink_steps" in infos:
+            shrink = infos["shrink_steps"].to(prob.dtype).mean(dim=0)
+        else:       # checkpointed run: the per-chain totals
+            shrink = torch.as_tensor(infos["totals"]["shrink_steps"]).to(
+                prob.dtype) / n_keep
+        diagnostics = {"mean_shrink_steps": shrink}
         if prob.squeeze:
             draws = draws[:, 0, :]
             n_accept = n_accept[0]

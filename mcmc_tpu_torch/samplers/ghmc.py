@@ -155,8 +155,9 @@ def ghmc(initial_vals, log_kernel, settings=None, *, n_chains=None,
     ``log_kernel`` is batched: ``(n_chains, n_vals) -> (n_chains,)``.
     ``key`` is a ``torch.Generator`` or an integer seed (``None``: the
     settings' ``rng_seed_value``); ``device`` defaults to that of
-    ``initial_vals``, else the card. ``mesh`` and ``checkpoint_dir`` are not
-    ported yet and raise.
+    ``initial_vals``, else the card. ``mesh`` is not ported yet and raises;
+    ``checkpoint_dir`` runs in restartable chunks
+    (:mod:`mcmc_tpu_torch.checkpoint`).
     """
     algo, s = resolve_settings(settings, "ghmc_settings", GHMCSettings)
     if return_resume and checkpoint_dir is not None:
@@ -200,8 +201,9 @@ def ghmc(initial_vals, log_kernel, settings=None, *, n_chains=None,
         )
         n_accept = common.tally_accepts(infos)
         draws = common.finalize_draws(draws, prob)
-        diagnostics = {"momentum_persistence": alpha,
-                       "energy_error": infos["energy_error"]}
+        diagnostics = {"momentum_persistence": alpha}
+        if "energy_error" in infos:
+            diagnostics["energy_error"] = infos["energy_error"]
         if adapt_step_size:
             diagnostics["adapted_step_size"] = torch.exp(
                 final_state.da.log_eps_bar)

@@ -256,8 +256,9 @@ def gibbs(initial_vals, log_kernel, settings=None, *, blocks,
     acceptance (exact blocks 1.0; slice blocks the share of sweeps where
     every coordinate found its slice point). ``key`` is a
     ``torch.Generator`` or an integer seed; ``device`` defaults to that of
-    ``initial_vals``, else the card. ``mesh`` and ``checkpoint_dir`` are not
-    ported yet and raise."""
+    ``initial_vals``, else the card. ``mesh`` is not ported yet and raises;
+    ``checkpoint_dir`` runs in restartable chunks
+    (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "gibbs_settings", GibbsSettings)
     if return_resume and checkpoint_dir is not None:
         raise ValueError("return_resume is incompatible with checkpoint_dir")
@@ -279,10 +280,13 @@ def gibbs(initial_vals, log_kernel, settings=None, *, blocks,
             checkpoint_every=checkpoint_every, thin=thin)
         n_accept = common.tally_accepts(infos)
         draws = common.finalize_draws(draws, prob)
-        diagnostics = {"block_methods": methods,
-                       "block_accept_rate":
-                       infos["block_accepted"].to(torch.float32).mean(dim=0)
-                       / int(thin)}
+        if "block_accepted" in infos:
+            rate = infos["block_accepted"].to(torch.float32).mean(dim=0) \
+                / int(thin)
+        else:       # checkpointed run: the per-chain totals
+            rate = torch.as_tensor(infos["totals"]["block_accepted"]).to(
+                torch.float32) / (n_keep * int(thin))
+        diagnostics = {"block_methods": methods, "block_accept_rate": rate}
         if prob.squeeze:
             draws = draws[:, 0, :]
             n_accept = n_accept[0]

@@ -210,8 +210,9 @@ def hmc(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
     0.8 acceptance during burn-in; ``adapt_mass_matrix=True`` (or ``"diag"``
     / ``"dense"``) adds windowed mass-matrix adaptation.
     ``return_resume=True`` attaches ``diagnostics["resume"](key, n_keep)``,
-    a warm continuation from the final kernel state. ``mesh`` and
-    ``checkpoint_dir`` are not ported yet and raise."""
+    a warm continuation from the final kernel state. ``mesh`` is not ported yet
+    and raises; ``checkpoint_dir`` runs in restartable chunks
+    (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "hmc_settings", HMCSettings)
     if return_resume and checkpoint_dir is not None:
         raise ValueError("return_resume is incompatible with checkpoint_dir")
@@ -258,7 +259,9 @@ def hmc(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
 
         n_accept = common.tally_accepts(infos)
         draws = common.finalize_draws(draws, prob)
-        diagnostics = {"energy_error": infos["energy_error"]}
+        diagnostics = {}
+        if "energy_error" in infos:
+            diagnostics["energy_error"] = infos["energy_error"]
         if adapt_step_size:
             diagnostics["adapted_step_size"] = torch.exp(
                 final_state.da.log_eps_bar)

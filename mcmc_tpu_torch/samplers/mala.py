@@ -280,8 +280,8 @@ def mala(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
     ``"dense"`` is unbounded-only. ``return_resume=True`` attaches
     ``diagnostics["resume"](key, n_keep)``. ``key`` is a ``torch.Generator``
     or an integer seed; ``device`` defaults to that of ``initial_vals``,
-    else the card. ``mesh`` and ``checkpoint_dir`` are not ported yet and
-    raise."""
+    else the card. ``mesh`` is not ported yet and raises; ``checkpoint_dir``
+    runs in restartable chunks (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "mala_settings", MALASettings)
     if bounded_grad not in ("reference", "exact"):
         raise ValueError(f"bounded_grad must be 'reference' or 'exact', "

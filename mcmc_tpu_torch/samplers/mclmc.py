@@ -463,7 +463,7 @@ def _run_common(prob, init, step, L0, eps0, gen, algo, s, mesh,
         )
         n_accept = common.tally_accepts(infos)
         draws = common.finalize_draws(draws, prob)
-        diagnostics = extra_diags(final_state, infos)
+        diagnostics = extra_diags(infos, n_keep)
         diagnostics["adapted_step_size"] = torch.exp(
             final_state.da.log_eps_bar[0])
         diagnostics["adapted_L"] = torch.exp(final_state.log_L[0])
@@ -507,8 +507,9 @@ def mclmc(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
     chain 0; pooled, every chain holds them); ``accepted`` counts *finite*
     steps. ``log_kernel`` is batched: ``(n_chains, n_vals) -> (n_chains,)``;
     ``key`` a ``torch.Generator`` or an integer seed; ``device`` defaults to
-    that of ``initial_vals``, else the card. ``mesh`` and ``checkpoint_dir``
-    are not ported yet and raise.
+    that of ``initial_vals``, else the card. ``mesh`` is not ported yet and
+    raises; ``checkpoint_dir`` runs in restartable chunks
+    (:mod:`mcmc_tpu_torch.checkpoint`).
     """
     algo, s = resolve_settings(settings, "mclmc_settings", MCLMCSettings)
     if return_resume and checkpoint_dir is not None:
@@ -521,9 +522,13 @@ def mclmc(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
     init, step = build_mclmc_kernel(prob.box_log_kernel, s, s.n_burnin_draws,
                                     adapt_mass)
 
-    def extra_diags(final_state, infos):
-        return {"energy_change": infos["energy_change"],
-                "step_size": infos["step_size"], "L": infos["L"]}
+    def extra_diags(infos, n_keep):
+        if "energy_change" in infos:
+            return {"energy_change": infos["energy_change"],
+                    "step_size": infos["step_size"], "L": infos["L"]}
+        totals = infos["totals"]      # checkpointed run
+        return {"mean_energy_change":
+                torch.as_tensor(totals["energy_change"]) / n_keep}
 
     return _run_common(prob, init, step, L0, eps0, gen, algo, s, mesh,
                        checkpoint_dir, checkpoint_every, thin, return_resume,
@@ -551,10 +556,16 @@ def mams(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
     init, step = build_mams_kernel(prob.box_log_kernel, s, s.n_burnin_draws,
                                    adapt_mass)
 
-    def extra_diags(final_state, infos):
-        return {"accept_stat": infos["accept_stat"],
-                "n_leap": infos["n_leap"], "step_size": infos["step_size"],
-                "trajectory_length": infos["trajectory_length"]}
+    def extra_diags(infos, n_keep):
+        if "accept_stat" in infos:
+            return {"accept_stat": infos["accept_stat"],
+                    "n_leap": infos["n_leap"],
+                    "step_size": infos["step_size"],
+                    "trajectory_length": infos["trajectory_length"]}
+        totals = infos["totals"]      # checkpointed run
+        return {"mean_accept_stat":
+                torch.as_tensor(totals["accept_stat"]) / n_keep,
+                "mean_n_leap": torch.as_tensor(totals["n_leap"]) / n_keep}
 
     return _run_common(prob, init, step, L0, eps0, gen, algo, s, mesh,
                        checkpoint_dir, checkpoint_every, thin, return_resume,

@@ -188,8 +188,9 @@ def mmala(initial_vals, log_kernel, metric_fn, settings=None, *,
     each (unconstrained) point. ``adapt_step_size=True`` dual-averages
     toward 0.574 acceptance during burn-in. ``key`` is a
     ``torch.Generator`` or an integer seed; ``device`` defaults to that of
-    ``initial_vals``, else the card. ``mesh`` and ``checkpoint_dir`` are
-    not ported yet and raise."""
+    ``initial_vals``, else the card. ``mesh`` is not ported yet and raises;
+    ``checkpoint_dir`` runs in restartable chunks
+    (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "mmala_settings", MMALASettings)
     if return_resume and checkpoint_dir is not None:
         raise ValueError("return_resume is incompatible with checkpoint_dir")

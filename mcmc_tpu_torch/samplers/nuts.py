@@ -537,8 +537,9 @@ def nuts(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
     ``log_kernel`` is batched: ``(n_chains, n_vals) -> (n_chains,)``.
     ``key`` is a ``torch.Generator`` or an integer seed (``None``: the
     settings' ``rng_seed_value``); ``device`` defaults to that of
-    ``initial_vals``, else the card. ``mesh`` and ``checkpoint_dir`` are not
-    ported yet and raise."""
+    ``initial_vals``, else the card. ``mesh`` is not ported yet and raises;
+    ``checkpoint_dir`` runs in restartable chunks
+    (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "nuts_settings", NUTSSettings)
     if return_resume and checkpoint_dir is not None:
         raise ValueError("return_resume is incompatible with checkpoint_dir")
@@ -612,12 +613,23 @@ def nuts(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
 
         n_accept = common.tally_accepts(infos)
         draws = common.finalize_draws(draws, prob)
-        diagnostics = {
-            "tree_depth": infos["tree_depth"],
-            "n_divergent": infos["diverged"].sum(dim=0),
-            "accept_stat": infos["accept_stat"],
-            "step_size": infos["step_size"],
-        }
+        if "accepted" in infos:
+            diagnostics = {
+                "tree_depth": infos["tree_depth"],
+                "n_divergent": infos["diverged"].sum(dim=0),
+                "accept_stat": infos["accept_stat"],
+                "step_size": infos["step_size"],
+            }
+        else:
+            # checkpointed run: the per-chain totals as counts and means
+            totals = infos["totals"]
+            diagnostics = {
+                "n_divergent": torch.as_tensor(totals["diverged"]),
+                "mean_tree_depth": torch.as_tensor(totals["tree_depth"])
+                / n_keep,
+                "mean_accept_stat": torch.as_tensor(totals["accept_stat"])
+                / n_keep,
+            }
         if adapt_mass_matrix:
             diagnostics["inv_mass_diag"] = final_state.inv_mass
         if adapt_depth:

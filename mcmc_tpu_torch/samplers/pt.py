@@ -311,12 +311,13 @@ def pt(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
     ``resume`` the counts stay cumulative while the denominator restarts).
     ``return_resume=True`` attaches ``diagnostics["resume"](key, n_keep)``.
     ``key`` is a ``torch.Generator`` or an integer seed; ``device``
-    defaults to that of ``initial_vals``, else the card. ``mesh`` and
-    ``checkpoint_dir`` are not ported yet and raise."""
+    defaults to that of ``initial_vals``, else the card. ``mesh`` is not ported
+    yet and raises; ``checkpoint_dir`` runs in restartable chunks
+    (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "pt_settings", PTSettings)
     if return_resume and checkpoint_dir is not None:
         raise ValueError("return_resume is incompatible with checkpoint_dir")
-    common._no_mesh_or_checkpoint(mesh, checkpoint_dir)
+    common._no_mesh(mesh)
 
     prob = common.setup_problem(initial_vals, log_kernel, algo, n_chains,
                                 dtype, device)
@@ -336,13 +337,19 @@ def pt(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
     def assemble(key, state0, n_burnin, n_keep):
         final, draws, infos = common.run_sampler_loop(
             resolve_key(key, algo, prob.device), state0, step, n_burnin,
-            n_keep, collect_fn=lambda st: st.X[:, K - 1], thin=thin)
+            n_keep, collect_fn=lambda st: st.X[:, K - 1],
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            thin=thin)
         draws = common.finalize_draws(draws, prob)
         n_accept = common.tally_accepts(infos)
 
         if K > 1:
-            acc_sum = infos["swap_accepted"].sum(dim=0)
-            att_sum = infos["swap_attempted"].sum(dim=0)
+            if "totals" in infos:
+                acc_sum = torch.as_tensor(infos["totals"]["swap_accepted"])
+                att_sum = torch.as_tensor(infos["totals"]["swap_attempted"])
+            else:
+                acc_sum = infos["swap_accepted"].sum(dim=0)
+                att_sum = infos["swap_attempted"].sum(dim=0)
             swap_rate = acc_sum / torch.clamp_min(att_sum, 1.0)  # (c, K-1)
             if prob.squeeze:
                 swap_rate = swap_rate[0]

@@ -216,8 +216,8 @@ def rwmh(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
     ``diagnostics["resume"](key, n_keep)``. ``key`` is a
     ``torch.Generator`` or an integer seed (``None``: the settings'
     ``rng_seed_value``); ``device`` defaults to that of ``initial_vals``,
-    else the card. ``mesh`` and ``checkpoint_dir`` are not ported yet and
-    raise.
+    else the card. ``mesh`` is not ported yet and raises; ``checkpoint_dir``
+    runs in restartable chunks (:mod:`mcmc_tpu_torch.checkpoint`).
     """
     algo, s = resolve_settings(settings, "rwmh_settings", RWMHSettings)
     if return_resume and checkpoint_dir is not None:

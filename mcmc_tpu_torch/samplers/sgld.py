@@ -236,8 +236,9 @@ def sgld(initial_vals, log_prior, log_lik, data, settings=None, *,
     ``"rmsprop"``) runs pSGLD; incompatible with a fixed ``precond_mat``.
     ``accept_rate`` is the share of finite updates (1.0 is healthy).
     ``key`` is a ``torch.Generator`` or an integer seed; ``device`` defaults
-    to that of ``initial_vals``, else the card. ``mesh`` and
-    ``checkpoint_dir`` are not ported yet and raise."""
+    to that of ``initial_vals``, else the card. ``mesh`` is not ported yet and
+    raises; ``checkpoint_dir`` runs in restartable chunks
+    (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "sgld_settings", SGLDSettings)
     if return_resume and checkpoint_dir is not None:
         raise ValueError("return_resume is incompatible with checkpoint_dir")

@@ -262,8 +262,9 @@ def slice_sampler(initial_vals, log_kernel, settings=None, *, n_chains=None,
     JAX counts them. ``adapt_w=True`` learns per-dimension widths (pooled
     with ``pooled_adaptation``), reported as ``diagnostics["adapted_w"]``.
     ``key`` is a ``torch.Generator`` or an integer seed; ``device``
-    defaults to that of ``initial_vals``, else the card. ``mesh`` and
-    ``checkpoint_dir`` are not ported yet and raise."""
+    defaults to that of ``initial_vals``, else the card. ``mesh`` is not ported
+    yet and raises; ``checkpoint_dir`` runs in restartable chunks
+    (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "slice_settings", SliceSettings)
     if return_resume and checkpoint_dir is not None:
         raise ValueError("return_resume is incompatible with checkpoint_dir")
@@ -297,8 +298,12 @@ def slice_sampler(initial_vals, log_kernel, settings=None, *, n_chains=None,
             checkpoint_every=checkpoint_every, thin=thin)
         n_accept = common.tally_accepts(infos)
         draws = common.finalize_draws(draws, prob)
-        diagnostics = {"mean_kernel_evals":
-                       infos["n_evals"].to(prob.dtype).mean(dim=0)}
+        if "n_evals" in infos:
+            evals = infos["n_evals"].to(prob.dtype).mean(dim=0)
+        else:       # checkpointed run: the per-chain totals
+            evals = torch.as_tensor(infos["totals"]["n_evals"]).to(
+                prob.dtype) / n_keep
+        diagnostics = {"mean_kernel_evals": evals}
         if adapt_w:
             diagnostics["adapted_w"] = \
                 _W_PER_SD * torch.sqrt(final_state.wv.var)

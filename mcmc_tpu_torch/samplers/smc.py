@@ -268,7 +268,7 @@ def smc(initial_vals, log_kernel, settings=None, *, key=None, mesh=None,
     to that of ``initial_vals``, else the card. ``mesh`` is not ported yet
     and raises."""
     algo, s = resolve_settings(settings, "smc_settings", SMCSettings)
-    common._no_mesh_or_checkpoint(mesh, None)
+    common._no_mesh(mesh)
 
     prob = common.setup_problem(initial_vals, log_kernel, algo, None, dtype,
                                 device)

@@ -121,12 +121,13 @@ def stretch(initial_vals, log_kernel, settings=None, *, key=None, mesh=None,
     ``k`` sweeps per stored draw. ``return_resume=True`` attaches
     ``diagnostics["resume"](key, n_keep)``, a warm continuation from the
     final ensemble. ``key`` is a ``torch.Generator`` or an integer seed;
-    ``device`` defaults to that of ``initial_vals``, else the card. ``mesh``
-    and ``checkpoint_dir`` are not ported yet and raise."""
+    ``device`` defaults to that of ``initial_vals``, else the card. ``mesh`` is not ported yet and
+    raises; ``checkpoint_dir`` runs in restartable chunks (``mcmc_tpu_torch.
+    checkpoint``)."""
     algo, s = resolve_settings(settings, "stretch_settings", StretchSettings)
     if return_resume and checkpoint_dir is not None:
         raise ValueError("return_resume is incompatible with checkpoint_dir")
-    common._no_mesh_or_checkpoint(mesh, checkpoint_dir)
+    common._no_mesh(mesh)
 
     prob = common.setup_problem(initial_vals, log_kernel, algo, None, dtype,
                                 device)
@@ -163,8 +164,19 @@ def stretch(initial_vals, log_kernel, settings=None, *, key=None, mesh=None,
         kv0 = torch.where(torch.isfinite(kv0), kv0, -torch.inf)
     state0 = StretchState(X=X0, kernel_vals=kv0)
 
-    run = common.make_population_runner(common.thin_step(
-        build_stretch_sweep(prob.box_log_kernel, s, n_vals), thin))
+    sweep = common.thin_step(build_stretch_sweep(prob.box_log_kernel, s,
+                                                 n_vals), thin)
+    if checkpoint_dir is not None:
+        _, draws, totals = common.run_checkpointed(
+            gen, state0, sweep, s.n_burnin_draws, s.n_keep_draws,
+            lambda st: st.X, checkpoint_dir, checkpoint_every)
+        per_walker = torch.as_tensor(totals["accepted"])
+        return SamplerResult(
+            draws=common.finalize_draws(draws, prob),
+            n_accept_draws=per_walker.sum(),
+            diagnostics=common.population_accept_diag_totals(
+                per_walker, s.n_keep_draws, thin))
+    run = common.make_population_runner(sweep)
 
     def assemble(key, state0, n_burnin, n_keep):
         final_state, (draws, accepted) = run(

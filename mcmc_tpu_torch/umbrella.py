@@ -7,8 +7,8 @@ API differences from the JAX package: log-kernels are batched
 (``(n_chains, d) -> (n_chains,)``; a pytree log-kernel gets leaves with a
 leading chain axis); ``key`` is an integer seed or a ``torch.Generator``;
 ``device=`` as in the samplers (default: the device of ``initial_vals``,
-else the card). ``mesh=`` and ``checkpoint_dir=`` are not ported yet and
-raise before any work is done.
+else the card). ``mesh=`` is not ported yet and raises before any work is
+done; ``checkpoint_dir=`` runs the sampler in restartable chunks.
 """
 
 from __future__ import annotations
@@ -133,10 +133,10 @@ def _fit_ravel(initial_vals, log_kernel, lower_bounds, upper_bounds, device):
     return x0, lk, lower_bounds, upper_bounds, unravel
 
 
-def _validate(algorithm, init, blocks, dense_mass, mesh, checkpoint_dir):
+def _validate(algorithm, init, blocks, dense_mass, mesh):
     """fit's argument checks, all before any work, with the JAX package's
     exception types."""
-    common._no_mesh_or_checkpoint(mesh, checkpoint_dir)
+    common._no_mesh(mesh)
     if init not in (None, "laplace", "pathfinder"):
         raise ValueError(f"fit init must be None, 'laplace', or "
                          f"'pathfinder', got {init!r}")
@@ -206,13 +206,21 @@ def fit(initial_vals, log_kernel, *, n_chains=8, n_warmup=1000, n_draws=1000,
     have run; ``diagnostics["n_rounds"]`` and ``["converged"]`` record the
     outcome. Every fit attaches ``diagnostics["summary"]``.
 
+    ``checkpoint_dir`` streams kept draws to the native draw sink and
+    checkpoints the sampler state and generator so a killed fit resumes
+    bit-identically (:mod:`mcmc_tpu_torch.checkpoint`); with the
+    convergence gates each extension round re-enters the same directory
+    with a larger draw total, and ``out.draws`` is a CPU tensor over the
+    sink's file. NUTS then runs without the static sampling depth (its
+    state changes shape at the recap).
+
     ``key`` is a seed or a ``torch.Generator`` (one seed is drawn from it).
     The search, the initial draw, the run and each extension round draw
     from disjoint generators derived from it, so an extension never
     replays the run's stream; with no ``key``, no init and no gate, the
     sampler seeds itself from its settings as the entry points do.
     """
-    _validate(algorithm, init, blocks, dense_mass, mesh, checkpoint_dir)
+    _validate(algorithm, init, blocks, dense_mass, mesh)
     initial_vals, log_kernel, lower_bounds, upper_bounds, unravel = \
         _fit_ravel(initial_vals, log_kernel, lower_bounds, upper_bounds,
                    device)
@@ -237,13 +245,19 @@ def fit(initial_vals, log_kernel, *, n_chains=8, n_warmup=1000, n_draws=1000,
         pf = pathfinder(initial_vals, log_kernel, _algo({}),
                         key=stream(_SEARCH), n_draws=256, device=device)
         approx, draw_init = pf, lambda n: pf.draw_init(stream(_INIT), n)
-    k_run = None if seed is None else stream(_RUN)
+    ckpt = None if checkpoint_dir is None else str(checkpoint_dir)
     if algorithm in _CHAIN_ALGOS and init is not None:
         initial_vals = draw_init(n_chains)
     mass = "dense" if dense_mass else "diag"
 
     def _run(total_keep, want_resume):
-        kw = dict(key=k_run, thin=thin, return_resume=want_resume,
+        """One sampler invocation with ``total_keep`` kept draws. In
+        checkpointed extension rounds ``total_keep`` grows while the
+        directory stays fixed: the chunked runner resumes the stream, and
+        the run's generator is derived afresh each time, so every round
+        starts from the same state as the first."""
+        kw = dict(key=None if seed is None else stream(_RUN), thin=thin,
+                  return_resume=want_resume, checkpoint_dir=ckpt,
                   device=device)
         grad_kw = dict(bounded_grad="exact")
         if algorithm == "chees":
@@ -264,7 +278,9 @@ def fit(initial_vals, log_kernel, *, n_chains=8, n_warmup=1000, n_draws=1000,
             return nuts(initial_vals, log_kernel, _algo({"nuts_settings": s}),
                         n_chains=n_chains, pooled_adaptation=True,
                         adapt_mass_matrix=mass, adapt_depth=True,
-                        static_sampling_depth=True,
+                        # the recap changes the state's shape between
+                        # warmup and sampling, which a checkpoint cannot
+                        static_sampling_depth=ckpt is None,
                         warmup_tree_depth=(
                             None if warmup_tree_depth is None
                             else min(int(warmup_tree_depth),
@@ -380,6 +396,20 @@ def fit(initial_vals, log_kernel, *, n_chains=8, n_warmup=1000, n_draws=1000,
 
     if not extend:
         out = _run(n_draws, False)
+    elif ckpt is not None:
+        # checkpointed extension: re-enter the same directory with a grown
+        # total — the chunked runner resumes the carried generator and
+        # state, so each round computes only the new draws (bit-identical
+        # to one long run); the gates read the whole sink
+        rounds = 1
+        while True:
+            out = _run(n_draws * rounds, False)
+            ok = _gates_ok(out.draws)
+            if ok or rounds >= max_rounds:
+                break
+            rounds += 1
+        out.diagnostics["n_rounds"] = rounds
+        out.diagnostics["converged"] = ok
     else:
         out = _run(n_draws, True)
         resume = out.diagnostics.pop("resume")

@@ -378,10 +378,11 @@ def test_aees_adapt_ladder_pt():
     assert not np.allclose(temps[:-1], [60.0, 9.0], rtol=0.05)
 
 
-def test_aees_bounded():
+def test_aees_bounded(tmp_path):
     """tests/test_bounded_samplers.py::test_aees_bounded at 4 runs and 100
     + 100 + 800 draws: modes at (1, 1) and (3, 3) in the box [0, 5]^2, every
-    draw back-transformed inside it, both modes visited."""
+    draw back-transformed inside it, both modes visited; the same run with
+    ``checkpoint_dir=`` gives the same draws."""
     mu = np.array([[1.0, 1.0], [3.0, 3.0]], np.float32)
     lk = tmodels.gaussian_mixture_model(mu, np.array([0.2, 0.2]),
                                         np.array([0.5, 0.5]), device="cpu")
@@ -395,6 +396,7 @@ def test_aees_bounded():
     d = out.draws.numpy()
     assert ((d > 0.0) & (d < 5.0)).all()
     assert (d[..., 0] > 2.0).mean() > 0.1 and (d[..., 0] < 2.0).mean() > 0.1
-    with pytest.raises(NotImplementedError, match="A11"):
-        mcmc_tpu_torch.aees(mu[0], lk, algo, checkpoint_dir="x",
-                            device="cpu")
+    ck = mcmc_tpu_torch.aees(mu[0], lk, algo, n_runs=4, device="cpu",
+                             checkpoint_dir=tmp_path / "ck",
+                             checkpoint_every=300)
+    assert torch.equal(ck.draws, out.draws)

@@ -516,10 +516,11 @@ def test_divergent_start_keeps_T_finite():
     assert bool((out.draws[..., 0] < 2.0).all())
 
 
-def test_bounded_thin_resume_and_guards():
+def test_bounded_thin_resume_and_guards(tmp_path):
     """Box bounds keep draws inside (tests/test_chees.py:77-89); ``thin``
     and ``return_resume`` give JAX's keys and shapes; one chain, mesh and
-    checkpoint_dir raise."""
+    mesh raise; checkpoint_dir= runs in chunks, equal to the in-memory
+    run."""
     algo = mcmc_tpu_torch.AlgoSettings(vals_bound=True,
                                        lower_bounds=np.zeros(2),
                                        upper_bounds=np.full(2, 5.0))
@@ -540,9 +541,13 @@ def test_bounded_thin_resume_and_guards():
     assert more.draws.shape == (7, 16, 2) and "resume" in more.diagnostics
     with pytest.raises(ValueError, match="n_chains"):
         mcmc_tpu_torch.chees(torch.zeros(2), lk)
-    with pytest.raises(NotImplementedError, match="A11"):
-        mcmc_tpu_torch.chees(torch.zeros(2), lk, n_chains=4,
-                             checkpoint_dir="ckpt")
+    small = mcmc_tpu_torch.ChEESSettings(n_burnin_draws=8, n_keep_draws=6)
+    assert torch.equal(
+        mcmc_tpu_torch.chees(torch.zeros(2), lk, small, n_chains=4,
+                             key=3).draws,
+        mcmc_tpu_torch.chees(torch.zeros(2), lk, small, n_chains=4, key=3,
+                             checkpoint_dir=tmp_path / "ck",
+                             checkpoint_every=4).draws)
     with pytest.raises(NotImplementedError, match="A12"):
         mcmc_tpu_torch.chees(torch.zeros(2), lk, n_chains=4, mesh=object())
 

@@ -310,11 +310,12 @@ def test_demcz_ring_archive_bounded_and_archive_fill():
     assert state.gen_ind == 9
 
 
-def test_demcz_mean_determinism_resume_and_refusals():
+def test_demcz_mean_determinism_resume_and_refusals(tmp_path):
     """``test_gaussian_mean_posterior`` (mean within 0.1, acceptance in
     (0.05, 0.95)); one seed repeats bit for bit; a warm ``resume`` carries
     the archive; ``thin=2``; the refusals of ``test_validation_errors``,
-    ``n_runs < 1``, and ``mesh``/``checkpoint_dir`` (not ported)."""
+    ``n_runs < 1``, and ``mesh`` (not ported); ``checkpoint_dir=`` gives
+    the in-memory run's draws."""
     x = (2.0 + np.random.default_rng(1).standard_normal(100)).astype(
         np.float32)
     lk = tmodels.gaussian_mean_model(x, device="cpu")
@@ -355,6 +356,11 @@ def test_demcz_mean_determinism_resume_and_refusals():
     with pytest.raises(NotImplementedError, match="A12"):
         mcmc_tpu_torch.demcz(np.zeros(2), sq, mesh=object(), n_runs=2,
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        mcmc_tpu_torch.demcz(np.zeros(2), sq, checkpoint_dir="x",
-                             device="cpu")
+    small = mcmc_tpu_torch.DEMCZSettings(n_pop=4, n_burnin_draws=5,
+                                         n_keep_draws=7)
+    assert torch.equal(
+        mcmc_tpu_torch.demcz(np.zeros(2), sq, small, key=2,
+                             device="cpu").draws,
+        mcmc_tpu_torch.demcz(np.zeros(2), sq, small, key=2, device="cpu",
+                             checkpoint_dir=tmp_path / "ck",
+                             checkpoint_every=3).draws)

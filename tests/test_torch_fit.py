@@ -1,13 +1,13 @@
 """The PyTorch port's one-call surface, ``fit`` and ``sample``, on the CPU.
 
 Port analogs of ``tests/test_resume_fit.py:81-265`` (every case but the
-checkpointed one: ``checkpoint_dir=`` is not ported yet),
+checkpointed one, which ``tests/test_torch_checkpoint.py`` holds),
 ``tests/test_laplace.py:79`` and ``tests/test_pathfinder.py:166`` at those
 tests' tolerances, run through the port alone (a whole JAX ``fit`` compiles
 for minutes on the CPU); plus the port's own contracts: one seed gives a
 bit-identical fit (an integer or a ``torch.Generator``), an extension
 round's draws come from a stream of their own and not from a replay of the
-run's, ``checkpoint_dir=`` and ``mesh=`` raise before any work, and
+run's, ``mesh=`` raises before any work, and
 ``sample`` dispatches as the entry points run.
 """
 
@@ -79,8 +79,6 @@ def test_fit_validation_errors():
              "diagonal"),
             (dict(algorithm="gibbs", blocks=[([0], "rwmh")],
                   dense_mass=True), ValueError, "dense mass"),
-            (dict(checkpoint_dir="/nonexistent/ck"), NotImplementedError,
-             "A11"),
             (dict(mesh=object(), init="laplace"), NotImplementedError,
              "A12")]:
         with pytest.raises(exc, match=match):

@@ -192,11 +192,11 @@ def test_alpha_zero_fixed_step_is_hmc():
     assert "adapted_step_size" not in out.diagnostics
 
 
-def test_auto_alpha_validation_and_options():
+def test_auto_alpha_validation_and_options(tmp_path):
     """Auto persistence ``exp(-step_size / sqrt(dim))`` from the nominal
     step; JAX's ``ValueError`` messages for out-of-range persistence and
     jitter; ``thin`` and ``return_resume``; a single chain squeezes; mesh
-    and checkpoint_dir raise."""
+    raises; checkpoint_dir= gives the in-memory run's draws."""
     lk = lambda v: -0.5 * (v ** 2).sum(-1)
     s = mcmc_tpu_torch.GHMCSettings(n_burnin_draws=20, n_keep_draws=10)
     out = mcmc_tpu_torch.ghmc(torch.zeros(4), lk, s, n_chains=3, key=7,
@@ -222,8 +222,11 @@ def test_auto_alpha_validation_and_options():
                 pkg.ghmc(x0, k, pkg.GHMCSettings(**bad))
             msgs.append(str(e.value))
         assert msgs[0] == msgs[1]
-    with pytest.raises(NotImplementedError, match="A11"):
-        mcmc_tpu_torch.ghmc(torch.zeros(2), lk, s, checkpoint_dir="ckpt")
+    assert torch.equal(
+        mcmc_tpu_torch.ghmc(torch.zeros(2), lk, s, key=4).draws,
+        mcmc_tpu_torch.ghmc(torch.zeros(2), lk, s, key=4,
+                            checkpoint_dir=tmp_path / "ck",
+                            checkpoint_every=7).draws)
     with pytest.raises(NotImplementedError, match="A12"):
         mcmc_tpu_torch.ghmc(torch.zeros(2), lk, s, mesh=object())
 

@@ -224,14 +224,17 @@ def test_hmc_posterior_mean_matches_jax():
                                atol=0.3)
 
 
-def test_unported_options_raise():
-    """``mesh=`` and ``checkpoint_dir=`` are not ignored silently."""
+def test_unported_options_raise(tmp_path):
+    """``mesh=`` is not ignored silently; ``checkpoint_dir=`` gives the
+    in-memory run's draws."""
     X, y = _data()
     k = tlogreg(*convert.glm_data(X, y, "cpu"))
     s = mcmc_tpu_torch.HMCSettings(n_burnin_draws=1, n_keep_draws=1)
     with pytest.raises(NotImplementedError, match="A12"):
         mcmc_tpu_torch.hmc(torch.zeros(D), k, s, mesh=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        mcmc_tpu_torch.hmc(torch.zeros(D), k, s, checkpoint_dir="ckpt")
+    assert torch.equal(
+        mcmc_tpu_torch.hmc(torch.zeros(D), k, s, key=1).draws,
+        mcmc_tpu_torch.hmc(torch.zeros(D), k, s, key=1,
+                           checkpoint_dir=tmp_path / "ck").draws)
     with pytest.raises(ValueError, match="positive definite"):
         tcommon.make_spd(-np.eye(D), D, torch.float32)

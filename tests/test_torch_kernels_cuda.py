@@ -3,7 +3,9 @@ and the port's NUTS, ChEES, GHMC, MCLMC, MAMS, RWMH, MALA, RM-HMC, DE, PT,
 AEES, SMC, the stretch ensemble, DE-MC(Z), slice, elliptical slice, Barker,
 mMALA, SGLD, pSGLD, SGHMC, block Gibbs and ``entry()`` (plain PyTorch) run
 on it, and the workflow: ``fit`` (NUTS, and ChEES from a Laplace start),
-``pathfinder`` and ``psis_loo`` against the CPU.
+``pathfinder`` and ``psis_loo`` against the CPU; a checkpointed ``hmc`` run,
+the checkpoint runner's pinned double-buffered copy, and the evidence
+estimators against the CPU.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports no JAX, so that it runs on a machine without it:
@@ -652,3 +654,88 @@ def test_psis_loo_on_the_card_equals_the_cpu():
     torch.testing.assert_close(waic(torch.tensor(ll, device="cuda"))["elpd"]
                                .cpu(), waic(torch.tensor(ll))["elpd"],
                                rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_checkpointed_hmc_on_the_card_equals_in_memory(tmp_path):
+    """A checkpointed ``hmc`` run on the card (chunks of 7 kept draws, the
+    draws through the pinned double buffer and the native sink) is
+    bit-equal to the in-memory run with the same seed, and so is a run
+    stopped after two chunks and resumed."""
+    _require_card()
+    import mcmc_tpu_torch
+    from mcmc_tpu_torch import checkpoint
+    from mcmc_tpu_torch.samplers.hmc import build_hmc_kernel
+    from mcmc_tpu_torch.samplers import common
+    from mcmc_tpu_torch.integrators import grad_of
+    lk = lambda v: -0.5 * (v * v).sum(-1) - 0.3 * v[:, 0]
+    s = mcmc_tpu_torch.HMCSettings(n_burnin_draws=9, n_keep_draws=30,
+                                   step_size=0.3, n_leap_steps=3)
+    plain = mcmc_tpu_torch.hmc(np.zeros(3), lk, s, n_chains=64, key=4,
+                               adapt_step_size=True)
+    ck = mcmc_tpu_torch.hmc(np.zeros(3), lk, s, n_chains=64, key=4,
+                            adapt_step_size=True, checkpoint_every=7,
+                            checkpoint_dir=tmp_path / "ck")
+    assert plain.draws.is_cuda and not ck.draws.is_cuda
+    assert torch.equal(ck.draws, plain.draws.cpu())
+    assert torch.equal(ck.n_accept_draws, plain.n_accept_draws.cpu())
+    init, step = build_hmc_kernel(lk, grad_of(lk),
+                                  common.make_spd(None, 3, None), 0.3, 3)
+    s0 = init(torch.zeros((64, 3), device="cuda"))
+    runs = []
+    for stop in (None, 2):
+        r = checkpoint.ChunkedRunner(step, lambda st: st.position,
+                                     tmp_path / f"r{stop}")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        if stop:
+            r.run(gen, s0, n_draws=30, chunk_size=7, n_burnin=5,
+                  max_chunks=stop)
+            gen = torch.Generator(device="cuda").manual_seed(1)
+        runs.append(np.array(r.run(gen, s0, n_draws=30, chunk_size=7,
+                                   n_burnin=5)[1]))
+    np.testing.assert_array_equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_pinned_double_buffered_copy_equals_plain_copy():
+    """The runner's copies of consecutive chunks through two page-locked
+    buffers, each waited on by its event only after the next chunk was
+    written on the card, equal plain ``.cpu()`` copies."""
+    _require_card()
+    from mcmc_tpu_torch.checkpoint import _host_copy
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = torch.empty((64, 256, 100), device="cuda")
+    bufs = [torch.empty(dev.shape, pin_memory=True) for _ in range(2)]
+    want, pending = [], None
+    for i in range(6):
+        dev.normal_(generator=gen)            # the next chunk overwrites
+        want.append(dev.cpu())
+        host = _host_copy(dev, bufs[i % 2])
+        ev = torch.cuda.Event()
+        ev.record()
+        if pending is not None:
+            pending[1].synchronize()
+            assert torch.equal(pending[0], want[i - 1])
+        pending = (host, ev)
+    pending[1].synchronize()
+    assert torch.equal(pending[0], want[-1])
+    assert bufs[0].is_pinned() and bufs[1].is_pinned()
+
+
+@pytest.mark.cuda
+def test_estimate_from_ll_on_the_card_equals_the_cpu():
+    """Stepping-stone, corrected TI and the per-rung curves of one
+    log-likelihood trace, with -inf entries on the prior rung, on the card
+    and on the CPU at rtol 1e-6."""
+    _require_card()
+    from mcmc_tpu_torch.evidence import estimate_from_ll, power_schedule
+    rng = np.random.default_rng(2)
+    betas = power_schedule(24, 5.0)
+    ll = (-800.0 + 700.0 * betas.numpy() + rng.standard_normal((500, 16, 24))
+          * (30.0 - 20.0 * betas.numpy())).astype(np.float32)
+    ll[rng.random((500, 16)) < 0.2, 0] = -np.inf
+    cpu = estimate_from_ll(torch.from_numpy(ll), betas)
+    card = estimate_from_ll(torch.from_numpy(ll).cuda(), betas.cuda())
+    for a, b in zip(card, cpu):
+        assert a.is_cuda
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-6)

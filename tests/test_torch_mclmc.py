@@ -414,10 +414,10 @@ def test_mclmc_nonfinite_step_bounces():
     _assert_moment(out.draws[..., 1], 0.0, "mean of the free coordinate")
 
 
-def test_guards_options_and_determinism():
+def test_guards_options_and_determinism(tmp_path):
     """JAX's ``ValueError`` messages for dim 1 and one chain; ``thin``,
     ``return_resume`` and JAX's diagnostics keys; one seed repeats bit for
-    bit; mesh and checkpoint_dir raise."""
+    bit; mesh raises; checkpoint_dir= gives the in-memory run's draws."""
     lk = lambda v: -0.5 * (v ** 2).sum(-1)
     jlk = lambda v: -0.5 * jnp.sum(v ** 2)
     for fn, x0, kw, match in (("mclmc", 1, dict(n_chains=8), "dim >= 2"),
@@ -448,7 +448,15 @@ def test_guards_options_and_determinism():
                                   "adapted_L"}
     assert torch.equal(a.draws, b.draws) and not torch.equal(a.draws, c.draws)
     for fn in (mcmc_tpu_torch.mclmc, mcmc_tpu_torch.mams):
-        with pytest.raises(NotImplementedError, match="A11"):
-            fn(torch.zeros(2), lk, n_chains=4, checkpoint_dir="ckpt")
+        small = dict(n_chains=4, key=2,
+                     settings=mcmc_tpu_torch.AlgoSettings(
+                         mclmc_settings=mcmc_tpu_torch.MCLMCSettings(
+                             n_burnin_draws=6, n_keep_draws=5),
+                         mams_settings=mcmc_tpu_torch.MAMSSettings(
+                             n_burnin_draws=6, n_keep_draws=5)))
+        assert torch.equal(
+            fn(torch.zeros(2), lk, **small).draws,
+            fn(torch.zeros(2), lk, **small, checkpoint_every=4,
+               checkpoint_dir=tmp_path / fn.__name__).draws)
         with pytest.raises(NotImplementedError, match="A12"):
             fn(torch.zeros(2), lk, n_chains=4, mesh=object())

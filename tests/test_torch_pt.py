@@ -359,10 +359,10 @@ def test_pt_round_trips():
     assert 30 <= int(out.diagnostics["round_trips"]) <= 60
 
 
-def test_pt_determinism_and_refusals():
-    """One seed repeats bit for bit; ``mesh=`` and ``checkpoint_dir=``
-    raise (not ported), ``return_resume`` with ``checkpoint_dir`` and an
-    unknown inner move are refused."""
+def test_pt_determinism_and_refusals(tmp_path):
+    """One seed repeats bit for bit; ``mesh=`` raises (not ported),
+    ``checkpoint_dir=`` gives the in-memory run's draws, ``return_resume``
+    with ``checkpoint_dir`` and an unknown inner move are refused."""
     s = mcmc_tpu_torch.PTSettings(n_burnin_draws=10, n_keep_draws=20,
                                   n_temps=3, adapt_temps=True)
     a = mcmc_tpu_torch.pt(np.zeros(2), _bimodal, s, n_chains=3, key=7,
@@ -375,9 +375,10 @@ def test_pt_determinism_and_refusals():
     with pytest.raises(NotImplementedError, match="A12"):
         mcmc_tpu_torch.pt(np.zeros(2), _bimodal, s, mesh=object(),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        mcmc_tpu_torch.pt(np.zeros(2), _bimodal, s, checkpoint_dir="x",
-                          device="cpu")
+    assert torch.equal(
+        a.draws, mcmc_tpu_torch.pt(np.zeros(2), _bimodal, s, n_chains=3,
+                                   key=7, device="cpu", checkpoint_every=7,
+                                   checkpoint_dir=tmp_path / "ck").draws)
     with pytest.raises(ValueError, match="incompatible"):
         mcmc_tpu_torch.pt(np.zeros(2), _bimodal, s, checkpoint_dir="x",
                           return_resume=True, device="cpu")

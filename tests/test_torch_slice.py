@@ -222,8 +222,10 @@ def test_port_imports_no_jax():
     """Importing the port and every module of it loads neither JAX nor the
     JAX package, and needs no CUDA; the tempering and ensemble entry points
     the self-tuning, latent-Gaussian, minibatch and blocked samplers
-    (slice, elliptical slice, Barker, mMALA, SGLD, SGHMC, Gibbs) and the
-    workflow are among its names."""
+    (slice, elliptical slice, Barker, mMALA, SGLD, SGHMC, Gibbs), the
+    workflow, and the evidence and approximate-inference entry points are
+    among its names, and ``observability``, ``checkpoint`` and ``runtime``
+    among its modules."""
     code = (
         "import sys, pkgutil, importlib, mcmc_tpu_torch\n"
         "for m in pkgutil.walk_packages(mcmc_tpu_torch.__path__, "
@@ -234,8 +236,12 @@ def test_port_imports_no_jax():
         "'sghmc', 'gibbs', 'fit', 'sample', 'map_laplace', 'pathfinder', "
         "'pointwise_log_lik', 'waic', 'psis_loo', 'compare', "
         "'generated_quantities', 'posterior_predictive', 'sbc', "
-        "'ravel_model', 'unravel_draws', 'bounds_like'):\n"
+        "'ravel_model', 'unravel_draws', 'bounds_like', "
+        "'thermo_evidence', 'EvidenceResult', 'nested_sampling', "
+        "'NestedResult', 'advi', 'ADVIResult', 'svgd', 'SVGDResult'):\n"
     "    assert callable(getattr(mcmc_tpu_torch, n)), n\n"
+        "for n in ('observability', 'checkpoint', 'runtime'):\n"
+        "    assert hasattr(mcmc_tpu_torch, n), n\n"
     "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'mcmc_tpu' or m.startswith('mcmc_tpu.')]\n"
         "assert not bad, bad\n"

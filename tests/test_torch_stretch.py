@@ -228,11 +228,12 @@ def test_stretch_affine_equivariance_exact():
     assert int(iso.n_accept_draws) == int(aniso.n_accept_draws)
 
 
-def test_stretch_bounded_thin_resume_and_refusals():
+def test_stretch_bounded_thin_resume_and_refusals(tmp_path):
     """``test_bounded_draws_inside`` (draws inside (0, 1), mean in (0.2,
     0.45)); ``thin=2`` with a warm ``resume``; the walker-count, ``par_a``
     and dimension refusals of ``test_validation_errors``, a batched start,
-    and ``mesh``/``checkpoint_dir`` (not ported)."""
+    and ``mesh`` (not ported); ``checkpoint_dir=`` gives the in-memory
+    run's draws."""
     algo = mcmc_tpu_torch.AlgoSettings(
         vals_bound=True, lower_bounds=np.array([0.0]),
         upper_bounds=np.array([1.0]),
@@ -257,6 +258,11 @@ def test_stretch_bounded_thin_resume_and_refusals():
         mcmc_tpu_torch.stretch(np.zeros((4, 2)), lk, device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
         mcmc_tpu_torch.stretch(np.zeros(2), lk, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        mcmc_tpu_torch.stretch(np.zeros(2), lk, checkpoint_dir="x",
-                               device="cpu")
+    small = mcmc_tpu_torch.StretchSettings(n_walkers=8, n_burnin_draws=5,
+                                           n_keep_draws=6)
+    assert torch.equal(
+        mcmc_tpu_torch.stretch(np.zeros(2), lk, small, key=3,
+                               device="cpu").draws,
+        mcmc_tpu_torch.stretch(np.zeros(2), lk, small, key=3, device="cpu",
+                               checkpoint_dir=tmp_path / "ck",
+                               checkpoint_every=4).draws)

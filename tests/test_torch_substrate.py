@@ -349,16 +349,25 @@ def test_rwmh_option_combinations_smoke(kwargs):
 
 
 @pytest.mark.parametrize("name", ["rwmh", "mala", "rmhmc", "de"])
-def test_entry_points_default_to_the_card(name):
+def test_entry_points_default_to_the_card(name, tmp_path):
     """With no ``device=`` and numpy inputs the entry point allocates on
     ``cuda``: where there is none it raises, and never falls back to the
-    CPU; ``mesh=`` and ``checkpoint_dir=`` raise ``NotImplementedError``."""
+    CPU; ``mesh=`` raises ``NotImplementedError``; ``checkpoint_dir=``
+    gives the in-memory run's draws."""
     fn = getattr(mcmc_tpu_torch, name)
     args = (np.zeros(2), LK) if name != "rmhmc" else \
         (np.zeros(2), LK, lambda v: torch.diag_embed(torch.ones_like(v)))
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             fn(*args, key=0)
-    for kw in (dict(mesh=object()), dict(checkpoint_dir="ckpt")):
-        with pytest.raises(NotImplementedError):
-            fn(*args, key=0, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        fn(*args, key=0, device="cpu", mesh=object())
+    cls = {"rwmh": mcmc_tpu_torch.RWMHSettings,
+           "mala": mcmc_tpu_torch.MALASettings,
+           "rmhmc": mcmc_tpu_torch.RMHMCSettings,
+           "de": mcmc_tpu_torch.DESettings}[name]
+    small = cls(n_burnin_draws=3, n_keep_draws=5)
+    plain = fn(*args, small, key=0, device="cpu")
+    ck = fn(*args, small, key=0, device="cpu",
+            checkpoint_dir=tmp_path / "ck", checkpoint_every=2)
+    assert torch.equal(plain.draws, ck.draws)
