@@ -196,6 +196,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    bit-equal, the sink native, and the durability tax of
    ``benchmarks/checkpoint_overhead.py`` printed (max(t_compute, bytes /
    pinned D2H bandwidth) / t_checkpointed, the bandwidth measured here);
+20. multi-device sampling (``mcmc_tpu_torch.parallel``) on the one card, run
+   before the profiles: (a) a world of one under NCCL, whose all-reduce is
+   the identity, with NUTS (1,024 chains, 100 + 200 draws) and the flagship
+   ``hmc`` (16,384 chains, 50 transitions) bit-equal with and without the
+   mesh; (b) two ranks sharing the card over Gloo, started by the phase
+   (``chip_smoke.py --mesh-rank FILE``): the flagship through chain-sharded
+   ``hmc`` (2 x 8,192 chains) and pooled NUTS (2 x 512), ``de``, ``stretch``
+   and ``smc`` population-sharded, two-rung ``pt_sharded`` and
+   ``aees_sharded``, ``data_parallel_kernel`` on a (1, 2) grid against the
+   unsharded kernel; every line's statistics equal on both ranks and its
+   means within 5 combined MC standard errors of its reference (phase 9's
+   hmc reference; the exact 0 of phases 14-15's targets), its seconds and
+   collectives per draw printed; (c) ``dryrun_multichip(2)``. The cuts that
+   pay for it are printed first;
 19. printed and not gated: the Gaussian kernel's time at other chain counts,
    and for both fused transitions (``make_fused_hmc_step``,
    ``make_fused_gaussian_hmc_step``), a steady NUTS draw at 1024 chains and
@@ -255,7 +269,7 @@ RT_CALLS = 10
 # host that ran phases 14-16 in 700 s took about 1,180 s for the whole
 # script, the profiles 135.4 s of it (71.1 s at half the transitions on a
 # slower host); their time goes mostly to the profiler's own processing
-PROFILE_WARM, PROFILE_STEPS = 50, 50
+PROFILE_WARM, PROFILE_STEPS = 25, 25
 
 # the suite's ill-conditioned row (benchmarks/suite.py
 # hmc_ill_conditioned_100d_fused): 100-d Gaussian, variances logspace(0, 4)
@@ -290,7 +304,7 @@ BENCH_KEEP = 1000
 NUTS_WARMUP, NUTS_KEEP = 500, 500
 # kept draws of the 4096-chain line: 1000 until the suite's rows (phase 14)
 # joined the script, halved then to hold its run time
-NUTS_BIG_KEEP = 500
+NUTS_BIG_KEEP = 250
 NUTS_TARGET_ACCEPT = 0.65
 NUTS_INIT_SCALE = 0.05
 NUTS_RHAT_MAX = 1.01
@@ -306,7 +320,7 @@ NUTS_MEAN_SIGMAS = 5.0
 # half period, so no resonance)
 REF_STEP_FRACTION, REF_LEAP = 0.5, 6
 REF_BURNIN, REF_KEEP = 100, 1000
-NUTS_PROFILE_WARM, NUTS_PROFILE_DRAWS = 5, 5
+NUTS_PROFILE_WARM, NUTS_PROFILE_DRAWS = 3, 3
 
 # the bench's other quality lines (bench.py:246-487), at its widths and
 # protocols: warmup and kept draws as NUTS's, starts 0.05 N(0, 1)
@@ -320,6 +334,9 @@ GHMC_JITTER, GHMC_TARGET, GHMC_THIN, GHMC_WARM = 0.2, 0.95, 4, 1000
 GHMC_WARM_SWEEPS, GHMC_KEEP = 250, 250
 GHMC_ESS_CHUNK = 256
 MC_CHAINS, MC_ESS_CHUNK = 4096, 512
+# kept draws of the MAMS and MCLMC lines: NUTS_KEEP until the mesh phase
+# (20) joined the script (split R-hat 0.99x at 500, margins above 0.009)
+MC_KEEP = 250
 MC_THIN = {"mams": 1, "mclmc": 2}
 # MCLMC's bias audit against MAMS. tests/test_mclmc.py:66-85 holds the
 # unadjusted chain's variance bias under 5% at the default energy target:
@@ -330,10 +347,10 @@ MC_THIN = {"mams": 1, "mclmc": 2}
 # sqrt(1 / (2 ESS)) per line, as for a Gaussian)
 MC_VAR_BIAS = 0.05
 SYNC_PROBE_DRAWS = 3          # draws run under CUDA's sync debug mode
-SAMPLER_PROFILE = {"chees": (5, 5), "ghmc": (20, 25), "mclmc": (20, 25),
-                   "mala": (20, 25), "rmhmc": (5, 5), "aees": (20, 25),
-                   "pt": (10, 12), "slice": (5, 5), "ellipse": (10, 12),
-                   "gibbs": (5, 5)}
+SAMPLER_PROFILE = {"chees": (3, 3), "ghmc": (10, 12), "mclmc": (10, 12),
+                   "mala": (10, 12), "rmhmc": (3, 3), "aees": (10, 12),
+                   "pt": (5, 6), "slice": (3, 3), "ellipse": (5, 6),
+                   "gibbs": (3, 3)}
 
 # the suite's rows of the reference library's samplers at their full (not
 # --quick) settings: rwmh_gaussian_2d and mala_logreg_25d
@@ -354,7 +371,7 @@ RMHMC_ROW = {"chains": 1024, "warm": 500, "keep": 4000, "full": (1500, 4000),
              "leap": 3, "fp": 3}
 # MALA's reference on the same posterior: generic HMC with dual averaging
 # and windowed diagonal mass, started where MALA starts
-MALA_REF = {"chains": 256, "warm": 1000, "keep": 1000, "leap": 4,
+MALA_REF = {"chains": 256, "warm": 1000, "keep": 500, "leap": 4,
             "step": 0.05}
 # each entry point is also run whole at two lengths (n warmup + n kept
 # draws) under CUDA's sync debug mode: the difference of the syncs over the
@@ -415,7 +432,7 @@ BARKER_ROW = {"chains": 256, "warm": 1000, "keep": 2000, "step": 0.5,
 ELLIPSE_ROW = {"chains": 64, "warm": 1500, "keep": 12000, "n": 64,
                "full": (3000, 12000),
                "length_scale": 0.5, "noise_var": 0.25, "key": 14}
-SLICE_ROW = {"chains": 256, "warm": 500, "keep": 1000, "full": (1000, 4000),
+SLICE_ROW = {"chains": 256, "warm": 250, "keep": 500, "full": (1000, 4000),
              "key": 15}
 GIBBS_ROW = {"chains": 256, "warm": 1000, "keep": 1000, "full": (2000, 4000),
              "J": 16,
@@ -431,7 +448,7 @@ GIBBS_ROW = {"chains": 256, "warm": 1000, "keep": 1000, "full": (2000, 4000),
 GIBBS_REF = {"chains": 32, "warm": 250, "keep": 400, "depth": 4, "key": 27}
 SGLD_ROW = {"n_data": 65536, "dim": 16, "batch": 512, "step": 2e-5,
             "decay_gamma": 0.33, "decay_b": 1000.0, "chains": 32,
-            "warm": 2000, "keep": 4000, "seed": 0}
+            "warm": 1000, "keep": 2000, "seed": 0}
 # the SGLD lines' gate, max |mean - the full-data hmc reference's mean|:
 # scripts/jax_sgld_tolerance.py's tolerance, three times the largest
 # difference of the JAX package's sgld (shared 0.0043, per-chain 0.0016)
@@ -445,9 +462,9 @@ SGLD_MEAN_TOL = 0.095
 # angle, near a multiple of 2 pi, and the chains barely move (rank R-hat
 # 1.057 at 256 chains, from 0 1.071); with 3 the CPU's 32 chains read rank
 # R-hat 1.0008 and 0.50 ESS per draw
-SGLD_REF = {"chains": 256, "warm": 500, "keep": 1000, "step": 0.005,
+SGLD_REF = {"chains": 256, "warm": 500, "keep": 500, "step": 0.005,
             "leap": 3, "key": 33}
-MMALA_ROW = {"chains": 1024, "warm": 500, "keep": 1000, "full": (1500, 4000),
+MMALA_ROW = {"chains": 1024, "warm": 250, "keep": 500, "full": (1500, 4000),
              "key": 31}
 # kernel-level sync audit of the looping samplers: draws run under CUDA's
 # sync debug mode, against the kernel's own count
@@ -1115,12 +1132,12 @@ def microcanonical_lines(X, y, ref):
         if kind == "mams":
             init, step = build_mams_kernel(
                 lk, MAMSSettings(n_burnin_draws=NUTS_WARMUP,
-                                 n_keep_draws=NUTS_KEEP), NUTS_WARMUP,
+                                 n_keep_draws=MC_KEEP), NUTS_WARMUP,
                 adapt_mass=True)
         else:
             init, step = build_mclmc_kernel(
                 lk, MCLMCSettings(n_burnin_draws=NUTS_WARMUP,
-                                  n_keep_draws=NUTS_KEEP), NUTS_WARMUP,
+                                  n_keep_draws=MC_KEEP), NUTS_WARMUP,
                 adapt_mass=True)
         gen = torch.Generator(device=dev).manual_seed(seed)
         pos0 = NUTS_INIT_SCALE * torch.randn((MC_CHAINS, DIM), generator=gen,
@@ -1128,7 +1145,7 @@ def microcanonical_lines(X, y, ref):
         state, draws, infos, seconds, per_draw = sampler_line(
             kind, step, gen, lambda: init(gen, pos0, DIM ** 0.5,
                                           0.1 * DIM ** 0.5),
-            NUTS_WARMUP, NUTS_KEEP, MC_THIN[kind])
+            NUTS_WARMUP, MC_KEEP, MC_THIN[kind])
         res, summ[kind] = line_stats(kind, draws, seconds, per_draw,
                                      MC_ESS_CHUNK)
         res.update({
@@ -1144,7 +1161,7 @@ def microcanonical_lines(X, y, ref):
             res["mclmc_thin"] = MC_THIN[kind]
         probe, state = count_syncs(step, gen, state, SYNC_PROBE_DRAWS)
         print(f"{kind}: {MC_CHAINS} chains, {NUTS_WARMUP} warmup draws in "
-              f"{seconds[1]:.3f} s, {NUTS_KEEP} draws of {MC_THIN[kind]} "
+              f"{seconds[1]:.3f} s, {MC_KEEP} draws of {MC_THIN[kind]} "
               f"transitions in {seconds[2]:.3f} s; CUDA's sync debug mode saw "
               f"{probe} syncs in {SYNC_PROBE_DRAWS} transitions; "
               f"{json.dumps(res)}")
@@ -2297,6 +2314,370 @@ def evidence_phase(X_np, y_np, ref):
     return approx
 
 
+# what was cut to hold the script's time when phase 20 joined it, (before,
+# after) of each; every row or line prints its margin under its gate (the
+# profiles are not gated)
+MESH_CUTS = {"nuts4096 keep": (500, NUTS_BIG_KEEP),
+             "mams and mclmc keep": (500, MC_KEEP),
+             "slice_gaussian_2d warm, keep": ((500, 1000), (250, 500)),
+             "mmala_fisher warm, keep": ((500, 1000), (250, 500)),
+             "mala_logreg_25d hmc reference keep": (1000, 500),
+             "sgld lines warm, keep": ((2000, 4000), (1000, 2000)),
+             "sgld full-data hmc reference keep": (1000, 500),
+             "profiles' steady transitions": ("quarter", "eighth")}
+
+
+# phase 20: multi-device sampling (mcmc_tpu_torch.parallel) on the one card.
+# (a) a world of one under NCCL, bit-equal to no mesh: NUTS at phase 9's
+# settings but MESH_NUTS_WARM + MESH_NUTS_KEEP draws, and the flagship hmc
+# (phase 9's reference's step and mass) for MESH_HMC_TRANS transitions;
+# (b) two ranks sharing the card over Gloo (NCCL refuses two ranks on one
+# card), spawned here, each line's global statistics equal on both ranks
+# and its means within NUTS_MEAN_SIGMAS combined MC standard errors of its
+# reference (phase 9's hmc reference on the flagship; the exact 0 of
+# phase 14's and 15's mixture and correlated rows); (c) the eleven paths of
+# entry.dryrun_multichip(2). Budget MESH_PHASE_BUDGET_S, printed beside the
+# phase's seconds
+MESH_PHASE_BUDGET_S = 90.0
+MESH_NUTS_CHAINS, MESH_NUTS_WARM, MESH_NUTS_KEEP = 1024, 100, 200
+MESH_HMC_CHAINS, MESH_HMC_TRANS = 16384, 50
+# (b)'s lines: every rank runs the whole batch's settings, half the chains
+MESH_RANKS = 2
+MESH_LINES = {
+    # the flagship through chain-sharded hmc, 2 x 8192 chains from the hmc
+    # reference's Gaussian (its mean and sd), the reference's step and mass
+    "hmc": {"chains": 16384, "warm": 20, "keep": 60},
+    # pooled NUTS, 2 x 512 chains from the same starts
+    "nuts": {"chains": 1024, "warm": 80, "keep": 80},
+    # de_mixture's target (phase 14), stretch_correlated's (phase 15),
+    # smc_mixture's (phase 15), population-sharded
+    "de": {"n_pop": 256, "warm": 200, "keep": 400},
+    "stretch": {"n_walkers": 256, "warm": 200, "keep": 400},
+    "smc": {"particles": 16384, "mcmc": 5, "init_scale": 4.0},
+    # two-rung ladders on de_mixture's target
+    "pt_sharded": {"temp": 8.0, "warm": 200, "keep": 600},
+    "aees_sharded": {"temp": 8.0, "block": 200, "keep": 1200},
+    # the flagship kernel on a (1, 2) grid: value and gradient at 16 points
+    "data_parallel": {"points": 16, "tol": 2e-5},
+}
+
+
+def _mixture_target(dev):
+    from mcmc_tpu_torch.models import gaussian_mixture_model
+    return gaussian_mixture_model(np.array([[-2.0, -2.0], [2.0, 2.0]]),
+                                  np.array([0.5, 0.5]), np.array([0.5, 0.5]),
+                                  device=dev)
+
+
+def _batch_summary(d):
+    """Each dimension's mean and MC standard error by 20 batch means over
+    the draw axis (a single chain: the ladder samplers' cold chain)."""
+    d = d.double()
+    b = d.reshape(20, -1, d.shape[-1]).mean(1)
+    return {"mean": d.reshape(-1, d.shape[-1]).mean(0),
+            "mcse": b.std(0) / math.sqrt(20)}
+
+
+def _chain_summary(d):
+    from mcmc_tpu_torch import diagnostics
+    ess = diagnostics.ess(d, chain_chunk=256 if d.shape[1] % 256 == 0
+                          else None)
+    return {"mean": d.mean(dim=(0, 1)).double(),
+            "mcse": (d.std(dim=(0, 1)) / torch.sqrt(ess)).double()}
+
+
+def mesh_rank_main(path):
+    """One rank of phase 20 (b): ``python chip_smoke.py --mesh-rank FILE``
+    under :func:`mcmc_tpu_torch.parallel.launch_local`. Joins a Gloo group
+    (the card shared with the other rank), runs every line of
+    ``MESH_LINES`` through the entry points on a mesh of both ranks and
+    prints one JSON line: each line's global statistics, seconds and
+    collectives per draw."""
+    import mcmc_tpu_torch as mt
+    from mcmc_tpu_torch import parallel as par
+    from mcmc_tpu_torch.models import logistic_regression_model
+    from mcmc_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    par.init_distributed(backend="gloo", timeout_s=300)
+    dev = torch.device("cuda")
+    inp = torch.load(path, map_location=dev)
+    X = inp["X"].to(dev)
+    y = inp["y"].to(dev)
+    lk = logistic_regression_model(X, y, PRIOR_SCALE)
+    mesh = par.make_mesh()
+    out, timing = {}, {}
+
+    def line(name, fn, n_draws):
+        for k in mesh_mod.COUNTS:
+            mesh_mod.COUNTS[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        timing[name] = {"seconds": time.perf_counter() - t0,
+                        "collectives_per_draw": {
+                            k: v / n_draws
+                            for k, v in mesh_mod.COUNTS.items()}}
+        return r
+
+    def summ(name, s, extra=None):
+        out[name] = {"mean": s["mean"].tolist(), "mcse": s["mcse"].tolist(),
+                     **(extra or {})}
+
+    gen = torch.Generator(device=dev).manual_seed(200)
+    ref_mean, ref_sd = inp["ref_mean"], inp["ref_sd"]
+    c = MESH_LINES["hmc"]
+    starts = ref_mean + ref_sd * torch.randn((c["chains"], DIM),
+                                             generator=gen, device=dev)
+    hs = mt.HMCSettings(n_burnin_draws=c["warm"], n_keep_draws=c["keep"],
+                        step_size=inp["ref_step"], n_leap_steps=REF_LEAP,
+                        precond_mat=1.0 / inp["inv_mass"])
+    r = line("hmc", lambda: mt.hmc(starts, lk, hs, key=201, mesh=mesh),
+             c["warm"] + c["keep"])
+    summ("hmc", _chain_summary(r.draws),
+         {"accept": float(r.accept_rate.mean())})
+    del r, starts
+
+    c = MESH_LINES["nuts"]
+    starts = ref_mean + ref_sd * torch.randn((c["chains"], DIM),
+                                             generator=gen, device=dev)
+    ns = mt.NUTSSettings(n_burnin_draws=c["warm"], n_keep_draws=c["keep"],
+                         n_adapt_draws=c["warm"],
+                         target_accept_rate=NUTS_TARGET_ACCEPT)
+    r = line("nuts", lambda: mt.nuts(starts, lk, ns, key=202, mesh=mesh,
+                                     pooled_adaptation=True,
+                                     adapt_mass_matrix=True),
+             c["warm"] + c["keep"])
+    step = r.diagnostics["step_size"][-1]
+    im = r.diagnostics["inv_mass_diag"]
+    summ("nuts", _chain_summary(r.draws), {
+        "step_size": float(step[0]),
+        "pooled_equal": bool((step == step[0]).all()
+                             and (im == im[0]).all())})
+    del r, starts
+
+    lk_mix = _mixture_target(dev)
+    c = MESH_LINES["de"]
+    box = np.full(2, 4.0)
+    r = line("de", lambda: mt.de(np.zeros(2), lk_mix, mt.DESettings(
+        n_pop=c["n_pop"], n_burnin_draws=c["warm"], n_keep_draws=c["keep"],
+        initial_lb=-box, initial_ub=box), key=203, mesh=mesh, device=dev),
+        c["warm"] + c["keep"])
+    summ("de", _chain_summary(r.draws), {
+        "mode_share": float((r.draws[..., 0] > 0).float().mean())})
+
+    c = MESH_LINES["stretch"]
+    cov = torch.tensor([[1.0, 0.95], [0.95, 1.0]], device=dev)
+    prec = torch.linalg.inv(cov)
+    lk_corr = lambda v: -0.5 * (v * (v @ prec)).sum(-1)
+    r = line("stretch", lambda: mt.stretch(
+        torch.zeros(2, device=dev), lk_corr, mt.StretchSettings(
+            n_walkers=c["n_walkers"], n_burnin_draws=c["warm"],
+            n_keep_draws=c["keep"]), key=204, mesh=mesh),
+        c["warm"] + c["keep"])
+    summ("stretch", _chain_summary(r.draws))
+
+    c = MESH_LINES["smc"]
+    r = line("smc", lambda: mt.smc(torch.zeros(2, device=dev), lk_mix,
+                                   mt.SMCSettings(
+                                       n_particles=c["particles"],
+                                       n_mcmc_steps=c["mcmc"],
+                                       init_scale=c["init_scale"]),
+                                   key=205, mesh=mesh), 1)
+    d = r.draws.double()
+    summ("smc", {"mean": d.mean(0), "mcse": d.std(0) / math.sqrt(d.shape[0])},
+         {"log_z": float(r.diagnostics["log_z"]),
+          "mode_share": float((d[:, 0] > 0).double().mean()),
+          "stages": int(r.diagnostics["n_stages"])})
+    # SMC's collectives a stage
+    timing["smc"]["collectives_per_draw"] = {
+        k: v / max(out["smc"]["stages"], 1)
+        for k, v in timing["smc"]["collectives_per_draw"].items()}
+
+    c = MESH_LINES["pt_sharded"]
+    r = line("pt_sharded", lambda: par.pt_sharded(
+        torch.zeros(2, device=dev), lk_mix, mt.PTSettings(
+            n_burnin_draws=c["warm"], n_keep_draws=c["keep"],
+            temper_vec=[c["temp"]], inner="hmc", step_size=0.3,
+            n_leap_steps=5), mesh=mesh, key=206), c["warm"] + c["keep"])
+    summ("pt_sharded", _batch_summary(r.draws), {
+        "swap": r.diagnostics["swap_accept_rate"].tolist(),
+        "mode_share": float((r.draws[:, 0] > 0).float().mean())})
+
+    c = MESH_LINES["aees_sharded"]
+    r = line("aees_sharded", lambda: par.aees_sharded(
+        torch.zeros(2, device=dev), lk_mix, mt.AEESSettings(
+            n_initial_draws=c["block"] // 2, n_burnin_draws=c["block"] // 2,
+            n_keep_draws=c["keep"], n_rings=5, ee_prob_par=0.1,
+            temper_vec=[c["temp"]], cov_mat=0.5 * np.eye(2)),
+        mesh=mesh, key=207), 2 * c["block"] + c["keep"])
+    summ("aees_sharded", _batch_summary(r.draws), {
+        "mode_share": float((r.draws[:, 0] > 0).float().mean())})
+
+    c = MESH_LINES["data_parallel"]
+    grid = par.make_grid_mesh(1, 2)
+
+    def kernel_of_data(beta, data):
+        Xa, ya = data
+        eta = beta @ Xa.T
+        ll = (ya * eta - torch.nn.functional.softplus(eta)).sum(-1)
+        return ll - 0.5 * (beta * beta).sum(-1) / PRIOR_SCALE ** 2
+
+    pts = ref_mean + ref_sd * torch.randn((c["points"], DIM), generator=gen,
+                                          device=dev)
+    dp = par.data_parallel_kernel(kernel_of_data, (X, y), grid)
+
+    def value_grad(f):
+        b = pts.clone().requires_grad_(True)
+        v = f(b)
+        (g,) = torch.autograd.grad(v.sum(), b)
+        return v.detach(), g
+
+    v1, g1 = line("data_parallel", lambda: value_grad(dp), 1)
+    v0, g0 = value_grad(lambda b: kernel_of_data(b, (X, y)))
+    out["data_parallel"] = {
+        "value_err": float(((v1 - v0).abs() / v0.abs().max()).max()),
+        "grad_err": float(((g1 - g0).abs() / g0.abs().max()).max()),
+        "value_checksum": float(v1.double().sum())}
+    print(json.dumps({"rank": torch.distributed.get_rank(), "lines": out,
+                      "timing": timing}))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_phase(X_np, y_np, ref, nuts_state):
+    """Phase 20 (see the constants above): (a) a world of one under NCCL,
+    (b) two Gloo ranks sharing the card, (c) ``dryrun_multichip(2)``."""
+    import os
+    import mcmc_tpu_torch as mt
+    from mcmc_tpu_torch import parallel as par
+    from mcmc_tpu_torch.entry import dryrun_multichip
+    from mcmc_tpu_torch.models import logistic_regression_model
+    from mcmc_tpu_torch.parallel import mesh as mesh_mod
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    X = torch.as_tensor(X_np, device=dev)
+    y = torch.as_tensor(y_np, device=dev)
+    lk = logistic_regression_model(X, y, PRIOR_SCALE)
+
+    # (a) a world of one under NCCL: one all-reduce, then bit-equality
+    mesh = par.make_mesh()
+    backend = torch.distributed.get_backend()
+    ax = mesh_mod.mesh_axis(mesh, "chains")
+    one = mesh_mod.all_reduce(torch.ones(3, device=dev), ax.group)
+    check(backend == "nccl" and bool((one == 1).all()),
+          f"(a) a world of one under {backend}, its all-reduce the identity")
+    gen = torch.Generator(device=dev).manual_seed(210)
+    starts = NUTS_INIT_SCALE * torch.randn((MESH_NUTS_CHAINS, DIM),
+                                           generator=gen, device=dev)
+    ns = mt.NUTSSettings(n_burnin_draws=MESH_NUTS_WARM,
+                         n_keep_draws=MESH_NUTS_KEEP,
+                         n_adapt_draws=MESH_NUTS_WARM,
+                         target_accept_rate=NUTS_TARGET_ACCEPT)
+    step = REF_STEP_FRACTION * float(nuts_state.epsilon_bar[0])
+    inv_mass = nuts_state.inv_mass[0]
+    hs = mt.HMCSettings(n_burnin_draws=0, n_keep_draws=MESH_HMC_TRANS,
+                        step_size=step, n_leap_steps=REF_LEAP,
+                        precond_mat=1.0 / inv_mass)
+    hstarts = nuts_state.position.repeat(
+        MESH_HMC_CHAINS // nuts_state.position.shape[0], 1)
+    runs = {
+        "nuts": lambda m: mt.nuts(starts, lk, ns, key=211, mesh=m,
+                                  pooled_adaptation=True,
+                                  adapt_mass_matrix=True),
+        "hmc": lambda m: mt.hmc(hstarts, lk, hs, key=212, mesh=m)}
+    for name, run in runs.items():
+        secs = []
+        draws = []
+        for m in (None, mesh):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = run(m)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            draws.append(r.draws)
+        equal = bool(torch.equal(draws[0], draws[1]))
+        print(f"mesh (a) {name}: {tuple(draws[0].shape)} draws, no mesh "
+              f"{secs[0]:.3f} s, a mesh of one under NCCL {secs[1]:.3f} s "
+              f"({secs[1] / secs[0]:.3f}x); bit-equal: {equal}")
+        check(equal, f"(a) {name}: a mesh of one bit-equal to no mesh")
+        del draws, r
+
+    # (b) two ranks sharing the card over Gloo
+    os.makedirs("build", exist_ok=True)
+    path = os.path.join("build", "mesh_phase_inputs.pt")
+    torch.save({"X": X.cpu(), "y": y.cpu(), "ref_mean": ref["mean"].cpu(),
+                "ref_sd": ref["sd"].cpu(), "inv_mass": inv_mass.cpu(),
+                "ref_step": step}, path)
+    t0 = time.perf_counter()
+    try:
+        ranks = par.launch_local(MESH_RANKS, [__file__, "--mesh-rank", path],
+                                 timeout_s=240)
+    finally:
+        os.remove(path)
+    t_b = time.perf_counter() - t0
+    lines = [r["lines"] for r in ranks]
+    for i, other in enumerate(lines[1:], 1):
+        diff = [k for k in lines[0] if lines[0][k] != other.get(k)]
+        check(not diff, f"(b) ranks 0 and {i} report the same global "
+              f"statistics (differ: {diff})")
+    res = lines[0]
+    as_t = lambda v: torch.tensor(v, dtype=torch.float64)
+    refs = {"hmc": ref, "nuts": ref}
+    zero = {"mean": torch.zeros(2, dtype=torch.float64),
+            "mcse": torch.zeros(2, dtype=torch.float64)}
+    for name, t in ranks[0]["timing"].items():
+        if name == "data_parallel":
+            continue
+        r = res[name]
+        want = refs.get(name, zero)
+        z = float(((as_t(r["mean"]) - want["mean"].double().cpu()).abs()
+                   / torch.hypot(as_t(r["mcse"]),
+                                 want["mcse"].double().cpu())).max())
+        extra = {k: v for k, v in r.items() if k not in ("mean", "mcse")}
+        print(f"mesh (b) {name}: {t['seconds']:.3f} s; collectives per "
+              f"draw {json.dumps(t['collectives_per_draw'])}; max |mean - "
+              f"reference| / combined MC standard error {z:.3f} (tol "
+              f"{NUTS_MEAN_SIGMAS:g}); {json.dumps(extra)}")
+        check(z <= NUTS_MEAN_SIGMAS, f"(b) {name}: means within "
+              f"{NUTS_MEAN_SIGMAS:g} combined MC standard errors of the "
+              "reference")
+    check(res["nuts"]["pooled_equal"], "(b) nuts: one pooled step size and "
+          "mass on every chain of both ranks")
+    check(abs(res["smc"]["log_z"]) < 0.1 and abs(
+        res["smc"]["mode_share"] - 0.5) < 0.05, "(b) smc: |log Z| < 0.1 and "
+          "mode share within 0.05 of 1/2")
+    for name in ("pt_sharded", "aees_sharded", "de"):
+        share = res[name]["mode_share"]
+        check(0.15 < share < 0.85, f"(b) {name}: both modes visited "
+              f"(share {share:.3f})")
+    dp = res["data_parallel"]
+    tol = MESH_LINES["data_parallel"]["tol"]
+    print(f"mesh (b) data_parallel: (1, 2) grid, value error "
+          f"{dp['value_err']:.3e}, gradient error {dp['grad_err']:.3e} "
+          f"(scaled by the largest |value| and |gradient|; tol {tol:g}); "
+          f"{ranks[0]['timing']['data_parallel']['seconds']:.3f} s")
+    check(dp["value_err"] <= tol and dp["grad_err"] <= tol,
+          "(b) data_parallel_kernel's value and gradient match the "
+          "unsharded kernel")
+    print(f"mesh (b): {MESH_RANKS} ranks on one card over Gloo in "
+          f"{t_b:.1f} s (start-up included)")
+
+    # (c) the eleven sharded paths, two ranks
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, device="cuda", timeout_s=240)
+    print(f"mesh (c) dryrun_multichip(2): ok {dry['ok']}, "
+          f"{len(dry['paths'])} paths in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps({k: round(v.get("seconds", 0.0), 3)
+                        for k, v in dry["paths"].items()}))
+    check(dry["ok"] and len(dry["paths"]) == 11, "(c) the eleven paths ran")
+    torch.distributed.destroy_process_group()
+    seconds = time.perf_counter() - t_phase
+    print(f"mesh phase: {seconds:.1f} s (budget {MESH_PHASE_BUDGET_S:g} s)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2312,9 +2693,20 @@ def main():
     # f32 matmuls of the plain versions in full f32, as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    t_script = time.perf_counter()
+    phase_s = {}      # each phase's seconds, printed before the last lines
+    mark = [t_script]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - mark[0], 1)
+        mark[0] = now
+
     print(card_line())
     print(f"device: {torch.cuda.get_device_name(0)}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"cuts that pay for phase 20 (before, after): "
+          f"{json.dumps(MESH_CUTS)}")
 
     # --- build
     t0 = time.perf_counter()
@@ -2404,6 +2796,21 @@ def main():
           f"min ESS {ess:.1f} (of {N_KEEP * N_CHAINS} draws)")
     fused_mean = out.draws.mean(dim=(0, 1))
     del out
+    # the fused step's accept potential: one f32 pass (TF32 off) at the end
+    # position (a Deviation from the JAX package's bf16-path U), timed alone
+    # and as part of a whole transition at the flagship shapes
+    c2_step = fl.make_fused_hmc_step(X_np, y_np, PRIOR_SCALE, STEP_SIZE,
+                                     N_LEAP)
+    c2_gen = torch.Generator(device=dev).manual_seed(14)
+    c2_state = c2_step.init(0.05 * torch.randn((N_CHAINS, DIM),
+                                               generator=c2_gen, device=dev))
+    f32_ms, step_ms = median_ms([
+        lambda: c2_step.reference_potential(c2_state.position),
+        lambda: c2_step(c2_gen, c2_state)])
+    print(f"fused step: the f32 accept potential {f32_ms:.4f} ms of a "
+          f"{step_ms:.4f} ms transition ({N_CHAINS} chains; median of 10 "
+          "windows of 10 calls)")
+    del c2_step, c2_state
 
     # --- generic HMC over the same transitions, same start distribution
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -2583,6 +2990,7 @@ def main():
     check(var_err <= G_VAR_TOL, f"Gaussian variance within {G_VAR_TOL}")
     del out
 
+    lap("1-8")
     # --- adapted NUTS, the quality line, before any profiler runs
     out, nuts_step, nuts_gen, nuts_state = nuts_line(
         X, y, NUTS_CHAINS, "nuts", 40, full_diag=True)
@@ -2596,6 +3004,7 @@ def main():
           f"standard error {z:.3f} over {DIM} dims (tol {NUTS_MEAN_SIGMAS:g})")
     check(z <= NUTS_MEAN_SIGMAS, "NUTS's posterior means agree with the hmc "
           f"reference's within {NUTS_MEAN_SIGMAS:g} MC standard errors")
+    lap("9")
     big, *_ = nuts_line(X, y, NUTS_BIG_CHAINS, "nuts4096", 41,
                         full_diag=False, n_keep=NUTS_BIG_KEEP)
     z = float(((out["mean"] - big["mean"]).abs()
@@ -2605,26 +3014,37 @@ def main():
     check(z <= NUTS_MEAN_SIGMAS, "the two NUTS lines' posterior means agree "
           f"within {NUTS_MEAN_SIGMAS:g} MC standard errors")
 
+    lap("10")
     # --- the bench's other quality lines, at its widths and protocols
     chees_path = chees_line(X, y, ref)
     ghmc_path = ghmc_line(X, y, ref)
     mclmc_path = microcanonical_lines(X, y, ref)
 
+    lap("11-13")
     # --- the suite's rows of RWMH, MALA, DE and RM-HMC, at full settings
     mala_path, rmhmc_path, refs = suite_rows(dev)
+    lap("14")
 
     # --- the suite's rows of AEES, PT, SMC, stretch and DE-MC(Z), likewise
     aees_path, pt_path = tempering_rows(dev)
+    lap("15")
 
     # --- the suite's rows of slice, elliptical slice, Barker and Gibbs,
     # and the SGLD and mMALA lines
     slice_path, ellipse_path, gibbs_path = remaining_rows(dev, refs)
+    lap("16")
 
     # --- the one-call workflow on the flagship posterior
     workflow_phase(X_np, y_np, ref)
+    lap("17")
 
     # --- evidence, approximate inference and durability
     evidence_phase(X_np, y_np, ref)
+    lap("18")
+
+    # --- multi-device sampling on the one card
+    mesh_phase(X_np, y_np, ref, nuts_state)
+    lap("20")
 
     # --- where the time of a steady transition goes (printed, not gated)
     t_profile = time.perf_counter()
@@ -2675,6 +3095,9 @@ def main():
           f"events) of one profiled fused GLM step")
     check(trace_bytes > 0 and n_events > 0, "the Chrome trace is not empty")
     print(f"profiles: phase seconds {time.perf_counter() - t_profile:.1f}")
+    lap("19")
+    print(f"phase seconds: {json.dumps(phase_s)}; the script "
+          f"{time.perf_counter() - t_script:.1f} s")
 
     # bounds from the model's own sizes (the work the function needs); the
     # padded shapes the kernels are handed give the *_padded figures
@@ -2733,4 +3156,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(sys.argv[2]))
     sys.exit(main())

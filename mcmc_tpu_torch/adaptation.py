@@ -6,7 +6,8 @@ a state machine, plus the Stan-style windowed mass estimation. Every state
 tensor carries the chain batch on its leading axis, one adaptation per
 chain, as the JAX package's vmapped kernels keep it. Where the JAX package
 pools an estimate with ``lax.pmean`` over a named chain axis, ``pooled=True``
-here takes the mean over the chain axis.
+here takes the mean over the chain axis, over every rank's chains in a
+sharded run (:func:`mcmc_tpu_torch.parallel.chain_mean`).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from mcmc_tpu_torch.parallel.mesh import chain_mean
 
 __all__ = ["DualAveraging", "da_init", "da_update", "TARGET_ACCEPT",
            "window_schedule", "WindowedVariance", "wv_init", "wv_update",
@@ -114,7 +117,7 @@ def windowed_mass_update(count, mean, m2, inv_mass, chol, x,
         n3 = n[:, None, None]
         var = m2 / (n3 - 1.0)
         if pooled:
-            var = var.mean(dim=0, keepdim=True)
+            var = chain_mean(var, dim=0, keepdim=True)
         eye = torch.eye(x.shape[1], dtype=dtype, device=x.device)
         var = (n3 / (n3 + 5.0)) * 0.5 * (var + var.transpose(1, 2)) \
             + shrink[:, None, None] * eye
@@ -125,7 +128,7 @@ def windowed_mass_update(count, mean, m2, inv_mass, chol, x,
         n2 = n[:, None]
         var = m2 / (n2 - 1.0)
         if pooled:
-            var = var.mean(dim=0, keepdim=True)
+            var = chain_mean(var, dim=0, keepdim=True)
         var = (n2 / (n2 + 5.0)) * var + shrink[:, None]
     inv_mass = torch.where(wend, var, inv_mass)
     count = torch.where(window_end, torch.zeros_like(count), count)

@@ -21,6 +21,7 @@ mt19937 state on the CPU, the seed and offset on the card).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pathlib
@@ -31,6 +32,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mcmc_tpu_torch.runtime import DrawSink, read_draws
 
@@ -243,13 +245,26 @@ class ChunkedRunner:
 
     Calling :meth:`run` again with the same directory resumes from the last
     completed chunk and is bit-identical to an uninterrupted run.
+
+    With ``shard`` (a :class:`~mcmc_tpu_torch.parallel.mesh.ChainShard`),
+    every rank passes the global ``state0`` and the run's generator; each
+    runs its block of the chains on its own generator
+    (:func:`~mcmc_tpu_torch.parallel.mesh.rank_generator`), and at every
+    chunk's end the ranks gather the chunk's draws, info sums, state and
+    generator states, which rank 0 writes: a checkpoint holds the global
+    state, so a run may resume on a different mesh size (the ranks'
+    generators are then derived afresh from the run's seed and the
+    completed draw count), and a killed run resumes bit-identically on the
+    same mesh size. The directory must be on a file system every rank
+    sees.
     """
 
-    def __init__(self, step, collect_fn, directory):
+    def __init__(self, step, collect_fn, directory, shard=None):
         self.step = step
         self.collect = collect_fn
         self.dir = pathlib.Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
+        self.shard = shard
 
     def run(self, gen, state0, n_draws, chunk_size=100, n_burnin=0,
             max_chunks=None, track_moments=False, progress=False):
@@ -274,15 +289,28 @@ class ChunkedRunner:
         done / total, draws/s since start) to stderr; pass a callable
         instead to receive ``{"done", "total", "draws_per_s", "phase"}``
         after each persisted chunk."""
-        state = state0
         total = n_burnin + n_draws
         chunk_size = max(int(chunk_size), 1)
+        shard = self.shard
+        writer = shard is None or dist.get_rank() == 0
+        if shard is None:
+            like, state = (gen, state0), state0
+        else:
+            from mcmc_tpu_torch.parallel import mesh as mesh_mod
+            ax = shard.axis
+            seed, gen = mesh_mod.rank_generator(gen, shard.rows.start)
+            sgen = mesh_mod.shared_generator(seed, gen.device)
+            # every rank's generator states, one row each: its own stream's
+            # and the shared stream's
+            like, state = (np.zeros((0,), np.uint8), state0), \
+                shard.local(state0)
         gen_entry = gen.get_state()
 
-        # the sink stores exactly what collect() produces: its shape and
-        # dtype (float64 runs stay float64)
-        sample = self.collect(state0)
-        row_shape = tuple(sample.shape)
+        # the sink stores exactly what collect() produces (every rank's
+        # rows): its shape and dtype (float64 runs stay float64)
+        sample = self.collect(state)
+        row_shape = tuple(sample.shape) if shard is None else \
+            (shard.n,) + tuple(sample.shape[1:])
         dtype_name = str(sample.dtype).replace("torch.", "")
         dev = sample.device
 
@@ -291,13 +319,15 @@ class ChunkedRunner:
         sink_path = self.dir / "draws.bin"
         run_meta = {"n_draws": n_draws, "chunk_size": chunk_size,
                     "n_burnin": n_burnin, "dtype": dtype_name}
+        if shard is not None:
+            run_meta["mesh_seed"] = str(seed)
 
         done = 0
         totals = {}
         mom = None
         if ckpt.exists():
             try:
-                leaves, meta, saved = _load_ckpt(ckpt, like=(gen, state0))
+                leaves, meta, saved = _load_ckpt(ckpt, like=like)
                 # chunk_size does not affect results (the generator and
                 # state stream are in the checkpoint; chunking only moves
                 # persistence boundaries), and a larger n_draws continues
@@ -307,10 +337,38 @@ class ChunkedRunner:
                           and meta.get("dtype") == dtype_name
                           and meta.get("done", 0) <= total)
                 if compat:
+                    if shard is None and np.ndim(leaves[0]) == 2:
+                        # a sharded run's checkpoint resumed without a
+                        # mesh: a fresh stream from its seed and progress
+                        from mcmc_tpu_torch.samplers._resolve import \
+                            stream_generator
+                        leaves = [stream_generator(
+                            int(meta["mesh_seed"]), meta["done"], 0,
+                            device=gen.device).get_state().numpy()] \
+                            + list(leaves[1:])
                     it = iter([_from_numpy(t, a) for t, a in
-                               zip(_flatten((gen, state0)), leaves)])
-                    _gen, state = _unflatten((gen, state0), it)
+                               zip(_flatten(like), leaves)])
+                    saved_gens, state = _unflatten(like, it)
                     done, totals = meta["done"], saved
+                    if shard is not None:
+                        state = shard.local(state)
+                        if saved_gens.ndim == 2 and \
+                                saved_gens.shape[0] == ax.size:
+                            row = torch.from_numpy(
+                                saved_gens[ax.index].copy())
+                            half = row.shape[0] // 2
+                            gen.set_state(row[:half].clone())
+                            sgen.set_state(row[half:].clone())
+                        else:
+                            # another mesh size: fresh streams per rank
+                            from mcmc_tpu_torch.samplers._resolve import \
+                                stream_generator
+                            s0 = int(meta.get("mesh_seed", seed))
+                            gen = stream_generator(s0, done,
+                                                   shard.rows.start,
+                                                   device=gen.device)
+                            sgen = stream_generator(s0, done, 0, 0,
+                                                    device=gen.device)
                     if all(k in totals for k in _MOM_KEYS):
                         mom = [totals.pop(k) for k in _MOM_KEYS]
                 else:
@@ -325,15 +383,16 @@ class ChunkedRunner:
                 # a checkpoint of another sampler-state layout: restart
                 # rather than crash
                 gen.set_state(gen_entry)
-                state, totals, done = state0, {}, 0
+                state = state0 if shard is None else shard.local(state0)
+                totals, done = {}, 0
                 warnings.warn(f"ignoring incompatible checkpoint in "
                               f"{self.dir}: {e}")
 
         t_start, done_start = time.monotonic(), done
-        if done == 0 and sink_path.exists():
+        if writer and done == 0 and sink_path.exists():
             sink_path.unlink()
         kept_done = max(0, done - n_burnin)
-        existing = None if done == 0 else \
+        existing = None if done == 0 or not writer else \
             np.array(read_draws(sink_path, mmap=False)[:kept_done])
         if not track_moments:
             # stale moments the caller no longer maintains would miss this
@@ -354,7 +413,9 @@ class ChunkedRunner:
             return host_bufs[i % 2]
 
         n_chunks = 0
-        with DrawSink(sink_path, row_shape, np.dtype(dtype_name)) as sink:
+        # only rank 0 of a sharded run writes
+        with (DrawSink(sink_path, row_shape, np.dtype(dtype_name)) if writer
+              else contextlib.nullcontext()) as sink:
             if existing is not None and existing.shape[0]:
                 sink.append(existing)
 
@@ -408,41 +469,66 @@ class ChunkedRunner:
                 kept = done >= n_burnin
                 step_n = min(chunk_size, (total if kept else n_burnin) - done)
                 sums = {}
-                with torch.no_grad():
+                scope = contextlib.nullcontext() if shard is None else \
+                    mesh_mod.sharded_chains(ax, sgen)
+                with torch.no_grad(), scope:
                     for i in range(step_n):
                         state, info = self.step(gen, state)
                         if not kept:
                             continue
                         if dev_buf is None:
-                            dev_buf = sample.new_empty(buf_shape)
+                            dev_buf = sample.new_empty(
+                                buf_shape[:1] + tuple(sample.shape))
                         dev_buf[i] = self.collect(state)
                         for k, v in info.items():
                             v = torch.as_tensor(v)
                             v = v.to(torch.float64) if v.is_floating_point() \
                                 else v.to(torch.int64)
                             sums[k] = sums[k] + v if k in sums else v
+                gen_state, state_out, chunk_draws = gen.get_state(), state, \
+                    dev_buf[:step_n] if kept else None
+                if shard is not None:
+                    # every rank's rows, generator and info sums
+                    gen_state = mesh_mod.all_gather(
+                        torch.cat([gen_state, sgen.get_state()])[None],
+                        ax.group, ax.size)
+                    state_out = shard.gather(state)
+                    if kept:
+                        chunk_draws = mesh_mod.all_gather(
+                            chunk_draws, ax.group, ax.size, dim=1)
+                        sums = {k: mesh_mod.all_gather(v, ax.group, ax.size)
+                                for k, v in sums.items()}
                 # the chunk is launched: queue its copies to the host, then
                 # persist the previous chunk while the card works
-                chunk = {"gen": gen.get_state(), "kept": kept,
+                chunk = {"gen": gen_state, "kept": kept,
                          "done": done + step_n,
                          "state": [_host_copy(x, None) if torch.is_tensor(x)
-                                   else x for x in _flatten(state)]}
+                                   else x for x in _flatten(state_out)]}
                 if kept:
                     chunk["draws"] = _host_copy(
-                        dev_buf[:step_n], host_buf(n_chunks)[:step_n])
+                        chunk_draws, host_buf(n_chunks)[:step_n])
                     chunk["infos"] = {k: _host_copy(v, None)
                                       for k, v in sums.items()}
                 chunk["event"] = None
                 if on_card:
                     chunk["event"] = torch.cuda.Event()
                     chunk["event"].record()
-                if pending is not None:
+                if pending is not None and writer:
                     persist(pending)
                 pending = chunk
                 done += step_n
                 n_chunks += 1
-            if pending is not None:
+            if pending is not None and writer:
                 persist(pending)
+        if shard is not None:
+            # the other ranks read what rank 0 wrote
+            dist.barrier()
+            state = shard.gather(state)
+            if not writer:
+                totals = dict(_load_ckpt(ckpt, like=like)[2]) \
+                    if ckpt.exists() else {}
+                totals = {k: v for k, v in totals.items()
+                          if k not in _MOM_KEYS}
         out_totals = dict(totals)
         if track_moments and mom is not None:
             out_totals["moments"] = {"count": mom[0], "mean": mom[1],

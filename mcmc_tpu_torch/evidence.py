@@ -54,6 +54,7 @@ from typing import Any, NamedTuple
 import torch
 
 from mcmc_tpu_torch import adaptation, bounds as bounds_mod, integrators
+from mcmc_tpu_torch.parallel.mesh import chain_mean
 from mcmc_tpu_torch.pytree import coerce_model
 from mcmc_tpu_torch.settings import EvidenceSettings
 from mcmc_tpu_torch.samplers import common
@@ -208,7 +209,8 @@ def _build_kernel(box_prior, box_lik, s: EvidenceSettings, dim, dtype,
         # per-rung dual averaging toward target_acc, pooled across ladders
         da = state.da
         if adapting:
-            da = adaptation.da_update(da, alpha.mean(dim=0), target_acc)
+            da = adaptation.da_update(da, chain_mean(alpha, dim=0),
+                                      target_acc)
 
         info = {"accepted": acc[:, K - 1], "acc_all": acc.to(X.dtype)}
         # DEO swap round: deterministic even/odd alternation
@@ -328,11 +330,12 @@ def thermo_evidence(initial_vals, log_prior, log_lik, settings=None, *,
     Bounds come from ``settings``'s umbrella fields, exactly as in the
     samplers; the log-Jacobian attaches to the (untempered) prior factor.
     ``key`` is a ``torch.Generator`` or an integer seed; ``device``
-    defaults to that of ``initial_vals``, else the card. ``mesh`` is not
-    ported yet and raises.
+    defaults to that of ``initial_vals``, else the card. ``mesh`` shards the
+    ladders (``n_chains``) over its ranks (:mod:`mcmc_tpu_torch.parallel`;
+    the per-rung step sizes pool over every rank's ladders).
     """
     algo, s = resolve_settings(settings, "evidence_settings", EvidenceSettings)
-    common._no_mesh(mesh)
+    common.check_mesh(mesh)
     initial_vals, (log_prior, log_lik), _unravel = coerce_model(
         initial_vals, log_prior, log_lik, device=device)
 
@@ -359,7 +362,7 @@ def thermo_evidence(initial_vals, log_prior, log_lik, settings=None, *,
     state0 = make_state0(prob.first_draw)
     final, ll_draws, infos = common.run_sampler_loop(
         gen, state0, step, s.n_burnin_draws, s.n_keep_draws,
-        collect_fn=lambda st: st.ll)
+        collect_fn=lambda st: st.ll, mesh=mesh)
     # ll_draws: (n_keep, n_chains, K)
 
     log_z_ss, log_z_ti, e_ll, v_ll = estimate_from_ll(ll_draws, betas)

@@ -13,7 +13,15 @@ Precision contract (the JAX package's): matmuls take bf16 operands — the
 position rounded to bf16 before ``eta = z X^T`` and the residual rounded to
 bf16 before ``g = r X`` — with f32 accumulation; positions, momenta and the
 potential are f32. The potential the trajectory returns is computed from the
-bf16-path ``eta`` (ROADMAP C2, kept for parity with the reference).
+bf16-path ``eta``, as the Pallas kernel's is.
+
+**Deviation** (from the JAX package's ``make_fused_hmc_step``): the step's
+accept test and stored potential use one f32 pass at the end position
+(``reference_potential``, the function ``init`` uses, with TF32 off), not
+the trajectory's bf16-path potential. The JAX step mixes the two (an f32
+potential at the start, bf16-path ones after), which differ by up to 0.5 on
+the flagship posterior (``tests/test_fused_logreg.py:48-49``), so its
+Metropolis test does not target the f32 density its docstring promises.
 
 :func:`make_fused_trajectory_rt` is the same trajectory with the step size
 and a diagonal inverse mass given at call time (the same kernel, with the
@@ -94,38 +102,54 @@ def _erf_poly(x):
 
 
 def _softplus(x):
-    # logaddexp(x, 0), the JAX package's softplus, in the kernel's form
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+    # logaddexp(x, 0), the JAX package's softplus, as one fused operation
+    return torch.logaddexp(x, x.new_zeros(()))
 
 
 def _link_eval_fns(link):
-    """Per-family ``(mu_eff, ll_terms)`` from the linear predictor. The
-    gradient contract is ``d ll / d eta = y - mu_eff`` — exactly the mean
-    function for canonical links (logistic/poisson/linear); for the
-    non-canonical ``probit`` and :func:`studentt_link` families
-    ``mu_eff = y - score`` encodes the true score in the same slot. A
+    """Per-family ``(mu_eff, ll_rows)`` of the linear predictor ``eta``
+    ``(n_chains, n_obs)``. ``mu_eff(eta, y)`` carries the gradient contract
+    ``d ll / d eta = y - mu_eff`` — exactly the mean function for canonical
+    links (logistic/poisson/linear); for the non-canonical ``probit`` and
+    :func:`studentt_link` families ``mu_eff = y - score`` encodes the true
+    score in the same slot. ``ll_rows(eta, y, w)`` is each chain's
+    log-likelihood ``sum_i w_i ll_i`` (``w`` masks padded observations):
+    the one definition of the density that the plain trajectory's
+    potential and the step's f32 accept potential share. Where a family's
+    terms are ``y eta - A(eta)`` the ``y eta`` part is one product with the
+    weighted responses, so the row sum reads ``eta`` in few passes. A
     callable ``link(eta, y) -> (mu_eff, ll_terms)`` plugs any family
     written in torch into the same trajectory."""
-    def link_eval(eta, yv):
-        if callable(link):
-            return link(eta, yv)
-        if link == "logistic":
-            return torch.sigmoid(eta), yv * eta - _softplus(eta)
-        if link == "poisson":
-            mu = torch.exp(eta)
-            return mu, yv * eta - mu
-        if link == "probit":
-            # stable Bernoulli-probit score: phi/Phi for y=1, -phi/(1-Phi)
-            # for y=0 (inverse Mills ratios), Phi clipped at the f32 floor
+    if callable(link):
+        return (lambda eta, yv: link(eta, yv)[0],
+                lambda eta, yv, w: link(eta, yv)[1] @ w)
+    if link == "logistic":
+        return (lambda eta, yv: torch.sigmoid(eta),
+                lambda eta, yv, w: eta @ (w * yv) - _softplus(eta) @ w)
+    if link == "poisson":
+        return (lambda eta, yv: torch.exp(eta),
+                lambda eta, yv, w: eta @ (w * yv) - torch.exp(eta) @ w)
+    if link == "probit":
+        def probit(eta):
+            # stable Bernoulli-probit pieces: Phi clipped at the f32 floor
             phi = torch.exp(-0.5 * eta * eta) * (1.0 / math.sqrt(2.0 * math.pi))
             cdf = torch.clamp(
                 0.5 * (1.0 + _erf_poly(eta * (1.0 / math.sqrt(2.0)))),
                 _PROBIT_TINY, 1.0 - 1e-7)
-            score = yv * phi / cdf - (1.0 - yv) * phi / (1.0 - cdf)
-            ll = yv * torch.log(cdf) + (1.0 - yv) * torch.log(1.0 - cdf)
-            return yv - score, ll
-        return eta, -0.5 * (yv - eta) ** 2
-    return link_eval
+            return phi, cdf
+
+        def mu(eta, yv):
+            # score phi/Phi for y=1, -phi/(1-Phi) for y=0 (inverse Mills)
+            phi, cdf = probit(eta)
+            return yv - (yv * phi / cdf - (1.0 - yv) * phi / (1.0 - cdf))
+
+        def ll_rows(eta, yv, w):
+            _phi, cdf = probit(eta)
+            return (yv * torch.log(cdf)
+                    + (1.0 - yv) * torch.log(1.0 - cdf)) @ w
+        return mu, ll_rows
+    return (lambda eta, yv: eta,
+            lambda eta, yv, w: (-0.5 * (yv - eta) ** 2) @ w)
 
 
 def studentt_link(nu: float = 4.0):
@@ -172,20 +196,18 @@ def _fused_trajectory_plain(z, p, Xb, y, mask, inv_pv, step_size, n_leap,
     ``step_size`` a float or a 0-d f32 tensor; ``inv_mass`` ``None`` or a
     ``(Dp,)`` f32 diagonal inverse mass of the drift. Returns
     ``(z_new, p_new, U_new)``."""
-    link_eval = _link_eval_fns(link)
+    mu_eff, ll_rows = _link_eval_fns(link)
     Xf = Xb.float()            # exact: every bf16 value is an f32 value
     half_eps = 0.5 * step_size
     eps = step_size
 
     def grad_of(z, want_u):
         eta = z.bfloat16().float() @ Xf.T
-        mu, ll_terms = link_eval(eta, y)
-        r = (y - mu) * mask
+        r = (y - mu_eff(eta, y)) * mask
         g = r.bfloat16().float() @ Xf - z * inv_pv
         u = None
         if want_u:
-            ll = (mask * ll_terms).sum(dim=1)
-            u = -(ll - 0.5 * (z * z).sum(dim=1) * inv_pv)
+            u = -(ll_rows(eta, y, mask) - 0.5 * (z * z).sum(dim=1) * inv_pv)
         return g, u
 
     # gradient hoisted across steps: n_leap + 1 evaluations
@@ -401,7 +423,9 @@ def make_fused_hmc_step(X, y, prior_scale=10.0, step_size=0.01, n_leap=4,
     """Batched HMC transition ``step(gen, state) -> (state, info)`` with the
     trajectory fused; each transition draws its momenta and uniforms for all
     chains from the one ``torch.Generator`` ``gen``. ``step.init(positions)``
-    pads ``(n_chains, dim)`` positions and computes their f32 potential."""
+    pads ``(n_chains, dim)`` positions and computes their f32 potential, the
+    same function (``step.reference_potential``) that gives each proposal's
+    potential for the accept test."""
     device = resolve_device(device, X)
     traj = make_fused_trajectory(X, y, prior_scale, step_size, n_leap,
                                  block_chains, link, device)
@@ -410,14 +434,20 @@ def make_fused_hmc_step(X, y, prior_scale=10.0, step_size=0.01, n_leap=4,
     X32 = torch.as_tensor(X, dtype=torch.float32, device=device)
     y32 = torch.as_tensor(y, dtype=torch.float32, device=device)
     inv_pv = 1.0 / (prior_scale * prior_scale)
-    link_eval_ = _link_eval_fns(link)
+    _mu_eff, ll_rows = _link_eval_fns(link)
+    w1 = torch.ones_like(y32)
 
     def reference_potential(zp):
-        # same per-family ll_terms the kernel computes, so the initial U is
-        # consistent with in-trajectory U for every link (incl. callables)
+        # the f32 density (TF32 off), the plain trajectory's ll_rows for
+        # every link (incl. callables): the potential at init and at every
+        # accept test (module docstring, Deviation)
         z = zp[:, :dim]
-        _mu, ll_terms = link_eval_(z @ X32.T, y32)
-        ll = ll_terms.sum(dim=1)
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("highest")
+        try:
+            ll = ll_rows(z @ X32.T, y32, w1)
+        finally:
+            torch.set_float32_matmul_precision(prev)
         return -(ll - 0.5 * (z ** 2).sum(dim=1) * inv_pv)
 
     def init(positions):
@@ -436,7 +466,10 @@ def make_fused_hmc_step(X, y, prior_scale=10.0, step_size=0.01, n_leap=4,
                          device=device) * col_mask
         prev_K = 0.5 * (p0 * p0).sum(dim=1)
 
-        z_new, p_new, prop_U = traj(state.position, p0)
+        z_new, p_new, _traj_U = traj(state.position, p0)
+        # the accept potential: one f32 pass at the end position, not the
+        # trajectory's bf16-path U (module docstring, Deviation)
+        prop_U = reference_potential(z_new)
         prop_U = torch.where(torch.isfinite(prop_U), prop_U, torch.inf)
         prop_K = 0.5 * (p_new * p_new).sum(dim=1)
 
@@ -453,6 +486,7 @@ def make_fused_hmc_step(X, y, prior_scale=10.0, step_size=0.01, n_leap=4,
         return new_state, {"accepted": accepted}
 
     step.init = init
+    step.reference_potential = reference_potential
     step.dim = dim
     step.dim_padded = Dp
     return step
@@ -737,6 +771,7 @@ def make_fused_gaussian_hmc_step(precision, mean=None, step_size=0.1,
         return new_state, {"accepted": accepted}
 
     step.init = init
+    step.reference_potential = reference_potential
     step.dim = dim
     step.dim_padded = Dp
     return step

@@ -504,11 +504,13 @@ def aees(initial_vals, log_kernel, settings=None, *, key=None, n_runs=None,
     the cold chain moved (the reference's AEES tracks no acceptance).
 
     ``key`` is a ``torch.Generator`` or an integer seed; ``device`` defaults
-    to that of ``initial_vals``, else the card. ``mesh`` is not ported yet and
-    raises; ``checkpoint_dir`` runs in restartable chunks
-    (:mod:`mcmc_tpu_torch.checkpoint`)."""
+    to that of ``initial_vals``, else the card. ``mesh`` shards the ladder
+    replicas (``n_runs``) over its ranks, each rank running whole ladders
+    (:mod:`mcmc_tpu_torch.parallel`; one rung per rank is
+    :func:`mcmc_tpu_torch.parallel.aees_sharded`); ``checkpoint_dir`` runs
+    in restartable chunks (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "aees_settings", AEESSettings)
-    common._no_mesh(mesh)
+    common.check_mesh(mesh)
 
     prob = common.setup_problem(initial_vals, log_kernel, algo, None, dtype,
                                 device)
@@ -562,8 +564,8 @@ def aees(initial_vals, log_kernel, settings=None, *, key=None, n_runs=None,
 
     _, draws, infos = common.run_sampler_loop(
         gen, state0, step, K * block, s.n_keep_draws,
-        collect_fn=lambda st: st.X[:, K - 1], checkpoint_dir=checkpoint_dir,
-        checkpoint_every=checkpoint_every)
+        collect_fn=lambda st: st.X[:, K - 1], mesh=mesh,
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
     draws = common.finalize_draws(draws, prob)            # (n_keep, R, d)
     if "totals" in infos:     # checkpointed run: per-run totals (R, K)
         att = torch.as_tensor(infos["totals"]["ee_attempt"]).sum(dim=0)

@@ -158,7 +158,8 @@ def barker(initial_vals, log_kernel, settings=None, *, n_chains=None,
     with ``pooled_adaptation``. ``return_resume=True`` attaches
     ``diagnostics["resume"](key, n_keep)``. ``key`` is a
     ``torch.Generator`` or an integer seed; ``device`` defaults to that of
-    ``initial_vals``, else the card. ``mesh`` is not ported yet and raises;
+    ``initial_vals``, else the card. ``mesh`` shards the chains over its ranks
+    (:mod:`mcmc_tpu_torch.parallel`);
     ``checkpoint_dir`` runs in restartable chunks
     (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "barker_settings", BarkerSettings)

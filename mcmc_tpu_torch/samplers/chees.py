@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from mcmc_tpu_torch import adaptation, integrators
+from mcmc_tpu_torch.parallel.mesh import chain_mean
 from mcmc_tpu_torch.results import SamplerResult
 from mcmc_tpu_torch.settings import ChEESSettings
 from mcmc_tpu_torch.samplers import common
@@ -188,8 +189,8 @@ def build_chees_kernel(box_log_kernel, grad_fn, cfg: ChEESSettings,
 
         # --- ChEES gradient for T, pooled over the chains; distances in the
         # mass-matrix metric (see the JAX module for why)
-        mu0 = pos.mean(dim=0)
-        mu1 = z_prop.mean(dim=0)
+        mu0 = chain_mean(pos, dim=0)
+        mu1 = chain_mean(z_prop, dim=0)
         if dense:
             # ||d||_M^2 = ||L^{-1} d||^2 with Sigma = L L^T
             w1 = torch.linalg.solve_triangular(
@@ -204,9 +205,9 @@ def build_chees_kernel(box_log_kernel, grad_fn, cfg: ChEESSettings,
         # one overflowed trajectory must not poison the pooled gradient:
         # divergent chains contribute zero
         g_chain = torch.where(torch.isfinite(g_chain), g_chain, 0.0)
-        accept_stat = alpha.mean().expand(c)
+        accept_stat = chain_mean(alpha).expand(c)
         denom = torch.clamp_min(accept_stat, 1e-4)
-        g_T = g_chain.mean() / denom * h
+        g_T = chain_mean(g_chain) / denom * h
         g_logT = torch.clamp(g_T * T, -1e6, 1e6)   # guard overflow into Adam
 
         t_adam = state.draw_ind.to(pos.dtype) + 1.0
@@ -299,7 +300,8 @@ def chees(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
     settings' ``rng_seed_value``); ``device`` defaults to that of
     ``initial_vals``, else the card. ``return_resume=True`` attaches
     ``diagnostics["resume"](key, n_keep)``, a warm continuation from the
-    final kernel state. ``mesh`` is not ported yet and raises;
+    final kernel state. ``mesh`` shards the chains over its ranks
+    (:mod:`mcmc_tpu_torch.parallel`);
     ``checkpoint_dir`` runs in restartable chunks
     (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "chees_settings", ChEESSettings)

@@ -18,13 +18,14 @@ from typing import Any, Callable, Optional
 import torch
 
 from mcmc_tpu_torch import bounds as bounds_mod
+from mcmc_tpu_torch.parallel import mesh as mesh_mod
 from mcmc_tpu_torch.samplers._resolve import resolve_device
 
 __all__ = ["SPD", "make_spd", "Problem", "setup_problem", "run_sampler_loop",
            "tally_accepts", "thin_step", "make_population_runner",
            "population_accept_diag", "population_accept_diag_totals",
            "run_checkpointed", "attach_resume", "finalize_draws",
-           "where_chains", "chain_col"]
+           "where_chains", "chain_col", "check_mesh"]
 
 
 @dataclass(frozen=True)
@@ -214,15 +215,16 @@ def thin_step(step_fn, thin: int):
     return step
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-device chain sharding) is not ported to PyTorch "
-            "yet; see ROADMAP A12")
+def check_mesh(mesh):
+    """Raise ``TypeError`` unless ``mesh`` is ``None`` or a mesh
+    (:func:`mcmc_tpu_torch.parallel.make_mesh`), ``ValueError`` for a mesh
+    without a ``"chains"`` axis: for entry points that check their
+    arguments before any work."""
+    mesh_mod.chain_axis_of(mesh)
 
 
 def run_checkpointed(gen, state0, step_fn, n_burnin, n_keep, collect_fn,
-                     checkpoint_dir, checkpoint_every=500):
+                     checkpoint_dir, checkpoint_every=500, mesh=None):
     """``n_burnin`` + ``n_keep`` transitions of ``step_fn`` in restartable
     chunks of ``checkpoint_every`` (:class:`mcmc_tpu_torch.checkpoint.
     ChunkedRunner`): the same ``step_fn(gen, state)`` calls in the same
@@ -230,39 +232,33 @@ def run_checkpointed(gen, state0, step_fn, n_burnin, n_keep, collect_fn,
     in-memory run's bit for bit. Returns ``(final_state, draws, totals)``
     with ``draws`` a CPU tensor over the sink file's copy-on-write memmap
     (``(n_keep, *collect_fn(state).shape)``) and ``totals`` the per-chain
-    sums of every info entry over the kept draws."""
+    sums of every info entry over the kept draws. With a sharded ``mesh``
+    each rank runs its block of the chains and rank 0 writes the global
+    draws and state (:class:`~mcmc_tpu_torch.checkpoint.ChunkedRunner`)."""
     from mcmc_tpu_torch.checkpoint import ChunkedRunner
-    runner = ChunkedRunner(step_fn, collect_fn, checkpoint_dir)
+    axis = mesh_mod.chain_axis_of(mesh)
+    shard = None if axis is None else mesh_mod.ChainShard(axis, state0)
+    runner = ChunkedRunner(step_fn, collect_fn, checkpoint_dir, shard=shard)
     final, draws, totals = runner.run(
         gen, state0, n_draws=n_keep, n_burnin=n_burnin,
         chunk_size=checkpoint_every)
     return final, torch.from_numpy(draws), totals
 
 
-def make_population_runner(sweep):
-    """Runner for the population samplers (de so far): ``sweep(gen, state)
-    -> (state, info)`` moves the whole population at once, drawing from the
-    run's one ``torch.Generator``. Runs ``n_burnin`` discarded sweeps then
-    ``n_keep`` kept ones under ``no_grad``, writing ``(state.X,
-    info["accepted"])`` of each kept sweep into preallocated tensors.
+def make_population_runner(sweep, mesh=None):
+    """Runner for the population samplers: ``sweep(gen, state) -> (state,
+    info)`` moves the whole population at once, drawing from the run's one
+    ``torch.Generator``. Runs ``n_burnin`` discarded sweeps then ``n_keep``
+    kept ones (:func:`run_sampler_loop`, the population axis sharded over
+    ``mesh``), keeping ``(state.X, info["accepted"])`` of each kept sweep.
     Returns ``run(state0, gen, n_burnin, n_keep) -> (final_state, (draws,
     accepted))``, draws ``(n_keep, n_pop, n_vals)``."""
 
     def run(state0, gen, n_burnin, n_keep):
-        state, draws, accepted = state0, None, None
-        with torch.no_grad():
-            for _ in range(int(n_burnin)):
-                state, _info = sweep(gen, state)
-            for i in range(int(n_keep)):
-                state, info = sweep(gen, state)
-                if draws is None:
-                    draws = state.X.new_empty((int(n_keep),)
-                                              + tuple(state.X.shape))
-                    accepted = info["accepted"].new_empty(
-                        (int(n_keep),) + tuple(info["accepted"].shape))
-                draws[i] = state.X
-                accepted[i] = info["accepted"]
-        return state, (draws, accepted)
+        state, draws, infos = run_sampler_loop(
+            gen, state0, sweep, n_burnin, n_keep, lambda st: st.X,
+            mesh=mesh)
+        return state, (draws, infos.get("accepted"))
 
     return run
 
@@ -314,15 +310,43 @@ def run_sampler_loop(gen, state0, step_fn, n_burnin, n_keep, collect_fn,
     checkpointing targets are the ones whose history does not fit on the
     card), and ``infos`` carries only ``{"totals": {...}}``, per-chain sums
     of every info entry over the kept draws.
+
+    With ``mesh`` (:mod:`mcmc_tpu_torch.parallel`), every rank passes the
+    same global ``state0`` and generator; each runs its block of the chains
+    (:class:`~mcmc_tpu_torch.parallel.mesh.ChainShard`) on its own
+    generator (:func:`~mcmc_tpu_torch.parallel.mesh.rank_generator`) with
+    the kernel's pooled statistics reduced over the mesh
+    (:func:`~mcmc_tpu_torch.parallel.mesh.chain_mean`), and the final
+    state, draws and per-chain infos are gathered once at the end, so every
+    rank returns the global result. A mesh whose chain axis has one rank
+    runs exactly as no mesh.
     """
-    _no_mesh(mesh)
     step_fn = thin_step(step_fn, thin)
+    axis = mesh_mod.chain_axis_of(mesh)
     if checkpoint_dir is not None:
         final, draws, totals = run_checkpointed(
             gen, state0, step_fn, n_burnin, n_keep, collect_fn,
-            checkpoint_dir, checkpoint_every)
+            checkpoint_dir, checkpoint_every, mesh)
         return final, draws, {"totals": totals}
-    state = state0
+    if axis is None:
+        return _loop(gen, state0, step_fn, n_burnin, n_keep, collect_fn)
+    shard = mesh_mod.ChainShard(axis, state0)
+    seed, rgen = mesh_mod.rank_generator(gen, shard.rows.start)
+    sgen = mesh_mod.shared_generator(seed, rgen.device)
+    with mesh_mod.sharded_chains(axis, sgen):
+        final, draws, infos = _loop(rgen, shard.local(state0), step_fn,
+                                    n_burnin, n_keep, collect_fn)
+    # the draws and the per-chain infos: one all-gather per dtype
+    keys = [k for k, v in infos.items() if v.ndim >= 2]
+    parts = ([] if draws is None else [draws]) + [infos[k] for k in keys]
+    parts = mesh_mod.gather_rows(parts, axis, dim=1)
+    if draws is not None:
+        draws, parts = parts[0], parts[1:]
+    infos = {**infos, **dict(zip(keys, parts))}
+    return shard.gather(final), draws, infos
+
+
+def _loop(gen, state, step_fn, n_burnin, n_keep, collect_fn):
     draws = None
     infos = {}
     with torch.no_grad():

@@ -40,6 +40,7 @@ import torch
 
 from mcmc_tpu_torch import bounds as bounds_mod
 from mcmc_tpu_torch.results import SamplerResult
+from mcmc_tpu_torch.parallel import mesh as mesh_mod
 from mcmc_tpu_torch.settings import DESettings
 from mcmc_tpu_torch.samplers import common
 from mcmc_tpu_torch.samplers._resolve import resolve_settings, resolve_key
@@ -58,12 +59,14 @@ class DEState(NamedTuple):
     gen_ind: torch.Tensor      # () int32 generation counter (jump cadence)
 
 
-def _distinct_pair_indices(r1, r2):
+def _distinct_pair_indices(r1, r2, i=None):
     """Walker ``i``'s partners from its uniform integers ``r1`` on
     ``{0..n_pop-2}`` and ``r2`` on ``{0..n_pop-3}`` (each ``(n_pop,)``):
     ``c1`` uniform on ``{0..n_pop-1} \\ {i}``, ``c2`` on the rest minus
-    ``{c1}``, by shifting past the excluded indices."""
-    i = torch.arange(r1.shape[0], device=r1.device)
+    ``{c1}``, by shifting past the excluded indices. ``i``: the walkers'
+    population indices (default ``0..n-1``; a shard passes its rows')."""
+    if i is None:
+        i = torch.arange(r1.shape[0], device=r1.device)
     c1 = r1 + (r1 >= i)
     a = torch.minimum(i, c1)
     b = torch.maximum(i, c1)
@@ -133,10 +136,12 @@ def de(initial_vals, log_kernel, settings=None, *, key=None, mesh=None,
     kept-phase generations, and the every-10th-generation jump cadence
     counts generations, not rows. ``key`` is a ``torch.Generator`` or an
     integer seed; ``device`` defaults to that of ``initial_vals``, else the
-    card. ``mesh`` is not ported yet and raises; ``checkpoint_dir`` runs in
+    card. ``mesh`` shards the population over the mesh's ranks
+    (:func:`mcmc_tpu_torch.parallel.build_sharded_de_sweep`: one all-gather
+    of the population per generation); ``checkpoint_dir`` runs in
     restartable chunks (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "de_settings", DESettings)
-    common._no_mesh(mesh)
+    common.check_mesh(mesh)
 
     prob = common.setup_problem(initial_vals, log_kernel, algo, None, dtype,
                                 device)
@@ -160,21 +165,25 @@ def de(initial_vals, log_kernel, settings=None, *, key=None, mesh=None,
                      gen_ind=torch.zeros((), dtype=torch.int32,
                                          device=prob.device))
 
-    sweep = common.thin_step(build_de_sweep(prob.box_log_kernel, s, n_vals),
-                             thin)
+    if mesh_mod.chain_axis_of(mesh) is None:
+        sweep = build_de_sweep(prob.box_log_kernel, s, n_vals)
+    else:
+        from mcmc_tpu_torch.parallel.de_sharded import build_sharded_de_sweep
+        sweep = build_sharded_de_sweep(prob.box_log_kernel, s, n_vals, mesh)
+    sweep = common.thin_step(sweep, thin)
     if checkpoint_dir is not None:
         # restartable chunked execution: the same sweeps on the same
         # generator as the in-memory path below, bit for bit
         _, draws, totals = common.run_checkpointed(
             gen, state0, sweep, s.n_burnin_draws, s.n_keep_draws,
-            lambda st: st.X, checkpoint_dir, checkpoint_every)
+            lambda st: st.X, checkpoint_dir, checkpoint_every, mesh)
         per_walker = torch.as_tensor(totals["accepted"])
         return SamplerResult(
             draws=common.finalize_draws(draws, prob),
             n_accept_draws=per_walker.sum(),
             diagnostics=common.population_accept_diag_totals(
                 per_walker, s.n_keep_draws, thin))
-    _, (draws, accepted) = common.make_population_runner(sweep)(
+    _, (draws, accepted) = common.make_population_runner(sweep, mesh)(
         state0, gen, s.n_burnin_draws, s.n_keep_draws)
     n_accept = accepted.to(torch.int64).sum()
     draws = common.finalize_draws(draws, prob)

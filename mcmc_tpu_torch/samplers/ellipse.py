@@ -143,7 +143,8 @@ def elliptical_slice(initial_vals, log_lik, settings=None, *,
     ``diagnostics["mean_shrink_steps"]`` reports the likelihood evaluations
     per draw. Box constraints (``vals_bound``) are rejected. ``key`` is a
     ``torch.Generator`` or an integer seed; ``device`` defaults to that of
-    ``initial_vals``, else the card. ``mesh`` is not ported yet and raises;
+    ``initial_vals``, else the card. ``mesh`` shards the chains over its ranks
+    (:mod:`mcmc_tpu_torch.parallel`);
     ``checkpoint_dir`` runs in restartable chunks
     (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "elliptical_settings",

@@ -155,7 +155,8 @@ def ghmc(initial_vals, log_kernel, settings=None, *, n_chains=None,
     ``log_kernel`` is batched: ``(n_chains, n_vals) -> (n_chains,)``.
     ``key`` is a ``torch.Generator`` or an integer seed (``None``: the
     settings' ``rng_seed_value``); ``device`` defaults to that of
-    ``initial_vals``, else the card. ``mesh`` is not ported yet and raises;
+    ``initial_vals``, else the card. ``mesh`` shards the chains over its ranks
+    (:mod:`mcmc_tpu_torch.parallel`);
     ``checkpoint_dir`` runs in restartable chunks
     (:mod:`mcmc_tpu_torch.checkpoint`).
     """

@@ -256,7 +256,8 @@ def gibbs(initial_vals, log_kernel, settings=None, *, blocks,
     acceptance (exact blocks 1.0; slice blocks the share of sweeps where
     every coordinate found its slice point). ``key`` is a
     ``torch.Generator`` or an integer seed; ``device`` defaults to that of
-    ``initial_vals``, else the card. ``mesh`` is not ported yet and raises;
+    ``initial_vals``, else the card. ``mesh`` shards the chains over its ranks
+    (:mod:`mcmc_tpu_torch.parallel`);
     ``checkpoint_dir`` runs in restartable chunks
     (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "gibbs_settings", GibbsSettings)

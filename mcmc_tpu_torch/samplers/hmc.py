@@ -210,9 +210,9 @@ def hmc(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
     0.8 acceptance during burn-in; ``adapt_mass_matrix=True`` (or ``"diag"``
     / ``"dense"``) adds windowed mass-matrix adaptation.
     ``return_resume=True`` attaches ``diagnostics["resume"](key, n_keep)``,
-    a warm continuation from the final kernel state. ``mesh`` is not ported yet
-    and raises; ``checkpoint_dir`` runs in restartable chunks
-    (:mod:`mcmc_tpu_torch.checkpoint`)."""
+    a warm continuation from the final kernel state. ``mesh`` shards the chains
+    over its ranks (:mod:`mcmc_tpu_torch.parallel`); ``checkpoint_dir`` runs in
+    restartable chunks (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "hmc_settings", HMCSettings)
     if return_resume and checkpoint_dir is not None:
         raise ValueError("return_resume is incompatible with checkpoint_dir")

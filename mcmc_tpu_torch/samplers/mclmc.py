@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from mcmc_tpu_torch import adaptation
+from mcmc_tpu_torch.parallel.mesh import chain_mean
 from mcmc_tpu_torch.results import SamplerResult
 from mcmc_tpu_torch.settings import MCLMCSettings, MAMSSettings
 from mcmc_tpu_torch.samplers import common
@@ -159,8 +160,8 @@ def _random_unit(z):
 def _pooled_var_update(var_ema, position, rate, adapting):
     """EWMA of the instantaneous cross-chain per-dimension variance, pooled
     over the chains, so every chain carries the same estimate."""
-    m1 = position.mean(dim=0)
-    m2 = (position * position).mean(dim=0)
+    m1 = chain_mean(position, dim=0)
+    m2 = chain_mean(position * position, dim=0)
     var_inst = torch.clamp_min(m2 - m1 * m1, 0.0)
     new = var_ema + rate * (var_inst - var_ema)
     return torch.where(adapting[:, None], new, var_ema)
@@ -305,7 +306,7 @@ def build_mclmc_kernel(box_log_kernel, cfg: MCLMCSettings, n_adapt: int,
         # step-size tuning: pooled per-dim energy-error variance
         de2 = torch.where(ok & torch.isfinite(d_energy), d_energy * d_energy,
                           10.0 * desired * dim)
-        var_e = de2.mean().expand(de2.shape) / dim
+        var_e = chain_mean(de2).expand(de2.shape) / dim
         energy_stat = torch.exp(-0.5 * var_e / desired)
         da = _da_step(state.da, energy_stat, _ENERGY_STAT_TARGET, adapting)
         var_ema, sqrt_diag, log_L = _adapt_scales(
@@ -405,7 +406,7 @@ def build_mams_kernel(box_log_kernel, cfg: MAMSSettings, n_adapt: int,
         logdens = torch.where(accepted, logp, state.logdens)
         grad = where_chains(accepted, g, state.grad)
 
-        da = _da_step(state.da, alpha.mean().expand(alpha.shape), target,
+        da = _da_step(state.da, chain_mean(alpha).expand(alpha.shape), target,
                       adapting)
         var_ema, sqrt_diag, log_L = _adapt_scales(
             state, position, eps, adapting, rate, adapt_mass, auto_L,
@@ -507,9 +508,9 @@ def mclmc(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
     chain 0; pooled, every chain holds them); ``accepted`` counts *finite*
     steps. ``log_kernel`` is batched: ``(n_chains, n_vals) -> (n_chains,)``;
     ``key`` a ``torch.Generator`` or an integer seed; ``device`` defaults to
-    that of ``initial_vals``, else the card. ``mesh`` is not ported yet and
-    raises; ``checkpoint_dir`` runs in restartable chunks
-    (:mod:`mcmc_tpu_torch.checkpoint`).
+    that of ``initial_vals``, else the card. ``mesh`` shards the chains over
+    its ranks (:mod:`mcmc_tpu_torch.parallel`); ``checkpoint_dir`` runs in
+    restartable chunks (:mod:`mcmc_tpu_torch.checkpoint`).
     """
     algo, s = resolve_settings(settings, "mclmc_settings", MCLMCSettings)
     if return_resume and checkpoint_dir is not None:

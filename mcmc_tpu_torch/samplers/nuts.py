@@ -45,6 +45,7 @@ import torch
 
 from mcmc_tpu_torch import adaptation
 from mcmc_tpu_torch import integrators
+from mcmc_tpu_torch.parallel.mesh import chain_any, chain_mean, chain_sum
 from mcmc_tpu_torch.results import SamplerResult
 from mcmc_tpu_torch.settings import NUTSSettings
 from mcmc_tpu_torch.samplers import common
@@ -214,7 +215,8 @@ def depth_cap_rule(depth_hist, depth_quantile, max_depth, pooled=False):
     ``(c, max_depth + 1)``: the ``depth_quantile`` depth + 1, clamped to
     ``max_depth``; ``pooled`` sums the counts over chains first, so every
     chain gets one budget. Returns ``(c,)`` int32."""
-    hist = depth_hist.sum(dim=0, keepdim=True) if pooled else depth_hist
+    hist = chain_sum(depth_hist, dim=0, keepdim=True) if pooled \
+        else depth_hist
     total = torch.clamp_min(hist.sum(dim=-1, keepdim=True), 1)
     cum = torch.cumsum(hist, dim=-1)
     q_depth = (cum >= depth_quantile * total.to(torch.float32)) \
@@ -384,7 +386,7 @@ def build_nuts_kernel(box_log_kernel, grad_fn, precond: common.SPD,
                 # the draw's one kind of host synchronisation; the first
                 # doubling runs for every chain (every budget is >= 1)
                 counts["syncs"] += 1
-                if not bool(active.any()):
+                if not bool(chain_any(active)):
                     break
             n_doublings += 1
             v = torch.where(torch.rand((c,), generator=gen, **kw) <= 0.5,
@@ -442,7 +444,7 @@ def build_nuts_kernel(box_log_kernel, grad_fn, precond: common.SPD,
         adapting = draw_ind < n_adapt
         accept_stat = alpha / torch.clamp_min(n_alpha, 1).to(pos.dtype)
         if pooled_adaptation:
-            accept_stat = accept_stat.mean().expand(c)
+            accept_stat = chain_mean(accept_stat).expand(c)
         if adapting:
             h_out = state.h_val + (1.0 / (t + 1.0 + cfg.t0_val)) \
                 * (cfg.target_accept_rate - accept_stat - state.h_val)
@@ -537,7 +539,8 @@ def nuts(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
     ``log_kernel`` is batched: ``(n_chains, n_vals) -> (n_chains,)``.
     ``key`` is a ``torch.Generator`` or an integer seed (``None``: the
     settings' ``rng_seed_value``); ``device`` defaults to that of
-    ``initial_vals``, else the card. ``mesh`` is not ported yet and raises;
+    ``initial_vals``, else the card. ``mesh`` shards the chains over its ranks
+    (:mod:`mcmc_tpu_torch.parallel`);
     ``checkpoint_dir`` runs in restartable chunks
     (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "nuts_settings", NUTSSettings)

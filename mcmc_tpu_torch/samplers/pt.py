@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from mcmc_tpu_torch import integrators
+from mcmc_tpu_torch.parallel.mesh import chain_mean
 from mcmc_tpu_torch.results import SamplerResult
 from mcmc_tpu_torch.settings import PTSettings
 from mcmc_tpu_torch.samplers import common
@@ -245,7 +246,7 @@ def build_pt_kernel(box, s: PTSettings, dim, dtype, device, n_adapt):
 
                 if adapt and draw_ind < n_adapt:
                     alpha = torch.exp(torch.clamp_max(log_alpha, 0.0))
-                    alpha = alpha.mean(dim=0, keepdim=True)     # pooled
+                    alpha = chain_mean(alpha, dim=0, keepdim=True)  # pooled
                     upd = _rm_gain(swap_round) * (alpha
                                                   - s.target_swap_accept)
                     rho = torch.where(active, rho + upd, rho)
@@ -311,13 +312,13 @@ def pt(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
     ``resume`` the counts stay cumulative while the denominator restarts).
     ``return_resume=True`` attaches ``diagnostics["resume"](key, n_keep)``.
     ``key`` is a ``torch.Generator`` or an integer seed; ``device``
-    defaults to that of ``initial_vals``, else the card. ``mesh`` is not ported
-    yet and raises; ``checkpoint_dir`` runs in restartable chunks
-    (:mod:`mcmc_tpu_torch.checkpoint`)."""
+    defaults to that of ``initial_vals``, else the card. ``mesh`` shards the
+    chains over its ranks (:mod:`mcmc_tpu_torch.parallel`); ``checkpoint_dir``
+    runs in restartable chunks (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "pt_settings", PTSettings)
     if return_resume and checkpoint_dir is not None:
         raise ValueError("return_resume is incompatible with checkpoint_dir")
-    common._no_mesh(mesh)
+    common.check_mesh(mesh)
 
     prob = common.setup_problem(initial_vals, log_kernel, algo, n_chains,
                                 dtype, device)
@@ -337,7 +338,7 @@ def pt(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
     def assemble(key, state0, n_burnin, n_keep):
         final, draws, infos = common.run_sampler_loop(
             resolve_key(key, algo, prob.device), state0, step, n_burnin,
-            n_keep, collect_fn=lambda st: st.X[:, K - 1],
+            n_keep, collect_fn=lambda st: st.X[:, K - 1], mesh=mesh,
             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
             thin=thin)
         draws = common.finalize_draws(draws, prob)

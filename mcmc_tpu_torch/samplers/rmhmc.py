@@ -240,7 +240,8 @@ def rmhmc(initial_vals, log_kernel, metric_fn, settings=None, *,
     ``torch.func.jvp``. ``return_resume=True`` attaches
     ``diagnostics["resume"](key, n_keep)``. ``key`` is a ``torch.Generator``
     or an integer seed; ``device`` defaults to that of ``initial_vals``,
-    else the card. ``mesh`` is not ported yet and raises; ``checkpoint_dir``
+    else the card. ``mesh`` shards the chains over its ranks
+    (:mod:`mcmc_tpu_torch.parallel`); ``checkpoint_dir``
     runs in restartable chunks (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "rmhmc_settings", RMHMCSettings)
     if return_resume and checkpoint_dir is not None:

@@ -216,7 +216,8 @@ def rwmh(initial_vals, log_kernel, settings=None, *, n_chains=None, key=None,
     ``diagnostics["resume"](key, n_keep)``. ``key`` is a
     ``torch.Generator`` or an integer seed (``None``: the settings'
     ``rng_seed_value``); ``device`` defaults to that of ``initial_vals``,
-    else the card. ``mesh`` is not ported yet and raises; ``checkpoint_dir``
+    else the card. ``mesh`` shards the chains over its ranks
+    (:mod:`mcmc_tpu_torch.parallel`); ``checkpoint_dir``
     runs in restartable chunks (:mod:`mcmc_tpu_torch.checkpoint`).
     """
     algo, s = resolve_settings(settings, "rwmh_settings", RWMHSettings)

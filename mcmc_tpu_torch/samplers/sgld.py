@@ -45,6 +45,7 @@ import torch
 from mcmc_tpu_torch import bounds as bounds_mod
 from mcmc_tpu_torch.results import SamplerResult
 from mcmc_tpu_torch.settings import SGHMCSettings, SGLDSettings
+from mcmc_tpu_torch.parallel import mesh as mesh_mod
 from mcmc_tpu_torch.samplers import common
 from mcmc_tpu_torch.samplers._resolve import resolve_settings, resolve_key
 from mcmc_tpu_torch.integrators import grad_of
@@ -148,7 +149,10 @@ def _draw_fn(n_data, batch_size, shared):
         pos = state.position
         c = pos.shape[0]
         shape = (batch_size,) if shared else (c, batch_size)
-        return (torch.randint(0, n_data, shape, generator=gen,
+        # shared mode on a mesh: every rank draws the draw's one minibatch
+        # from the stream they share; the noise from its own generator
+        idx_gen = (mesh_mod.shared_stream() or gen) if shared else gen
+        return (torch.randint(0, n_data, shape, generator=idx_gen,
                               device=pos.device),
                 torch.randn(pos.shape, generator=gen, dtype=pos.dtype,
                             device=pos.device))
@@ -236,9 +240,9 @@ def sgld(initial_vals, log_prior, log_lik, data, settings=None, *,
     ``"rmsprop"``) runs pSGLD; incompatible with a fixed ``precond_mat``.
     ``accept_rate`` is the share of finite updates (1.0 is healthy).
     ``key`` is a ``torch.Generator`` or an integer seed; ``device`` defaults
-    to that of ``initial_vals``, else the card. ``mesh`` is not ported yet and
-    raises; ``checkpoint_dir`` runs in restartable chunks
-    (:mod:`mcmc_tpu_torch.checkpoint`)."""
+    to that of ``initial_vals``, else the card. ``mesh`` shards the chains over
+    its ranks (:mod:`mcmc_tpu_torch.parallel`); ``checkpoint_dir`` runs in
+    restartable chunks (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "sgld_settings", SGLDSettings)
     if return_resume and checkpoint_dir is not None:
         raise ValueError("return_resume is incompatible with checkpoint_dir")

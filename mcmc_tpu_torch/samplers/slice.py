@@ -262,9 +262,9 @@ def slice_sampler(initial_vals, log_kernel, settings=None, *, n_chains=None,
     JAX counts them. ``adapt_w=True`` learns per-dimension widths (pooled
     with ``pooled_adaptation``), reported as ``diagnostics["adapted_w"]``.
     ``key`` is a ``torch.Generator`` or an integer seed; ``device``
-    defaults to that of ``initial_vals``, else the card. ``mesh`` is not ported
-    yet and raises; ``checkpoint_dir`` runs in restartable chunks
-    (:mod:`mcmc_tpu_torch.checkpoint`)."""
+    defaults to that of ``initial_vals``, else the card. ``mesh`` shards the
+    chains over its ranks (:mod:`mcmc_tpu_torch.parallel`); ``checkpoint_dir``
+    runs in restartable chunks (:mod:`mcmc_tpu_torch.checkpoint`)."""
     algo, s = resolve_settings(settings, "slice_settings", SliceSettings)
     if return_resume and checkpoint_dir is not None:
         raise ValueError("return_resume is incompatible with checkpoint_dir")

@@ -57,6 +57,7 @@ import torch
 from mcmc_tpu_torch import integrators, stats
 from mcmc_tpu_torch.results import SamplerResult
 from mcmc_tpu_torch.settings import SMCSettings
+from mcmc_tpu_torch.parallel import mesh as mesh_mod
 from mcmc_tpu_torch.samplers import common
 from mcmc_tpu_torch.samplers._resolve import resolve_settings, resolve_key
 
@@ -123,7 +124,7 @@ def resample_indices(u, logw, kind="systematic"):
     return torch.clamp(torch.searchsorted(c, grid, right=True), 0, n - 1)
 
 
-def build_smc_stage(box, s: SMCSettings, mu0, s0):
+def build_smc_stage(box, s: SMCSettings, mu0, s0, axis=None):
     """One stage ``stage(gen, state) -> state`` of the annealed cloud;
     ``stage.draw(gen, state) -> (u_res, noise, u_mut)`` (``noise``
     ``(n_mcmc, N, d)``: the walk's normals or HMC's momenta; ``u_mut``
@@ -131,7 +132,15 @@ def build_smc_stage(box, s: SMCSettings, mu0, s0):
     are its two halves; ``stage.lq_fn`` and ``stage.lk_safe`` give the
     initial density and the guarded box kernel of a batch; ``stage.counts``
     tallies stages and host synchronisations (the loop's one a stage, in
-    :func:`smc`)."""
+    :func:`smc`).
+
+    With a chain ``axis`` (:class:`~mcmc_tpu_torch.parallel.mesh.
+    MeshAxis`), the state's particle rows are this rank's block: a stage
+    all-gathers the cloud once, computes the next temperature, the weights,
+    log Z and the resampling indices globally (``u_res`` must then be the
+    same on every rank), takes its block's resampled rows, preconditions
+    the mutation by the whole resampled cloud's spread and pools the
+    acceptance rate with one all-reduce."""
     dim = int(mu0.shape[0])
     dt, device = mu0.dtype, mu0.device
     N = int(s.n_particles)
@@ -154,11 +163,13 @@ def build_smc_stage(box, s: SMCSettings, mu0, s0):
         v = box(z)
         return torch.where(torch.isfinite(v), v, -torch.inf)
 
-    def mutation_sweep(X, lk, lq, lam, noise, u_mut):
+    def mutation_sweep(X, lk, lq, lam, noise, u_mut, pop=None):
         """``n_mcmc`` Metropolis moves targeting pi_lam, preconditioned by
-        the population's own spread (computed once per stage)."""
-        mean = X.mean(dim=0)
-        Xc = X - mean
+        the population's own spread (computed once per stage; ``pop``: the
+        whole cloud when ``X`` is a block of it)."""
+        pop = X if pop is None else pop
+        mean = pop.mean(dim=0)
+        Xc = pop - mean
         if s.inner == "rwmh":
             C = (Xc.T @ Xc) / N
             C = C + (1e-6 * torch.trace(C) / dim + 1e-12) * eye
@@ -171,7 +182,7 @@ def build_smc_stage(box, s: SMCSettings, mu0, s0):
         def logp(lkv, lqv):
             return (1.0 - lam) * lqv + lam * lkv
 
-        acc_n = torch.zeros((N,), dtype=torch.int32, device=device)
+        acc_n = torch.zeros((X.shape[0],), dtype=torch.int32, device=device)
         acc_means = []
         for i in range(n_mcmc):
             if s.inner == "rwmh":
@@ -197,25 +208,47 @@ def build_smc_stage(box, s: SMCSettings, mu0, s0):
             lk = torch.where(acc, lk_p, lk)
             lq = torch.where(acc, lq_p, lq)
             acc_n = acc_n + acc.to(torch.int32)
-            acc_means.append(acc.to(dt).mean())
-        return X, lk, lq, acc_n, torch.stack(acc_means).mean()
+            acc_means.append(acc.to(dt).mean() if axis is None
+                             else acc.to(dt).sum())
+        acc_means = torch.stack(acc_means)
+        if axis is not None:
+            acc_means = mesh_mod.all_reduce(acc_means, axis.group) / N
+        return X, lk, lq, acc_n, acc_means.mean()
 
-    def draw(gen, state: SMCState):
-        kw = {"generator": gen, "dtype": dt, "device": device}
-        u_res = torch.rand(() if s.resample == "systematic" else (N,), **kw)
-        noise = torch.randn((n_mcmc, N, dim), **kw)
-        return u_res, noise, torch.rand((n_mcmc, N), **kw)
+    def draw(gen, state: SMCState, shared_gen=None):
+        """The stage's draws; sharded, ``u_res`` comes from ``shared_gen``
+        (the same stream on every rank) and the rest, for this rank's
+        block, from ``gen``."""
+        m = state.X.shape[0]
+        kw = {"dtype": dt, "device": device}
+        u_res = torch.rand(() if s.resample == "systematic" else (N,),
+                           generator=gen if shared_gen is None
+                           else shared_gen, **kw)
+        noise = torch.randn((n_mcmc, m, dim), generator=gen, **kw)
+        return u_res, noise, torch.rand((n_mcmc, m), generator=gen, **kw)
 
     def transition(state: SMCState, u_res, noise, u_mut):
-        delta = state.lk - state.lq
+        pop = None
+        X, lk, lq = state.X, state.lk, state.lq
+        if axis is not None:
+            # the whole cloud, once a stage: positions and both densities
+            cloud = mesh_mod.all_gather(
+                torch.cat([X, lk[:, None], lq[:, None]], dim=1),
+                axis.group, axis.size)
+            X, lk, lq = cloud[:, :dim], cloud[:, dim], cloud[:, dim + 1]
+        delta = lk - lq
         lam_new = next_lambda(state.lam, delta, ess_target)
         logw = (lam_new - state.lam) * delta
         log_z = state.log_z + torch.logsumexp(logw, 0) - log_n
 
         idx = resample_indices(u_res, logw, s.resample)
-        X, lk, lq = state.X[idx], state.lk[idx], state.lq[idx]
+        X, lk, lq = X[idx], lk[idx], lq[idx]
+        if axis is not None:
+            m = state.X.shape[0]
+            rows = slice(axis.index * m, (axis.index + 1) * m)
+            pop, X, lk, lq = X, X[rows], lk[rows], lq[rows]
         X, lk, lq, acc_n, acc_mean = mutation_sweep(X, lk, lq, lam_new,
-                                                    noise, u_mut)
+                                                    noise, u_mut, pop)
         counts["stages"] += 1
         i = int(state.stage)
         lambdas = state.lambdas.clone()
@@ -239,7 +272,8 @@ def build_smc_stage(box, s: SMCSettings, mu0, s0):
             X=X0, lk=lk_safe(X0), lq=lq_fn(X0),
             lam=torch.zeros((), dtype=dt, device=device), stage=0,
             log_z=torch.zeros((), dtype=dt, device=device),
-            n_acc=torch.zeros((N,), dtype=torch.int32, device=device),
+            n_acc=torch.zeros((X0.shape[0],), dtype=torch.int32,
+                              device=device),
             lambdas=z(), ess_frac=z(), acc_rate=z())
 
     stage.draw, stage.transition, stage.init = draw, transition, init
@@ -265,10 +299,13 @@ def smc(initial_vals, log_kernel, settings=None, *, key=None, mesh=None,
     ``mutation_accept_rate`` (length ``n_stages``). ``n_accept_draws``
     counts accepted mutation moves per particle over the whole run.
     ``key`` is a ``torch.Generator`` or an integer seed; ``device`` defaults
-    to that of ``initial_vals``, else the card. ``mesh`` is not ported yet
-    and raises."""
+    to that of ``initial_vals``, else the card. ``mesh`` shards the
+    particles over the mesh's ranks: the weights, ESS, log Z and the
+    resampling indices are global (drawn from a stream every rank shares),
+    each rank mutates its block on its own generator
+    (:func:`build_smc_stage`), and every rank returns the whole cloud."""
     algo, s = resolve_settings(settings, "smc_settings", SMCSettings)
-    common._no_mesh(mesh)
+    axis = mesh_mod.chain_axis_of(mesh)
 
     prob = common.setup_problem(initial_vals, log_kernel, algo, None, dtype,
                                 device)
@@ -291,16 +328,29 @@ def smc(initial_vals, log_kernel, settings=None, *, key=None, mesh=None,
     mu0 = prob.first_draw[0]
     s0 = torch.as_tensor(np.asarray(s.init_scale), dtype=dt,
                          device=prob.device).expand(dim).contiguous()
-    stage = build_smc_stage(prob.box_log_kernel, s, mu0, s0)
+    stage = build_smc_stage(prob.box_log_kernel, s, mu0, s0, axis)
     with torch.no_grad():
         X0 = mu0 + s0 * torch.randn((N, dim), generator=gen, dtype=dt,
                                     device=prob.device)
+        if axis is None:
+            step, X0 = stage, X0
+        else:
+            rows = mesh_mod._rows(N, axis)
+            seed, rgen = mesh_mod.rank_generator(gen, rows.start)
+            sgen = mesh_mod.shared_generator(seed, prob.device)
+            step = lambda _g, st: stage.transition(
+                st, *stage.draw(rgen, st, sgen))
+            X0 = X0[rows]
         st = stage.init(X0)
         # one host synchronisation a stage: the loop's test
         while st.stage < int(s.max_stages) and bool(st.lam < 1.0):
             stage.counts["syncs"] += 1
-            st = stage(gen, st)
+            st = step(gen, st)
         stage.counts["syncs"] += st.stage < int(s.max_stages)
+        if axis is not None:
+            st = st._replace(**{k: mesh_mod.all_gather(
+                getattr(st, k), axis.group, axis.size)
+                for k in ("X", "lk", "lq", "n_acc")})
 
     draws = common.finalize_draws(st.X, prob)
     n = st.stage

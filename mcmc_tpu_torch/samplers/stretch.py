@@ -38,6 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mcmc_tpu_torch.parallel import mesh as mesh_mod
 from mcmc_tpu_torch.results import SamplerResult
 from mcmc_tpu_torch.settings import StretchSettings
 from mcmc_tpu_torch.samplers import common
@@ -121,13 +122,15 @@ def stretch(initial_vals, log_kernel, settings=None, *, key=None, mesh=None,
     ``k`` sweeps per stored draw. ``return_resume=True`` attaches
     ``diagnostics["resume"](key, n_keep)``, a warm continuation from the
     final ensemble. ``key`` is a ``torch.Generator`` or an integer seed;
-    ``device`` defaults to that of ``initial_vals``, else the card. ``mesh`` is not ported yet and
-    raises; ``checkpoint_dir`` runs in restartable chunks (``mcmc_tpu_torch.
-    checkpoint``)."""
+    ``device`` defaults to that of ``initial_vals``, else the card.
+    ``mesh`` shards the walkers over the mesh's ranks
+    (:func:`mcmc_tpu_torch.parallel.build_sharded_stretch_sweep`: one
+    all-gather per half-update); ``checkpoint_dir`` runs in restartable
+    chunks (``mcmc_tpu_torch.checkpoint``)."""
     algo, s = resolve_settings(settings, "stretch_settings", StretchSettings)
     if return_resume and checkpoint_dir is not None:
         raise ValueError("return_resume is incompatible with checkpoint_dir")
-    common._no_mesh(mesh)
+    common.check_mesh(mesh)
 
     prob = common.setup_problem(initial_vals, log_kernel, algo, None, dtype,
                                 device)
@@ -164,19 +167,25 @@ def stretch(initial_vals, log_kernel, settings=None, *, key=None, mesh=None,
         kv0 = torch.where(torch.isfinite(kv0), kv0, -torch.inf)
     state0 = StretchState(X=X0, kernel_vals=kv0)
 
-    sweep = common.thin_step(build_stretch_sweep(prob.box_log_kernel, s,
-                                                 n_vals), thin)
+    if mesh_mod.chain_axis_of(mesh) is None:
+        sweep = build_stretch_sweep(prob.box_log_kernel, s, n_vals)
+    else:
+        from mcmc_tpu_torch.parallel.stretch_sharded import \
+            build_sharded_stretch_sweep
+        sweep = build_sharded_stretch_sweep(prob.box_log_kernel, s, n_vals,
+                                            mesh)
+    sweep = common.thin_step(sweep, thin)
     if checkpoint_dir is not None:
         _, draws, totals = common.run_checkpointed(
             gen, state0, sweep, s.n_burnin_draws, s.n_keep_draws,
-            lambda st: st.X, checkpoint_dir, checkpoint_every)
+            lambda st: st.X, checkpoint_dir, checkpoint_every, mesh)
         per_walker = torch.as_tensor(totals["accepted"])
         return SamplerResult(
             draws=common.finalize_draws(draws, prob),
             n_accept_draws=per_walker.sum(),
             diagnostics=common.population_accept_diag_totals(
                 per_walker, s.n_keep_draws, thin))
-    run = common.make_population_runner(sweep)
+    run = common.make_population_runner(sweep, mesh)
 
     def assemble(key, state0, n_burnin, n_keep):
         final_state, (draws, accepted) = run(

@@ -7,8 +7,9 @@ API differences from the JAX package: log-kernels are batched
 (``(n_chains, d) -> (n_chains,)``; a pytree log-kernel gets leaves with a
 leading chain axis); ``key`` is an integer seed or a ``torch.Generator``;
 ``device=`` as in the samplers (default: the device of ``initial_vals``,
-else the card). ``mesh=`` is not ported yet and raises before any work is
-done; ``checkpoint_dir=`` runs the sampler in restartable chunks.
+else the card). ``mesh=`` shards the chains over the mesh's ranks
+(:mod:`mcmc_tpu_torch.parallel`); ``checkpoint_dir=`` runs the sampler in
+restartable chunks.
 """
 
 from __future__ import annotations
@@ -136,7 +137,11 @@ def _fit_ravel(initial_vals, log_kernel, lower_bounds, upper_bounds, device):
 def _validate(algorithm, init, blocks, dense_mass, mesh):
     """fit's argument checks, all before any work, with the JAX package's
     exception types."""
-    common._no_mesh(mesh)
+    common.check_mesh(mesh)
+    if algorithm == "demcz" and mesh is not None:
+        raise ValueError(
+            "fit(algorithm='demcz') does not take mesh: the population is "
+            "deliberately tiny (scale by replicating runs instead)")
     if init not in (None, "laplace", "pathfinder"):
         raise ValueError(f"fit init must be None, 'laplace', or "
                          f"'pathfinder', got {init!r}")
@@ -258,7 +263,7 @@ def fit(initial_vals, log_kernel, *, n_chains=8, n_warmup=1000, n_draws=1000,
         starts from the same state as the first."""
         kw = dict(key=None if seed is None else stream(_RUN), thin=thin,
                   return_resume=want_resume, checkpoint_dir=ckpt,
-                  device=device)
+                  device=device, mesh=mesh)
         grad_kw = dict(bounded_grad="exact")
         if algorithm == "chees":
             cs = ChEESSettings(n_burnin_draws=n_warmup,
@@ -362,6 +367,9 @@ def fit(initial_vals, log_kernel, *, n_chains=8, n_warmup=1000, n_draws=1000,
             dim = int(torch.as_tensor(initial_vals).shape[-1])
             n_walkers = max(int(n_chains), 2 * dim, 32)
             n_walkers += n_walkers % 2
+            if mesh is not None:   # two shardable halves per device
+                m = 2 * int(mesh.size())
+                n_walkers = ((n_walkers + m - 1) // m) * m
             ss = StretchSettings(n_walkers=n_walkers, n_burnin_draws=n_warmup,
                                  n_keep_draws=total_keep)
             iv = initial_vals
@@ -384,6 +392,7 @@ def fit(initial_vals, log_kernel, *, n_chains=8, n_warmup=1000, n_draws=1000,
             # (Pathfinder), built in unconstrained space and mapped back
             iv = lap.mode if init == "laplace" else pf.center
             zs.initial_lb, zs.initial_ub = approx.init_box(2.0)
+        kw.pop("mesh")
         return demcz(iv, log_kernel, _algo({"demcz_settings": zs}), **kw)
 
     def _gates_ok(d):

@@ -30,7 +30,7 @@ tadvi_mod = importlib.import_module("mcmc_tpu_torch.advi")
 T = 20
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_thread():
     """One intra-op thread for every test here: the tests run in several
     worker processes at once, and torch's default of a thread per core

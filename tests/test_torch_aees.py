@@ -32,6 +32,18 @@ from mcmc_tpu_torch import models as tmodels
 from test_torch_chees import as_tensors
 from test_torch_pt import assert_state
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 jaees = importlib.import_module("mcmc_tpu.samplers.aees")
 taees = importlib.import_module("mcmc_tpu_torch.samplers.aees")
 

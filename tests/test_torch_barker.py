@@ -31,6 +31,18 @@ from test_torch_chees import (AX, assert_close, check_transitions,
                               gaussian_pair, jax_run, run_fed, start)
 from test_torch_nuts import _assert_moment
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 jbarker = importlib.import_module("mcmc_tpu.samplers.barker")
 tbarker = importlib.import_module("mcmc_tpu_torch.samplers.barker")
 

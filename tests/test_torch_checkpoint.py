@@ -34,7 +34,7 @@ W, K = 6, 10            # burn-in and kept draws of every entry point case
 EVERY = 4               # chunks of 4: ragged at both phase ends
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_thread():
     """One intra-op thread for every test here: the tests run in several
     worker processes at once, and torch's default of a thread per core
@@ -161,10 +161,10 @@ def test_checkpointed_entry_point_equals_in_memory(name, tmp_path):
 
 def test_smc_refuses_checkpoint_and_mesh_names_a12(tmp_path):
     """As in the JAX package, ``smc`` takes no ``checkpoint_dir``; ``mesh=``
-    still raises everywhere, naming A12."""
+    that is not a mesh raises ``TypeError``."""
     with pytest.raises(TypeError, match="checkpoint_dir"):
         M.smc(np.zeros(2), lk, checkpoint_dir=tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         M.hmc(np.zeros(2), lk, n_chains=2, mesh=object(),
               checkpoint_dir=tmp_path, device="cpu")
     with pytest.raises(ValueError, match="return_resume"):

@@ -39,6 +39,18 @@ from mcmc_tpu_torch.models import (logistic_regression_model as tlogreg,
 from test_torch_nuts import (JAX_SEEDS, _assert_in_seed_spread,
                              _assert_moment, _assert_same_moments)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the packages' samplers/__init__ re-export the chees *function* under the
 # module's name
 jchees = importlib.import_module("mcmc_tpu.samplers.chees")
@@ -548,7 +560,7 @@ def test_bounded_thin_resume_and_guards(tmp_path):
         mcmc_tpu_torch.chees(torch.zeros(2), lk, small, n_chains=4, key=3,
                              checkpoint_dir=tmp_path / "ck",
                              checkpoint_every=4).draws)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         mcmc_tpu_torch.chees(torch.zeros(2), lk, n_chains=4, mesh=object())
 
 

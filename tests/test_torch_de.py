@@ -32,6 +32,18 @@ from mcmc_tpu_torch import models as tmodels
 from mcmc_tpu_torch.samplers import common as tcommon
 from test_torch_chees import assert_close
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 jde = importlib.import_module("mcmc_tpu.samplers.de")
 tde = importlib.import_module("mcmc_tpu_torch.samplers.de")
 

@@ -32,6 +32,18 @@ from mcmc_tpu_torch.samplers import common as tcommon
 from test_torch_chees import as_tensors
 from test_torch_pt import assert_state
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 jdz = importlib.import_module("mcmc_tpu.samplers.demcz")
 tdz = importlib.import_module("mcmc_tpu_torch.samplers.demcz")
 
@@ -314,7 +326,7 @@ def test_demcz_mean_determinism_resume_and_refusals(tmp_path):
     """``test_gaussian_mean_posterior`` (mean within 0.1, acceptance in
     (0.05, 0.95)); one seed repeats bit for bit; a warm ``resume`` carries
     the archive; ``thin=2``; the refusals of ``test_validation_errors``,
-    ``n_runs < 1``, and ``mesh`` (not ported); ``checkpoint_dir=`` gives
+    ``n_runs < 1``, and a non-mesh ``mesh``; ``checkpoint_dir=`` gives
     the in-memory run's draws."""
     x = (2.0 + np.random.default_rng(1).standard_normal(100)).astype(
         np.float32)
@@ -353,7 +365,7 @@ def test_demcz_mean_determinism_resume_and_refusals(tmp_path):
         mcmc_tpu_torch.demcz(np.zeros(2), sq, n_runs=0, device="cpu")
     with pytest.raises(ValueError, match="n_runs"):
         mcmc_tpu_torch.demcz(np.zeros(2), sq, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         mcmc_tpu_torch.demcz(np.zeros(2), sq, mesh=object(), n_runs=2,
                              device="cpu")
     small = mcmc_tpu_torch.DEMCZSettings(n_pop=4, n_burnin_draws=5,

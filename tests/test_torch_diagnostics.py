@@ -14,6 +14,17 @@ from mcmc_tpu import diagnostics as jd
 from mcmc_tpu_torch import diagnostics as td
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _draws(seed=0, n=200, m=4, dim=3):
     """AR(1) chains with per-dimension correlation and offset, plus one
     chain shifted so that R-hat is away from 1."""

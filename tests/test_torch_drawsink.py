@@ -13,7 +13,7 @@ from mcmc_tpu.runtime import read_draws as jread
 from mcmc_tpu_torch.runtime import DrawSink, drawsink, read_draws
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_thread():
     """One intra-op thread for every test here: the tests run in several
     worker processes at once, and torch's default of a thread per core

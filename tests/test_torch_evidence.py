@@ -36,7 +36,7 @@ C, D, K, N_TRANS, N_ADAPT = 8, 2, 5, 12, 6
 M0, V0, V = 0.5, 4.0, 1.0
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_thread():
     """One intra-op thread for every test here: the tests run in several
     worker processes at once, and torch's default of a thread per core
@@ -236,7 +236,7 @@ def test_thermo_evidence_bounded_and_mesh():
     """Bounds attach the log-Jacobian to the untempered prior: a uniform
     prior on (0, 2) with a N(1, 0.3^2) likelihood of one observation has
     log Z = log(Phi((2-1)/0.3) - Phi(-1/0.3)) - log 2, within 5 standard
-    errors; ``mesh=`` raises, naming A12."""
+    errors; a ``mesh=`` that is not a mesh raises ``TypeError``."""
     from scipy.stats import norm
     lp = lambda th: torch.full(th.shape[:1], -float(np.log(2.0)),
                                dtype=th.dtype)
@@ -252,6 +252,6 @@ def test_thermo_evidence_bounded_and_mesh():
     se = max(float(res.log_z_se), 1e-3)
     assert abs(float(res.log_z) - exact) < max(5 * se, 0.1), \
         (float(res.log_z), exact, se)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         mcmc_tpu_torch.thermo_evidence(np.ones(1), lp, ll, s, mesh=object(),
                                        device="cpu")

@@ -20,6 +20,17 @@ from mcmc_tpu_torch import umbrella
 from mcmc_tpu_torch.samplers._resolve import key_seed, stream_generator
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _gauss2(rho=0.5):
     cov = np.array([[1.0, rho], [rho, 1.0]], np.float32)
     P = torch.tensor(np.linalg.inv(cov))
@@ -79,8 +90,8 @@ def test_fit_validation_errors():
              "diagonal"),
             (dict(algorithm="gibbs", blocks=[([0], "rwmh")],
                   dense_mass=True), ValueError, "dense mass"),
-            (dict(mesh=object(), init="laplace"), NotImplementedError,
-             "A12")]:
+            (dict(mesh=object(), init="laplace"), TypeError,
+             "DeviceMesh")]:
         with pytest.raises(exc, match=match):
             _fit(x0, never, **kw)
     with pytest.raises(TypeError, match="argument order"):

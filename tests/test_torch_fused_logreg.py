@@ -15,6 +15,10 @@ more in p, so these tolerances catch it where 1e-3 would not.
 The CUDA kernel itself is held against this plain version on the card in
 tests/test_torch_kernels_cuda.py.
 
+The fused step accepts on the f32 potential at the end position (a
+Deviation: the JAX step accepts on the trajectory's bf16-path U), held to
+JAX's ``reference_potential`` there at rtol 1e-5.
+
 The run-time-parameter trajectory (``make_fused_trajectory_rt``: step size
 and diagonal inverse mass at call time) is held to the same tolerances
 against the JAX package's, and at inverse mass 1 to the bits of the
@@ -29,6 +33,18 @@ import torch
 from mcmc_tpu.ops import fused_logreg as jfl
 from mcmc_tpu_torch import convert
 from mcmc_tpu_torch.ops import fused_logreg as tfl
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 D, N, L, EPS = 10, 64, 3, 0.05
 N_CHAINS = 16
@@ -65,12 +81,32 @@ def _state(dp, seed=1):
     return z, p
 
 
+@pytest.fixture(scope="module")
+def jax_fused():
+    """The JAX package's trajectory and step per link, each built (and its
+    interpret-mode Pallas kernel compiled) once for the module's tests."""
+    made = {}
+
+    def get(name):
+        if name not in made:
+            X, y = _data(name)
+            jlink, _ = _links(name)
+            made[name] = (
+                jfl.make_fused_trajectory(X, y, 10.0, EPS, L, block_chains=8,
+                                          interpret=True, link=jlink),
+                jfl.make_fused_hmc_step(X, y, step_size=EPS, n_leap=L,
+                                        block_chains=8, interpret=True,
+                                        link=jlink))
+        return made[name]
+
+    return get
+
+
 @pytest.mark.parametrize("name", LINKS)
-def test_trajectory_matches_pallas(name):
+def test_trajectory_matches_pallas(name, jax_fused):
     X, y = _data(name)
-    jlink, tlink = _links(name)
-    jtraj = jfl.make_fused_trajectory(X, y, 10.0, EPS, L, block_chains=8,
-                                      interpret=True, link=jlink)
+    _, tlink = _links(name)
+    jtraj = jax_fused(name)[0]
     Xt, yt = convert.glm_data(X, y, "cpu")
     ttraj = tfl.make_fused_trajectory(Xt, yt, 10.0, EPS, L, block_chains=8,
                                       link=tlink)
@@ -87,17 +123,16 @@ def test_trajectory_matches_pallas(name):
 
 
 @pytest.mark.parametrize("name", LINKS)
-def test_init_matches_reference_potential(name):
+def test_init_matches_reference_potential(name, jax_fused):
     """``step.init`` computes the f32 potential as JAX's
     ``reference_potential`` does (f32 on both sides; rtol 1e-5 covers the
     summation order); the JAX state carried over by ``convert`` equals the
     port's."""
     X, y = _data(name)
-    jlink, tlink = _links(name)
+    _, tlink = _links(name)
     pos = 0.1 * np.random.default_rng(2).standard_normal((N_CHAINS, D))
     pos = pos.astype(np.float32)
-    jstep = jfl.make_fused_hmc_step(X, y, step_size=EPS, n_leap=L,
-                                    block_chains=8, interpret=True, link=jlink)
+    jstep = jax_fused(name)[1]
     Xt, yt = convert.glm_data(X, y, "cpu")
     tstep = tfl.make_fused_hmc_step(Xt, yt, step_size=EPS, n_leap=L,
                                     block_chains=8, link=tlink)
@@ -108,6 +143,55 @@ def test_init_matches_reference_potential(name):
     np.testing.assert_allclose(ts.potential.numpy(), np.asarray(js.potential),
                                rtol=1e-5)
     assert torch.equal(ts.position, carried.position)
+
+
+@pytest.mark.parametrize("name", LINKS)
+def test_step_accept_potential_is_f32(name, jax_fused):
+    """The fused step's accept test (a Deviation from the JAX package, whose
+    step accepts on the trajectory's bf16-path potential): fed the momenta
+    and uniforms of its generator, the step's trajectory matches JAX's (z
+    and p at atol 1e-5); its accept potential is JAX's
+    ``reference_potential`` at JAX's end position (rtol 1e-5, where JAX's
+    own bf16-path U is held to atol 0.5 in tests/test_fused_logreg.py:48-49);
+    and its accept decisions and stored potentials are those recomputed
+    from the f32 potentials with the same uniforms."""
+    X, y = _data(name)
+    _, tlink = _links(name)
+    pos = (0.1 * np.random.default_rng(2).standard_normal((N_CHAINS, D))
+           ).astype(np.float32)
+    jtraj, jstep = jax_fused(name)
+    Xt, yt = convert.glm_data(X, y, "cpu")
+    tstep = tfl.make_fused_hmc_step(Xt, yt, step_size=EPS, n_leap=L,
+                                    block_chains=8, link=tlink)
+    ttraj = tfl.make_fused_trajectory(Xt, yt, 10.0, EPS, L, block_chains=8,
+                                      link=tlink)
+    Dp = tstep.dim_padded
+    st0 = tstep.init(torch.from_numpy(pos))
+    # the step's draws: momenta on the real columns, then the uniforms
+    g = torch.Generator().manual_seed(11)
+    p0 = torch.randn((N_CHAINS, Dp), generator=g) \
+        * (torch.arange(Dp) < D).to(torch.float32)
+    u = torch.rand((N_CHAINS,), generator=g)
+    st1, info = tstep(torch.Generator().manual_seed(11), st0)
+
+    zj, pj, _uj = jtraj(jnp.asarray(st0.position.numpy()),
+                        jnp.asarray(p0.numpy()))
+    zt, pt, _ut = ttraj(st0.position, p0)
+    np.testing.assert_allclose(zt.numpy(), np.asarray(zj), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=0, atol=1e-5)
+    U_end = np.asarray(jstep.init(zj[:, :D]).potential)
+    tU = tstep.reference_potential(zt)
+    np.testing.assert_allclose(tU.numpy(), U_end, rtol=1e-5)
+
+    K = lambda p: 0.5 * (np.asarray(p, np.float64) ** 2).sum(1)
+    comp = np.minimum(-(U_end + K(pj)) + (st0.potential.numpy() + K(p0)),
+                      0.01)
+    acc = u.numpy() < np.exp(comp)
+    np.testing.assert_array_equal(info["accepted"].numpy(), acc)
+    assert torch.equal(st1.potential, torch.where(info["accepted"], tU,
+                                                  st0.potential))
+    assert torch.equal(st1.position, torch.where(info["accepted"][:, None],
+                                                 zt, st0.position))
 
 
 def test_callable_link_has_no_kernel():

@@ -30,6 +30,18 @@ from test_torch_chees import (AX, assert_close, check_transitions,
                               gaussian_pair, jax_run, run_fed, start)
 from test_torch_nuts import JAX_SEEDS, _assert_in_seed_spread, _assert_moment
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 jghmc = importlib.import_module("mcmc_tpu.samplers.ghmc")
 tghmc = importlib.import_module("mcmc_tpu_torch.samplers.ghmc")
 
@@ -227,7 +239,7 @@ def test_auto_alpha_validation_and_options(tmp_path):
         mcmc_tpu_torch.ghmc(torch.zeros(2), lk, s, key=4,
                             checkpoint_dir=tmp_path / "ck",
                             checkpoint_every=7).draws)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         mcmc_tpu_torch.ghmc(torch.zeros(2), lk, s, mesh=object())
 
 

@@ -35,6 +35,18 @@ from mcmc_tpu_torch.samplers import common as tcommon
 from test_torch_chees import assert_close, jax_run, start
 from test_torch_slice_sampler import assert_host_state, slice_draws
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 jgibbs = importlib.import_module("mcmc_tpu.samplers.gibbs")
 tgibbs = importlib.import_module("mcmc_tpu_torch.samplers.gibbs")
 

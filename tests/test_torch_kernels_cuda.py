@@ -29,6 +29,17 @@ import torch
 from mcmc_tpu_torch.ops import fused_logreg as tfl
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _require_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")

@@ -31,6 +31,18 @@ from mcmc_tpu_torch import convert
 from mcmc_tpu_torch import laplace as tlaplace
 from mcmc_tpu_torch.samplers import common as tcommon
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MU = np.array([1.5, -2.0, 0.5], np.float32)
 COV = np.array([[2.0, 0.6, 0.0], [0.6, 1.0, -0.2], [0.0, -0.2, 0.5]],
                np.float32)

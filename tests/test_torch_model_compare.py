@@ -20,6 +20,18 @@ import torch
 from mcmc_tpu import model_compare as jmc
 from mcmc_tpu_torch import model_compare as tmc
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-5
 K_ATOL = 2e-5
 

@@ -26,7 +26,7 @@ from mcmc_tpu_torch import nested as tnested
 from mcmc_tpu_torch import nested_sampling
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_thread():
     """One intra-op thread for every test here: the tests run in several
     worker processes at once, and torch's default of a thread per core

@@ -34,6 +34,18 @@ from mcmc_tpu_torch import models as tmodels
 from mcmc_tpu_torch.models import (logistic_regression_model as tlogreg,
                                    make_logistic_regression_data)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the packages' samplers/__init__ re-export the nuts *function* under the
 # module's name
 jnuts = importlib.import_module("mcmc_tpu.samplers.nuts")
@@ -732,7 +744,7 @@ def test_single_chain_squeezes():
 
 
 def test_unported_options_raise(tmp_path):
-    """``mesh=`` is not ported yet and says so; ``checkpoint_dir=`` gives
+    """A ``mesh=`` that is not a mesh raises; ``checkpoint_dir=`` gives
     the in-memory run's draws."""
     lk = lambda v: -0.5 * (v ** 2).sum(-1)
     assert torch.equal(
@@ -741,7 +753,7 @@ def test_unported_options_raise(tmp_path):
         mcmc_tpu_torch.nuts(torch.zeros(2), lk, _settings(2, 2),
                             n_chains=2, key=1,
                             checkpoint_dir=tmp_path / "ck").draws)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         mcmc_tpu_torch.nuts(torch.zeros(2), lk, _settings(2, 2),
                             mesh=object())
     with pytest.raises(ValueError, match="return_resume"):

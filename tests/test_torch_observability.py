@@ -11,7 +11,7 @@ import torch
 from mcmc_tpu_torch import observability as obs
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_thread():
     """One intra-op thread for every test here: the tests run in several
     worker processes at once, and torch's default of a thread per core

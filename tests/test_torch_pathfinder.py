@@ -44,6 +44,18 @@ from mcmc_tpu_torch.integrators import value_and_grad_of
 from mcmc_tpu_torch import model_compare as tmc
 from mcmc_tpu_torch import stats as tstats
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the packages export the function under the module's name
 jpf = importlib.import_module("mcmc_tpu.pathfinder")
 tpf = importlib.import_module("mcmc_tpu_torch.pathfinder")

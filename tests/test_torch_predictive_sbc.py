@@ -17,6 +17,18 @@ import mcmc_tpu
 import mcmc_tpu_torch
 from mcmc_tpu_torch import models
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _X = 2.0 + np.random.default_rng(0).normal(size=100).astype(np.float32)
 
 

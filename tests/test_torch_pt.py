@@ -29,6 +29,18 @@ from mcmc_tpu_torch import convert
 from mcmc_tpu_torch import models as tmodels
 from test_torch_chees import AX, as_tensors, assert_close, jax_run
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 jpt = importlib.import_module("mcmc_tpu.samplers.pt")
 tpt = importlib.import_module("mcmc_tpu_torch.samplers.pt")
 
@@ -360,7 +372,7 @@ def test_pt_round_trips():
 
 
 def test_pt_determinism_and_refusals(tmp_path):
-    """One seed repeats bit for bit; ``mesh=`` raises (not ported),
+    """One seed repeats bit for bit; a non-mesh ``mesh=`` raises,
     ``checkpoint_dir=`` gives the in-memory run's draws, ``return_resume``
     with ``checkpoint_dir`` and an unknown inner move are refused."""
     s = mcmc_tpu_torch.PTSettings(n_burnin_draws=10, n_keep_draws=20,
@@ -372,7 +384,7 @@ def test_pt_determinism_and_refusals(tmp_path):
     assert torch.equal(a.draws, b.draws)
     assert torch.equal(a.diagnostics["temperatures"],
                        b.diagnostics["temperatures"])
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         mcmc_tpu_torch.pt(np.zeros(2), _bimodal, s, mesh=object(),
                           device="cpu")
     assert torch.equal(

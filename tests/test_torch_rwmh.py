@@ -33,6 +33,18 @@ from test_torch_chees import (AX, assert_close, check_transitions,
                               gaussian_pair, jax_run, run_fed, start)
 from test_torch_nuts import _assert_moment
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the packages' samplers/__init__ re-export the rwmh *function* under the
 # module's name
 jrwmh_mod = importlib.import_module("mcmc_tpu.samplers.rwmh")

@@ -31,6 +31,18 @@ from test_sgld import _lyapunov_var_x
 from test_torch_chees import as_tensors, jax_run
 from test_torch_slice_sampler import assert_host_state
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 jsgld = importlib.import_module("mcmc_tpu.samplers.sgld")
 tsgld = importlib.import_module("mcmc_tpu_torch.samplers.sgld")
 

@@ -19,6 +19,18 @@ from mcmc_tpu.ops import fused_glm_hmc as jax_fused_glm_hmc
 from mcmc_tpu_torch import convert
 from mcmc_tpu_torch.models import make_logistic_regression_data
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 D, N = 10, 64
 SETTINGS = dict(step_size=0.08, n_leap=5, n_chains=16, n_burnin_draws=300,
                 n_keep_draws=400, block_chains=8)

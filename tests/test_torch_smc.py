@@ -27,6 +27,18 @@ from mcmc_tpu_torch import convert
 from mcmc_tpu_torch import models as tmodels
 from test_torch_chees import assert_close
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 jsmc = importlib.import_module("mcmc_tpu.samplers.smc")
 tsmc = importlib.import_module("mcmc_tpu_torch.samplers.smc")
 
@@ -264,8 +276,8 @@ def test_smc_bounded_truncated_normal():
 def test_smc_determinism_stages_and_refusals():
     """One seed repeats bit for bit; ``max_stages`` stops an unfinished run
     (``completed`` false, diagnostics trimmed to the stages taken); the
-    refusals of tests/test_smc.py::test_smc_validation_errors, and ``mesh``
-    (not ported)."""
+    refusals of tests/test_smc.py::test_smc_validation_errors, and a
+    non-mesh ``mesh``."""
     lk = lambda v: -0.5 * (v ** 2).sum(-1) / 0.01
     s = mcmc_tpu_torch.SMCSettings(n_particles=512, max_stages=20,
                                    resample="stratified")
@@ -293,5 +305,5 @@ def test_smc_determinism_stages_and_refusals():
         mcmc_tpu_torch.smc(np.zeros(2), sq,
                            mcmc_tpu_torch.SMCSettings(resample="x"),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         mcmc_tpu_torch.smc(np.zeros(2), sq, mesh=object(), device="cpu")

@@ -28,6 +28,18 @@ from mcmc_tpu_torch.samplers import common as tcommon
 from test_torch_chees import as_tensors
 from test_torch_pt import assert_state
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 jst = importlib.import_module("mcmc_tpu.samplers.stretch")
 tst = importlib.import_module("mcmc_tpu_torch.samplers.stretch")
 
@@ -232,7 +244,7 @@ def test_stretch_bounded_thin_resume_and_refusals(tmp_path):
     """``test_bounded_draws_inside`` (draws inside (0, 1), mean in (0.2,
     0.45)); ``thin=2`` with a warm ``resume``; the walker-count, ``par_a``
     and dimension refusals of ``test_validation_errors``, a batched start,
-    and ``mesh`` (not ported); ``checkpoint_dir=`` gives the in-memory
+    and a non-mesh ``mesh``; ``checkpoint_dir=`` gives the in-memory
     run's draws."""
     algo = mcmc_tpu_torch.AlgoSettings(
         vals_bound=True, lower_bounds=np.array([0.0]),
@@ -256,7 +268,7 @@ def test_stretch_bounded_thin_resume_and_refusals(tmp_path):
                                    device="cpu")
     with pytest.raises(ValueError, match="n_walkers"):
         mcmc_tpu_torch.stretch(np.zeros((4, 2)), lk, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         mcmc_tpu_torch.stretch(np.zeros(2), lk, mesh=object(), device="cpu")
     small = mcmc_tpu_torch.StretchSettings(n_walkers=8, n_burnin_draws=5,
                                            n_keep_draws=6)

@@ -26,6 +26,18 @@ from mcmc_tpu_torch import stats as tstats
 from mcmc_tpu_torch.results import SamplerResult
 from mcmc_tpu_torch.samplers import common as tcommon
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-5
 LK = lambda v: -0.5 * (v ** 2).sum(-1)
 
@@ -352,7 +364,8 @@ def test_rwmh_option_combinations_smoke(kwargs):
 def test_entry_points_default_to_the_card(name, tmp_path):
     """With no ``device=`` and numpy inputs the entry point allocates on
     ``cuda``: where there is none it raises, and never falls back to the
-    CPU; ``mesh=`` raises ``NotImplementedError``; ``checkpoint_dir=``
+    CPU; a ``mesh=`` that is not a mesh raises ``TypeError``;
+    ``checkpoint_dir=``
     gives the in-memory run's draws."""
     fn = getattr(mcmc_tpu_torch, name)
     args = (np.zeros(2), LK) if name != "rmhmc" else \
@@ -360,7 +373,7 @@ def test_entry_points_default_to_the_card(name, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             fn(*args, key=0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         fn(*args, key=0, device="cpu", mesh=object())
     cls = {"rwmh": mcmc_tpu_torch.RWMHSettings,
            "mala": mcmc_tpu_torch.MALASettings,

@@ -30,7 +30,7 @@ from mcmc_tpu_torch.integrators import grad_of
 tsvgd = importlib.import_module("mcmc_tpu_torch.svgd")
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_thread():
     """One intra-op thread for every test here: the tests run in several
     worker processes at once, and torch's default of a thread per core

@@ -18,6 +18,18 @@ from mcmc_tpu import models as jmodels
 from mcmc_tpu_torch import integrators as tint
 from mcmc_tpu_torch import models as tmodels
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N = 16
 RTOL = 1e-6
 _DATA = 2.0 + 2.0 * np.random.default_rng(11).standard_normal(200)
