@@ -35,6 +35,18 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    transitions of 157 leapfrogs, from a numpy precision with no
    ``device=``: launch count, acceptance, and mean and variance against
    the analytic answer; rank R-hat, min ESS and leapfrog steps/s printed;
+   phases 3-8 then run again past 128 padded columns, as a lap of their
+   own: K1 logistic at 256, 384 and 896 padded columns (200 x 1000, 300 x
+   1000 and 784 x 2000) and every link at 384, K3 at 384 (bit-equal to K1
+   at inverse mass 1, and through its factory), K2 at 256, 512 and 1024
+   (250, 500 and 1000 dims, diagonal and dense, two launches bit-equal),
+   each against its plain version at its phase's tolerances and timed;
+   ``fused_glm_hmc`` on the 784 x 2000 model at 16384 chains (one launch a
+   transition, acceptance in (0.5, 1], its mean within 0.3 of the generic
+   ``hmc``'s over the same transitions), and ``fused_gaussian_hmc`` on the
+   dense rotation of the 250-d ill-conditioned Gaussian at phase 8's
+   protocol, gated on each eigen-coordinate's mean and variance within 5
+   Monte-Carlo standard errors of the analytic answer;
 9. adapted NUTS, the main path's quality line, at 1024 chains on the
    flagship posterior (the protocol of ``bench.py``'s ``nuts`` line:
    ``build_nuts_kernel`` with pooled dual averaging, windowed diagonal mass
@@ -292,6 +304,36 @@ G_TOL_MAX = 2e-4
 G_MEAN_TOL = 0.02
 G_VAR_TOL = 0.03
 G_SWEEP_CHAINS = (256, 1024, 4096, 16384)
+
+# the widths past 128 padded columns (phases 3-8's additions, one lap): K1
+# logistic against its plain version at phase 3's chains, protocol and
+# tolerances on make_logistic_regression_data's models of these (columns,
+# rows), seeded by their width: 256, 384 and 896 padded columns (784 is an
+# MNIST image's pixel count); every link at 384; K3 at 384 (phase 6).
+WIDE_GLM = ((200, 1000), (300, 1000), (784, 2000))
+WIDE_LINK_DIM = 300
+# K2 against its plain version at phase 7's protocol and tolerances on
+# ill_conditioned_gaussian(dim, 1e4)'s spectrum, diagonal and densely
+# rotated: 256, 512 and 1,024 padded columns
+WIDE_GAUSS_DIMS = (250, 500, 1000)
+# the wide GLM path (phases 4-5): fused_glm_hmc on the 784 x 2,000 model at
+# 16,384 chains, 4 leapfrogs at step WG_STEP (acceptance 0.9986 on 128
+# chains of the plain version on the CPU); the posterior is broad (sd 1-3),
+# so 600 transitions of 4 x 0.02 do not converge, and the generic hmc at
+# 1,024 chains runs the same transitions from the same start distribution
+WG_DIM, WG_DATA, WG_STEP = 784, 2000, 0.02
+WG_BURNIN, WG_KEEP, WG_STEPS_PER_DRAW = 100, 100, 3
+# the wide Gaussian path (phase 8): fused_gaussian_hmc on the dense rotation
+# Q of ill_conditioned_gaussian(250, 1e4) at phase 8's protocol (the 250-d
+# MVN of the NUTS paper at the suite's condition number). In the eigenbasis
+# (draws @ Q) each coordinate k is N(0, variance_k); its mean is held to 0
+# within WGA_SIGMAS MC standard errors, sd_k / sqrt(ESS of x_k), and its
+# second moment to variance_k within WGA_SIGMAS of sqrt(2 / ESS of
+# x_k^2 / variance_k) (a Gaussian's); 500 gates at 5 leave a false alarm
+# near 3e-4. Phase 8's absolute figures (G_MEAN_TOL, G_VAR_TOL) printed.
+WGA_DIM = 250
+WGA_BURNIN, WGA_KEEP = 300, 300
+WGA_SIGMAS = 5.0
 
 # adapted NUTS at the bench's protocol (bench.py:45-58, :128-243)
 NUTS_CHAINS, NUTS_BIG_CHAINS = 1024, 4096
@@ -706,16 +748,326 @@ def link_data(name, X, beta, rng):
     """Responses of each family for the data ``X`` and coefficients
     ``beta`` (logistic uses the data's own)."""
     eta = X.cpu().double() @ beta.cpu().double()
+    n = X.shape[0]
     if name == "probit":
-        y = rng.uniform(size=N_DATA) < torch.special.ndtr(eta).numpy()
+        y = rng.uniform(size=n) < torch.special.ndtr(eta).numpy()
     elif name == "poisson":
         y = rng.poisson(np.exp(eta.numpy()))
     elif name == "studentt":
-        y = eta.numpy() + 0.5 * rng.standard_t(STUDENTT_NU, size=N_DATA)
+        y = eta.numpy() + 0.5 * rng.standard_t(STUDENTT_NU, size=n)
     else:
-        y = eta.numpy() + 0.5 * rng.standard_normal(N_DATA)
+        y = eta.numpy() + 0.5 * rng.standard_normal(n)
     return torch.tensor(np.asarray(y, np.float64), dtype=torch.float32,
                         device=X.device)
+
+
+def glm_compare(what, fns, got, want, dim):
+    """Check a GLM kernel's outputs against its plain version's at phase
+    3's tolerances, padded columns exactly zero; time ``fns`` (the kernel,
+    then the plain version); print one line. Returns ``(ms, plain ms, max
+    abs error, max scaled error)``."""
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          f"{what}: kernel output finite")
+    per_chain, abs_err = scaled_errors(got, want)
+    err_q99 = float(torch.quantile(per_chain, 0.99))
+    err_max = float(per_chain.max())
+    pad_zero = bool((got[0][:, dim:] == 0).all() and
+                    (got[1][:, dim:] == 0).all())
+    ms, plain_ms = median_ms(fns)
+    print(f"{what}: max abs error of z, p {abs_err:.3e}; per-chain scaled "
+          f"error: 99th percentile {err_q99:.3e} (tol {TOL_BULK:g}), max "
+          f"{err_max:.3e} (tol {TOL_MAX:g}); padded columns zero: "
+          f"{pad_zero}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms per "
+          "trajectory (median of 10 windows of 10 calls)")
+    check(err_q99 <= TOL_BULK, f"{what}: 99% of chains within {TOL_BULK}")
+    check(err_max <= TOL_MAX, f"{what}: every chain within {TOL_MAX}")
+    check(pad_zero, f"{what}: padded columns exactly zero")
+    return ms, plain_ms, abs_err, err_max
+
+
+def wide_widths(dev, fl):
+    """Phases 3-8's additions at the widths past 128 padded columns (one
+    lap): the kernels against their plain versions and timed at each width,
+    then the wide GLM and Gaussian paths. Returns each kernel's per-width
+    records for the kernels' JSON line."""
+    from mcmc_tpu_torch import (HMCSettings, diagnostics, fused_gaussian_hmc,
+                                fused_glm_hmc, hmc)
+    from mcmc_tpu_torch.models import (ill_conditioned_gaussian,
+                                       logistic_regression_model,
+                                       make_logistic_regression_data)
+
+    rec = {k: {"ms": {}, "plain_ms": {}, "bound_ms": {}, "launches": {},
+               "max_abs_err": 0.0, "max_scaled_err": 0.0}
+           for k in ("K1", "K3", "K2")}
+    rec["K1"]["ms_by_link"], rec["K1"]["plain_ms_by_link"] = {}, {}
+    rec["K2"]["dense_ms"] = {}
+
+    def note(k, dp, ms, plain_ms, bound, abs_err, scaled_err):
+        r = rec[k]
+        r["ms"][str(dp)], r["plain_ms"][str(dp)] = ms, plain_ms
+        r["bound_ms"][str(dp)] = bound
+        r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+        r["max_scaled_err"] = max(r["max_scaled_err"], scaled_err)
+
+    # phase 3: K1 at 256, 384 and 896 padded columns, every link at 384
+    gen = torch.Generator(device=dev).manual_seed(50)
+    data = {}
+    for dim, n in WIDE_GLM:
+        X, y, beta = make_logistic_regression_data(dim, n, dim)
+        data[dim] = (X, y)
+        rng = np.random.default_rng(dim)
+        for name in LINKS if dim == WIDE_LINK_DIM else ("logistic",):
+            yl = y if name == "logistic" else link_data(name, X, beta, rng)
+            link = fl.studentt_link(STUDENTT_NU) if name == "studentt" \
+                else name
+            traj = fl.make_fused_trajectory(X, yl, PRIOR_SCALE, STEP_SIZE,
+                                            N_LEAP, link=link)
+            dp = traj.dim_padded
+            z = torch.zeros((N_CHAINS, dp), device=dev)
+            p = torch.zeros((N_CHAINS, dp), device=dev)
+            z[:, :dim] = beta + 0.3 * torch.randn((N_CHAINS, dim),
+                                                  generator=gen, device=dev)
+            p[:, :dim] = torch.randn((N_CHAINS, dim), generator=gen,
+                                     device=dev)
+            args = (traj.Xb, traj.y, traj.mask, traj.inv_pv, STEP_SIZE,
+                    N_LEAP, link)
+            got = fl.fused_trajectory_cuda(z, p, *args)
+            want = fl._fused_trajectory_plain(z, p, *args)
+            fns = [lambda: fl.fused_trajectory_cuda(z, p, *args),
+                   lambda: fl._fused_trajectory_plain(z, p, *args)]
+            torch.cuda.synchronize()
+            ms, plain_ms, abs_err, err = glm_compare(
+                f"K1 {name} at {dp} ({dim} x {n})", fns, got, want, dim)
+            bound = glm_bound_ms(N_CHAINS, dim, n, N_LEAP, False, name)
+            print(f"  bound {bound[0]:.4f} ms ({bound[2]}), "
+                  f"{100 * bound[0] / ms:.1f}% of it")
+            if name == "logistic":
+                note("K1", dp, ms, plain_ms, bound[0], abs_err, err)
+            else:
+                rec["K1"]["max_abs_err"] = max(rec["K1"]["max_abs_err"],
+                                               abs_err)
+                rec["K1"]["max_scaled_err"] = max(
+                    rec["K1"]["max_scaled_err"], err)
+            if dim == WIDE_LINK_DIM:
+                rec["K1"]["ms_by_link"][name] = ms
+                rec["K1"]["plain_ms_by_link"][name] = plain_ms
+            if dim == WIDE_LINK_DIM and name == "logistic":
+                k3_in = (z, p, args, got)
+            del z, p, got, want, fns
+
+    # phase 6: K3 at 384, against its plain version and at inverse mass 1
+    # bit-equal to K1, then through its factory
+    (z, p, args, k1_out), dim = k3_in, WIDE_LINK_DIM
+    Xb, yr, mask, inv_pv = args[:4]
+    dp = z.shape[1]
+    eps_t = torch.tensor(STEP_SIZE, dtype=torch.float32, device=dev)
+    im = torch.ones((dp,), device=dev)
+    im[:dim] = torch.linspace(0.5, 2.0, dim, device=dev)
+    rt_args = (Xb, yr, mask, inv_pv, eps_t, N_LEAP, "logistic", im)
+    got = fl.fused_trajectory_rt_cuda(z, p, *rt_args)
+    want = fl._fused_trajectory_plain(z, p, *rt_args)
+    one = fl.fused_trajectory_rt_cuda(z, p, *rt_args[:-1],
+                                      torch.ones_like(im))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(one, k1_out))
+    ms, plain_ms, abs_err, err = glm_compare(
+        f"K3 logistic at {dp}, inverse mass 0.5..2",
+        [lambda: fl.fused_trajectory_rt_cuda(z, p, *rt_args),
+         lambda: fl._fused_trajectory_plain(z, p, *rt_args)], got, want, dim)
+    bound = glm_bound_ms(N_CHAINS, dim, 1000, N_LEAP, True)
+    print(f"  at inverse mass 1 bit-equal to K1: {same}; bound "
+          f"{bound[0]:.4f} ms, {100 * bound[0] / ms:.1f}% of it")
+    check(same, f"K3 at {dp}, inverse mass 1 and K1's step: K1's bits")
+    note("K3", dp, ms, plain_ms, bound[0], abs_err, err)
+    X, y = data[dim]
+    traj_rt = fl.make_fused_trajectory_rt(X.cpu().numpy(), y.cpu().numpy(),
+                                          PRIOR_SCALE, N_LEAP)
+    fl.fused_trajectory_rt_cuda.launches = 0
+    zc, pc = z, p
+    for _ in range(RT_CALLS):
+        zc, pc, uc = traj_rt(zc, pc, eps_t, im)
+        eps_t = eps_t * 1.01
+    torch.cuda.synchronize()
+    launches = fl.fused_trajectory_rt_cuda.launches
+    check(launches == RT_CALLS, f"{launches} launches of K3 at {dp} for "
+          f"{RT_CALLS} calls of its factory's trajectory")
+    check(bool(torch.isfinite(zc).all() and torch.isfinite(uc).all()),
+          f"K3 path at {dp}: output finite")
+    rec["K3"]["launches"][str(dp)] = launches
+    del z, p, got, want, one, k3_in, k1_out, zc, pc
+
+    # phase 7: K2 at 256, 512 and 1,024 padded columns
+    gen = torch.Generator(device=dev).manual_seed(53)
+    g_eps = torch.tensor(G_STEP, dtype=torch.float32, device=dev)
+    rotations = {}
+    for dim in WIDE_GAUSS_DIMS:
+        variances = ill_conditioned_gaussian(dim, G_COND).variances
+        prec_np = (1.0 / variances).cpu().numpy().astype(np.float64)
+        rng = np.random.default_rng(dim)
+        Q, _ = np.linalg.qr(rng.standard_normal((dim, dim)))
+        dense_np = (Q * prec_np) @ Q.T
+        dense_np = 0.5 * (dense_np + dense_np.T)
+        rotations[dim] = (Q, dense_np, variances)
+        for name, P_np, m_np in (("diagonal", prec_np, None),
+                                 ("dense", dense_np,
+                                  rng.standard_normal(dim))):
+            traj = fl.make_fused_gaussian_trajectory(P_np, m_np, G_STEP,
+                                                     G_LEAP)
+            dp = traj.dim_padded
+            z = torch.zeros((G_CHAINS, dp), device=dev)
+            p = torch.zeros((G_CHAINS, dp), device=dev)
+            z[:, :dim] = G_INIT_SCALE * torch.randn((G_CHAINS, dim),
+                                                    generator=gen, device=dev)
+            p[:, :dim] = torch.randn((G_CHAINS, dim), generator=gen,
+                                     device=dev)
+            gargs = (z, p, traj.P, traj.mean, g_eps, G_LEAP, dim)
+            got = fl.fused_gaussian_trajectory_cuda(*gargs)
+            again = fl.fused_gaussian_trajectory_cuda(*gargs)
+            want = fl._fused_gaussian_trajectory_plain(*gargs)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(t).all()) for t in got),
+                  f"K2 {name} at {dp}: kernel output finite")
+            per_chain, abs_err = scaled_errors(got, want)
+            err_q99 = float(torch.quantile(per_chain, 0.99))
+            err_max = float(per_chain.max())
+            pad_zero = bool((got[0][:, dim:] == 0).all() and
+                            (got[1][:, dim:] == 0).all())
+            repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+            zp_equal = torch.equal(got[0], want[0]) and \
+                torch.equal(got[1], want[1])
+            ms, plain_ms = median_ms([
+                lambda: fl.fused_gaussian_trajectory_cuda(*gargs),
+                lambda: fl._fused_gaussian_trajectory_plain(*gargs)],
+                reps=6 if dp > 512 else 10, calls=5 if dp > 512 else 10)
+            bound = gaussian_bound_ms(G_CHAINS, dim, G_LEAP)
+            print(f"K2 {name} precision at {dp} ({dim} dims): max abs error "
+                  f"of z, p {abs_err:.3e}; per-chain scaled error: 99th "
+                  f"percentile {err_q99:.3e} (tol {G_TOL_BULK:g}), max "
+                  f"{err_max:.3e} (tol {G_TOL_MAX:g}); z, p bit-equal to "
+                  f"plain: {zp_equal}; padded columns zero: {pad_zero}; two "
+                  f"launches bit-equal: {repeat}; kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms per trajectory; bound {bound[0]:.4f} "
+                  f"ms, {100 * bound[0] / ms:.1f}% of it")
+            check(err_q99 <= G_TOL_BULK,
+                  f"K2 {name} at {dp}: 99% within {G_TOL_BULK}")
+            check(err_max <= G_TOL_MAX,
+                  f"K2 {name} at {dp}: every chain within {G_TOL_MAX}")
+            check(pad_zero, f"K2 {name} at {dp}: padded columns exactly zero")
+            check(repeat, f"K2 {name} at {dp}: two launches bit-equal")
+            if name == "diagonal":
+                check(zp_equal, f"K2 diagonal at {dp}: z, p bit-equal to the "
+                      "plain version")
+                note("K2", dp, ms, plain_ms, bound[0], abs_err, err_max)
+            else:
+                rec["K2"]["max_abs_err"] = max(rec["K2"]["max_abs_err"],
+                                               abs_err)
+                rec["K2"]["max_scaled_err"] = max(rec["K2"]["max_scaled_err"],
+                                                  err_max)
+                rec["K2"]["dense_ms"][str(dp)] = ms
+            del z, p, got, again, want
+
+    # phases 4-5: the wide GLM path, then the generic hmc over the same
+    # transitions
+    X, y = data[WG_DIM]
+    X_np, y_np = X.cpu().numpy(), y.cpu().numpy()
+    n_trans = (WG_BURNIN + WG_KEEP) * WG_STEPS_PER_DRAW
+    fl.fused_trajectory_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fused_glm_hmc(X_np, y_np, prior_scale=PRIOR_SCALE,
+                        step_size=WG_STEP, n_leap=N_LEAP, n_chains=N_CHAINS,
+                        n_burnin_draws=WG_BURNIN, n_keep_draws=WG_KEEP,
+                        steps_per_draw=WG_STEPS_PER_DRAW, key=54)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fl.fused_trajectory_cuda.launches
+    dp = fl._round_up(WG_DIM, 128)
+    check(launches == n_trans, f"{launches} kernel launches at {dp} for "
+          f"{n_trans} transitions")
+    check(out.draws.is_cuda and tuple(out.draws.shape) ==
+          (WG_KEEP, N_CHAINS, WG_DIM), "wide GLM draws on the card, shape")
+    check(bool(torch.isfinite(out.draws).all()), "wide GLM draws finite")
+    accept = float(out.diagnostics["accept_rate_per_chain"].mean())
+    check(0.5 < accept <= 1.0, f"wide GLM accept rate {accept} in (0.5, 1]")
+    fused_mean = out.draws.mean(dim=(0, 1))
+    del out
+    rec["K1"]["launches"][str(dp)] = launches
+    gen = torch.Generator(device=dev).manual_seed(55)
+    init = 0.05 * torch.randn((HMC_CHAINS, WG_DIM), generator=gen,
+                              device=dev)
+    settings = HMCSettings(n_burnin_draws=WG_BURNIN * WG_STEPS_PER_DRAW,
+                           n_keep_draws=WG_KEEP * WG_STEPS_PER_DRAW,
+                           step_size=WG_STEP, n_leap_steps=N_LEAP)
+    t1 = time.perf_counter()
+    ref = hmc(init, logistic_regression_model(X, y, PRIOR_SCALE), settings,
+              key=56)
+    torch.cuda.synchronize()
+    diff = float((ref.draws.mean(dim=(0, 1)) - fused_mean).abs().max())
+    print(f"fused_glm_hmc at {dp} ({WG_DIM} x {WG_DATA}): {N_CHAINS} chains, "
+          f"{n_trans} transitions in {seconds:.3f} s "
+          f"({1e3 * seconds / n_trans:.3f} ms each), {launches} kernel "
+          f"launches; step {WG_STEP}, accept {accept:.4f}; "
+          f"{n_trans * N_LEAP * N_CHAINS / seconds:.4e} leapfrog steps/s; "
+          f"hmc at {HMC_CHAINS} chains over the same transitions "
+          f"{time.perf_counter() - t1:.3f} s, accept "
+          f"{float(ref.accept_rate.mean()):.4f}, max |mean - fused mean| "
+          f"{diff:.4f} (tol {MEAN_ATOL})")
+    check(diff <= MEAN_ATOL, f"wide hmc mean within {MEAN_ATOL} of the "
+          "fused mean")
+    del ref
+
+    # phase 8: the wide Gaussian path against the analytic moments
+    Q, dense_np, variances = rotations[WGA_DIM]
+    g_trans = (WGA_BURNIN + WGA_KEEP) * G_STEPS_PER_DRAW
+    fl.fused_gaussian_trajectory_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fused_gaussian_hmc(dense_np, step_size=G_STEP, n_leap=G_LEAP,
+                             n_chains=G_CHAINS, n_burnin_draws=WGA_BURNIN,
+                             n_keep_draws=WGA_KEEP, init_scale=G_INIT_SCALE,
+                             step_jitter=G_JITTER,
+                             steps_per_draw=G_STEPS_PER_DRAW, key=57)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fl.fused_gaussian_trajectory_cuda.launches
+    dp = fl._round_up(WGA_DIM, 128)
+    check(launches == g_trans, f"{launches} launches of K2 at {dp} for "
+          f"{g_trans} transitions")
+    check(out.draws.is_cuda and tuple(out.draws.shape) ==
+          (WGA_KEEP, G_CHAINS, WGA_DIM), "wide Gaussian draws on the card")
+    check(bool(torch.isfinite(out.draws).all()), "wide Gaussian draws finite")
+    accept = float(out.diagnostics["accept_rate_per_chain"].mean())
+    check(0.5 < accept <= 1.0,
+          f"wide Gaussian accept rate {accept} in (0.5, 1]")
+    rec["K2"]["launches"][str(dp)] = launches
+    var = variances.double()
+    eig = out.draws @ torch.tensor(Q, dtype=torch.float32, device=dev)
+    del out
+    ess_x = diagnostics.ess(eig, chain_chunk=256).double()
+    ess_sq = diagnostics.ess(eig * eig / variances, chain_chunk=256).double()
+    flat = eig.reshape(-1, WGA_DIM).double()
+    mean_z = float((flat.mean(dim=0).abs() / (var.sqrt() / ess_x.sqrt()))
+                   .max())
+    var_z = float(((flat.square().mean(dim=0) / var - 1.0).abs()
+                   / (2.0 / ess_sq).sqrt()).max())
+    mean_err = float((flat.mean(dim=0).abs() / var.sqrt()).max())
+    var_err = float((flat.var(dim=0) / var - 1.0).abs().max())
+    del eig, flat
+    print(f"fused_gaussian_hmc at {dp} ({WGA_DIM} dims, dense): {G_CHAINS} "
+          f"chains, {g_trans} transitions of {G_LEAP} leapfrogs in "
+          f"{seconds:.3f} s ({1e3 * seconds / g_trans:.3f} ms each), "
+          f"{launches} launches of K2; accept {accept:.4f}; in the "
+          f"eigenbasis max |mean| / MC standard error {mean_z:.3f}, max "
+          f"|E x^2 / variance - 1| / MC standard error {var_z:.3f} (tol "
+          f"{WGA_SIGMAS:g}); min ESS of x {float(ess_x.min()):.1f}, of x^2 "
+          f"{float(ess_sq.min()):.1f}; phase 8's figures: max |mean|/sd "
+          f"{mean_err:.4f} (its tol {G_MEAN_TOL}), max |var/variance - 1| "
+          f"{var_err:.4f} (its tol {G_VAR_TOL})")
+    check(mean_z <= WGA_SIGMAS, f"wide Gaussian means within {WGA_SIGMAS:g} "
+          "MC standard errors of 0")
+    check(var_z <= WGA_SIGMAS, f"wide Gaussian variances within "
+          f"{WGA_SIGMAS:g} MC standard errors")
+    return rec
 
 
 def nuts_line(X, y, n_chains, prefix, seed, full_diag, n_keep=NUTS_KEEP):
@@ -2991,6 +3343,10 @@ def main():
     del out
 
     lap("1-8")
+    # --- phases 3-8 at the widths past 128 padded columns
+    wide = wide_widths(dev, fl)
+    lap("3-8 wide")
+    print(f"phases 3-8 at the wide widths: {phase_s['3-8 wide']} s")
     # --- adapted NUTS, the quality line, before any profiler runs
     out, nuts_step, nuts_gen, nuts_state = nuts_line(
         X, y, NUTS_CHAINS, "nuts", 40, full_diag=True)
@@ -3122,32 +3478,55 @@ def main():
           f"{G_DIM} columns); kernel {g_ms:.3f} ms, "
           f"{100 * k2_bound[0] / g_ms:.1f}% of it")
     src = "mcmc_tpu_torch/csrc/"
+
+    def by_width(k, at_128):
+        """The per-width fields of kernel ``k``'s record: ``at_128`` its
+        (ms, plain ms, bound, launches) at 128 columns, beside the wide
+        widths'."""
+        return {f"{f}_by_width": {"128": v, **wide[k][f]} for f, v in zip(
+            ("ms", "plain_ms", "bound_ms", "launches"), at_128)}
+
     print(json.dumps({"kernels": [{
         "name": "fused_glm_trajectory", "route": "cuda",
         "source": src + "fused_glm_trajectory.cu",
+        "wide_source": src + "fused_glm_trajectory_wide.cu",
         "replaces": "mcmc_tpu/ops/fused_logreg.py:163",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "max_scaled_err": max_scaled_err, "ms": ms, "plain_ms": plain_ms,
+        "launches": launches,
+        "max_abs_err": max(max_abs_err, wide["K1"]["max_abs_err"]),
+        "max_scaled_err": max(max_scaled_err, wide["K1"]["max_scaled_err"]),
+        "ms": ms, "plain_ms": plain_ms,
         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
         "bound_operations": k1_bound[2], "bound_ms_padded": k1_padded,
         "ms_by_link": {k: v[0] for k, v in timing.items()},
         "plain_ms_by_link": {k: v[1] for k, v in timing.items()},
+        **by_width("K1", (ms, plain_ms, k1_bound[0], launches)),
+        "ms_by_link_384": wide["K1"]["ms_by_link"],
+        "plain_ms_by_link_384": wide["K1"]["plain_ms_by_link"],
     }, {
         "name": "fused_glm_trajectory_rt", "route": "cuda",
         "source": src + "fused_glm_trajectory.cu",
+        "wide_source": src + "fused_glm_trajectory_wide.cu",
         "replaces": "mcmc_tpu/ops/fused_logreg.py:498",
-        "launches": rt_launches, "max_abs_err": rt_abs_err,
-        "max_scaled_err": rt_max, "ms": rt_ms, "plain_ms": rt_plain_ms,
+        "launches": rt_launches,
+        "max_abs_err": max(rt_abs_err, wide["K3"]["max_abs_err"]),
+        "max_scaled_err": max(rt_max, wide["K3"]["max_scaled_err"]),
+        "ms": rt_ms, "plain_ms": rt_plain_ms,
         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
         "bound_operations": k3_bound[2], "bound_ms_padded": k3_padded,
+        **by_width("K3", (rt_ms, rt_plain_ms, k3_bound[0], rt_launches)),
     }, {
         "name": "fused_gaussian_trajectory", "route": "cuda",
         "source": src + "fused_gaussian_trajectory.cu",
+        "wide_source": src + "fused_gaussian_trajectory_wide.cu",
         "replaces": "mcmc_tpu/ops/fused_logreg.py:330",
-        "launches": g_launches, "max_abs_err": g_abs_err,
-        "max_scaled_err": g_scaled_err, "ms": g_ms, "plain_ms": g_plain_ms,
+        "launches": g_launches,
+        "max_abs_err": max(g_abs_err, wide["K2"]["max_abs_err"]),
+        "max_scaled_err": max(g_scaled_err, wide["K2"]["max_scaled_err"]),
+        "ms": g_ms, "plain_ms": g_plain_ms,
         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None,
         "bound_ms_padded": k2_padded,
+        **by_width("K2", (g_ms, g_plain_ms, k2_bound[0], g_launches)),
+        "dense_ms_by_width": wide["K2"]["dense_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,10 @@
 // SM's schedulers and two on the fourth, and the crowded schedulers, about
 // 88% busy, set the pace (clock counters around each phase of the step).
 //
+// This body is for dim_padded 128; wider models run the body that streams
+// P from L2 (fused_gaussian_trajectory_wide.cu), which the launch below
+// picks by width.
+//
 // What the design does about it (the step's costs were measured one by one
 // with builds that each left one out; the largest beside the FMAs is the
 // shared-memory loads' return path, 128 bytes a clock and SM: every lane
@@ -66,6 +70,14 @@
 // version's bit for bit.
 
 #include <cuda_runtime.h>
+
+// dim_padded past 128: the body that streams P from L2
+// (fused_gaussian_trajectory_wide.cu).
+int fused_gaussian_wide_launch(const void* z, const void* p, const void* P,
+                               const void* mean, const void* eps, void* z_out,
+                               void* p_out, void* u_out, int n_chains,
+                               int dim_padded, int dim, int n_leap,
+                               cudaStream_t stream);
 
 namespace {
 
@@ -295,17 +307,20 @@ cudaError_t launch(const void* z, const void* p, const void* P,
 // Launch one fused Gaussian trajectory on `stream`. z, p, z_out, p_out:
 // (n_chains, dim_padded) f32; P: (dim_padded, dim_padded) f32; mean:
 // (dim_padded,) f32; eps: one f32; u_out: (n_chains,) f32; all contiguous
-// on the device. `dim` is the model's dimension: at and past it P is the
-// identity and z, p, mean are zero. Returns the CUDA error code of the
-// launch (0 on success).
+// on the device; dim_padded 128, or a multiple of 128 up to 1024. `dim` is
+// the model's dimension: at and past it P is the identity and z, p, mean
+// are zero. Returns the CUDA error code of the launch (0 on success).
 extern "C" int fused_gaussian_trajectory_launch(
     const void* z, const void* p, const void* P, const void* mean,
     const void* eps, void* z_out, void* p_out, void* u_out, int n_chains,
     int dim_padded, int dim, int n_leap, void* stream) {
-  if (n_chains < 1 || n_leap < 1 || dim_padded != 128 || dim < 1 ||
-      dim > dim_padded || eps == nullptr)
+  if (n_chains < 1 || n_leap < 1 || dim < 1 || dim > dim_padded ||
+      eps == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dim_padded != 128)
+    return fused_gaussian_wide_launch(z, p, P, mean, eps, z_out, p_out, u_out,
+                                      n_chains, dim_padded, dim, n_leap, s);
 #define K2_LAUNCH(DL)                                                      \
   return (int)launch<DL>(z, p, P, mean, eps, z_out, p_out, u_out, n_chains, \
                          dim_padded, n_leap, s)

@@ -73,8 +73,10 @@
 // of it, and both groups reach the link at the same time. State traffic,
 // launch and the ring's barriers (a fifth of the time) overlap nothing.
 //
-// At dim_padded 256 that accumulator does not fit a thread's registers;
-// that width keeps the earlier WMMA body (fused_glm_trajectory_wmma.cuh).
+// At dim_padded 256 to 1024 that accumulator does not fit a thread's
+// registers, nor z and p a block's shared memory: those widths run the
+// cluster body of fused_glm_trajectory_wide.cu, whose blocks each take one
+// 128-column panel of this body's work.
 //
 // Rows padded to the tile carry mask 0, and z, p columns past the model's
 // dimension stay exactly zero (their X columns are zero). Chains past
@@ -82,97 +84,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
-namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kRowTile = 64;  // data rows per streamed tile of X
-
-enum Link : int {
-  kLogistic = 0, kPoisson = 1, kLinear = 2, kProbit = 3, kStudentT = 4
-};
-
-// The link's exponential is __expf (ex2.approx of x * log2 e) and its
-// quotients __fdividef (the approximate reciprocal, 2 ulp).
-
-// erf by Abramowitz & Stegun 7.1.26, the polynomial the JAX package uses
-// (fused_logreg.py _erf_poly): in the reference the polynomial is the model.
-__device__ __forceinline__ float erf_poly(float x) {
-  const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f,
-              a4 = -1.453152027f, a5 = 1.061405429f;
-  const float p = 0.3275911f;
-  const float ax = fabsf(x);
-  const float t = __fdividef(1.0f, 1.0f + p * ax);
-  const float poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))));
-  const float y = 1.0f - poly * __expf(-ax * ax);
-  return x > 0.0f ? y : (x < 0.0f ? -y : 0.0f * y);
-}
-
-// y - mu_eff of the link, and with WANT_LL the per-datum log-likelihood in
-// *ll (fused_logreg.py _link_eval_fns: d ll / d eta = y - mu_eff). `nu` is
-// the Student-t link's degrees of freedom and unused by the others. Without
-// WANT_LL the logistic residual costs one exponential and one reciprocal.
-template <int LINK, bool WANT_LL>
-__device__ __forceinline__ float link_residual(float nu, float eta, float y,
-                                               float* ll) {
-  if (LINK == kLogistic) {
-    const float mu = __fdividef(1.0f, 1.0f + __expf(-eta));
-    if (WANT_LL) {
-      const float softplus = fmaxf(eta, 0.0f) + log1pf(expf(-fabsf(eta)));
-      *ll = y * eta - softplus;
-    }
-    return y - mu;
-  }
-  if (LINK == kPoisson) {
-    const float mu = __expf(eta);
-    if (WANT_LL) *ll = y * eta - mu;
-    return y - mu;
-  }
-  if (LINK == kProbit) {
-    const float inv_sqrt_2pi = 0.3989422804014327f;
-    const float inv_sqrt_2 = 0.7071067811865476f;
-    const float hi = (float)(1.0 - 1e-7);
-    const float phi = __expf(-0.5f * eta * eta) * inv_sqrt_2pi;
-    float cdf = 0.5f * (1.0f + erf_poly(eta * inv_sqrt_2));
-    cdf = fminf(fmaxf(cdf, 1e-30f), hi);
-    const float score = __fdividef(y * phi, cdf) -
-                        __fdividef((1.0f - y) * phi, 1.0f - cdf);
-    if (WANT_LL) *ll = y * logf(cdf) + (1.0f - y) * logf(1.0f - cdf);
-    const float mu = y - score;
-    return y - mu;
-  }
-  if (LINK == kStudentT) {
-    // y | eta ~ t_nu(eta, 1) (fused_logreg.py studentt_link :119-123)
-    const float r = y - eta;
-    const float score = __fdividef((nu + 1.0f) * r, nu + r * r);
-    if (WANT_LL) *ll = -0.5f * (nu + 1.0f) * log1pf(r * r / nu);
-    const float mu = y - score;
-    return y - mu;
-  }
-  const float d = y - eta;  // linear
-  if (WANT_LL) *ll = -0.5f * (d * d);
-  return d;
-}
-
-// The same with the link chosen at run time, for the WMMA body.
-__device__ __forceinline__ float link_residual(int link, float nu, float eta,
-                                               float y, float* ll) {
-  switch (link) {
-    case kLogistic: return link_residual<kLogistic, true>(nu, eta, y, ll);
-    case kPoisson: return link_residual<kPoisson, true>(nu, eta, y, ll);
-    case kProbit: return link_residual<kProbit, true>(nu, eta, y, ll);
-    case kStudentT: return link_residual<kStudentT, true>(nu, eta, y, ll);
-    default: return link_residual<kLinear, true>(nu, eta, y, ll);
-  }
-}
-
-}  // namespace
-
-#include "fused_glm_trajectory_wmma.cuh"
+#include "fused_glm_common.cuh"
 
 namespace {
 
@@ -203,143 +118,6 @@ constexpr int kOffYM = kOffP + kWGs * kZBytes;
 constexpr int kOffBar = kOffYM + kStages * kYMBytes;
 constexpr int kSmemBytes = kOffBar + 2 * kStages * 8 + 1024;  // + alignment
 static_assert(kSmemBytes <= 232448, "fits a block");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-
-// An mbarrier in shared memory: `count` arrivals complete a phase.
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// One arrival on `bar` once all cp.async of this thread so far have landed:
-// the copies report their own completion, and no thread waits for them
-// before it needs the tile.
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   bar)
-               : "memory");
-}
-
-// Waits until the phase of `bar` with this parity has completed. A wait of
-// more than a few seconds is a fault of the ring: it traps, so that a
-// launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) t0 = clock64();
-    if (clock64() - t0 > (1ll << 33)) __trap();
-  }
-}
-
-// Makes shared-memory writes of this thread visible to wgmma's reads.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving uses of an accumulator across a wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma's shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets, all in units of 16 bytes.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// Byte offset, in a [rows x 64 columns] bf16 block of 128-byte rows, of the
-// 16-byte chunk `chunk` of row `row` under the 128-byte swizzle.
-__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
-  return (uint32_t)((row << 7) + (((chunk ^ row) & 7) << 4));
-}
-
-#define ACC4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define ACC16(d, i) ACC4(d, i), ACC4(d, i + 4), ACC4(d, i + 8), ACC4(d, i + 12)
-
-// d (64 x 64, f32) = or += A (64 x 16 bf16, registers) .
-// B (16 x 64, shared, K-major)
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
-                                                   const uint32_t* a,
-                                                   uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-      "}\n"
-      : ACC16(d, 0), ACC16(d, 16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 128, f32) = or += A (64 x 16 bf16, registers) .
-// B (16 x 128, shared, MN-major: the transpose bit)
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
-                                                    const uint32_t* a,
-                                                    uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : ACC16(d, 0), ACC16(d, 16), ACC16(d, 32), ACC16(d, 48)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // The ring of X tiles, shared by the block's warpgroups: tile gi of the
 // trajectory's (n_leap + 1) * n_tiles goes to stage gi % kStages, and is
@@ -671,8 +449,9 @@ cudaError_t launch(const void* z, const void* p, const void* X, const void* y,
   return cudaGetLastError();
 }
 
-// By width, in the open: 128 columns run the warpgroup body above, 256 the
-// WMMA body of fused_glm_trajectory_wmma.cuh.
+// By width, in the open: 128 columns run the warpgroup body above, every
+// other multiple of 128 up to kMaxDimPadded the cluster body of
+// fused_glm_trajectory_wide.cu.
 template <bool RT>
 int dispatch(const void* z, const void* p, const void* X, const void* y,
              const void* mask, const void* eps_ptr, const void* inv_mass,
@@ -688,10 +467,12 @@ int dispatch(const void* z, const void* p, const void* X, const void* y,
     return (int)launch<RT>(z, p, X, y, mask, eps_ptr, inv_mass, z_out, p_out,
                            u_out, n_chains, n_rows, n_leap, half_eps, eps,
                            inv_pv, link, nu, s);
-  if (dim_padded == 256)
-    return (int)wmma_body::launch<32, 256, RT>(
-        z, p, X, y, mask, eps_ptr, inv_mass, z_out, p_out, u_out, n_chains,
-        n_rows, n_leap, half_eps, eps, inv_pv, link, nu, s);
+  if (dim_padded > 128 && dim_padded <= kMaxDimPadded &&
+      dim_padded % 128 == 0)
+    return fused_glm_wide_launch(RT, z, p, X, y, mask, eps_ptr, inv_mass,
+                                 z_out, p_out, u_out, n_chains, n_rows,
+                                 dim_padded, n_leap, half_eps, eps, inv_pv,
+                                 link, nu, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -728,3 +509,4 @@ extern "C" int fused_glm_trajectory_rt_launch(
 extern "C" const char* fused_glm_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+

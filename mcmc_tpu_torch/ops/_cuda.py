@@ -25,21 +25,32 @@ import time
 from pathlib import Path
 
 __all__ = ["load", "build", "library_path", "sources", "headers",
-           "DIM_PADDED", "GAUSSIAN_DIM_PADDED", "GAUSSIAN_LIVE_WIDTHS",
-           "build_seconds", "build_log"]
+           "MAX_DIM_PADDED", "takes_dim_padded", "GAUSSIAN_LIVE_WIDTHS",
+           "WIDE_LIVE_MULTIPLE", "build_seconds", "build_log"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "mcmc_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v"]
-# padded model widths the GLM kernel is instantiated for (csrc: launch)
-DIM_PADDED = (128, 256)
-# padded width the Gaussian kernel takes, and the live widths it is
-# instantiated for: a launch runs the smallest that holds the model's
-# dimension (csrc: fused_gaussian_trajectory_launch)
-GAUSSIAN_DIM_PADDED = (128,)
+# the widest padded model the kernels take (csrc: kMaxDimPadded): every
+# multiple of 128 up to it. At 128 columns the GLM kernel runs its
+# warpgroup body, wider its cluster body of one block per 128-column panel,
+# at most eight, the portable cluster size; the Gaussian kernel streams P
+# from L2 past 128.
+MAX_DIM_PADDED = 1024
+# the live widths the Gaussian kernel is instantiated for at 128 padded
+# columns: a launch runs the smallest that holds the model's dimension
+# (csrc: fused_gaussian_trajectory_launch); past 128 columns its live width
+# is the dimension rounded up to a multiple of WIDE_LIVE_MULTIPLE (csrc:
+# fused_gaussian_wide_launch)
 GAUSSIAN_LIVE_WIDTHS = (32, 64, 104, 128)
+WIDE_LIVE_MULTIPLE = 16
+
+
+def takes_dim_padded(dp: int) -> bool:
+    """Whether the kernels take a model padded to ``dp`` columns."""
+    return dp % 128 == 0 and 128 <= dp <= MAX_DIM_PADDED
 
 _lib = None
 build_seconds = None   # wall time of the build this process ran, if any

@@ -7,7 +7,11 @@ Under plain tensor code each gradient of the GLM log-posterior writes the
 matmuls. The fused trajectory runs all ``n_leap`` leapfrog steps for a tile
 of chains in one CUDA kernel (``csrc/fused_glm_trajectory.cu``): positions,
 momenta and gradients stay on chip, the design matrix is streamed in row
-tiles, and the linear predictor never leaves the SM.
+tiles, and the linear predictor never leaves the SM. Models padded to 128
+columns run one block per chain tile; wider ones, up to
+``_cuda.MAX_DIM_PADDED`` (1,024) columns, a cluster of blocks, one per
+128-column panel, that sum the linear predictor through distributed shared
+memory (``csrc/fused_glm_trajectory_wide.cu``).
 
 Precision contract (the JAX package's): matmuls take bf16 operands — the
 position rounded to bf16 before ``eta = z X^T`` and the residual rounded to
@@ -28,7 +32,11 @@ and a diagonal inverse mass given at call time (the same kernel, with the
 step size read from device memory). The Gaussian family
 (:func:`make_fused_gaussian_trajectory`, ``csrc/fused_gaussian_trajectory.cu``)
 is all f32: its gradient is one product of the chain tile with the precision
-matrix, which the kernel keeps in registers for the whole trajectory.
+matrix, which the kernel keeps in registers for the whole trajectory at 128
+padded columns and streams from L2 at 256 to 1,024
+(``csrc/fused_gaussian_trajectory_wide.cu``). Models wider than 1,024
+padded columns run on CPU tensors only: on a CUDA tensor the wrappers
+raise.
 
 On a CPU tensor a trajectory runs its plain PyTorch version
 (:func:`_fused_trajectory_plain`, :func:`_fused_gaussian_trajectory_plain`);
@@ -227,6 +235,17 @@ def _misaligned(t):
     return bool(t.ndim) and t.data_ptr() % 16 != 0
 
 
+def _check_width(what, dp):
+    """Raise unless the kernels take a model padded to ``dp`` columns."""
+    from mcmc_tpu_torch.ops import _cuda
+
+    if not _cuda.takes_dim_padded(dp):
+        raise ValueError(
+            f"{what} kernel takes dim_padded a multiple of 128 up to "
+            f"{_cuda.MAX_DIM_PADDED} (a model of at most "
+            f"{_cuda.MAX_DIM_PADDED} columns); got {dp}")
+
+
 def _check_tensors(what, dev, expect):
     """Raise unless ``dev`` is a CUDA device and every ``(tensor, dtype,
     shape)`` of ``expect`` is contiguous, of that dtype and shape, on it."""
@@ -267,6 +286,7 @@ def _launch_glm(z, p, Xb, y, mask, inv_pv, n_leap, link, step_size=None,
     n_chains, dp = z.shape
     n_rows = Xb.shape[0]
     dev = z.device
+    _check_width("fused trajectory", dp)
     expect = [(z, torch.float32, (n_chains, dp)),
               (p, torch.float32, (n_chains, dp)),
               (Xb, torch.bfloat16, (n_rows, dp)),
@@ -275,12 +295,11 @@ def _launch_glm(z, p, Xb, y, mask, inv_pv, n_leap, link, step_size=None,
     if eps is not None:
         expect += [(eps, torch.float32, ()), (inv_mass, torch.float32, (dp,))]
     _check_tensors("fused trajectory", dev, expect)
-    if dp not in _cuda.DIM_PADDED or n_rows % ROW_TILE or n_chains < 1 \
-            or int(n_leap) < 1:
+    if n_rows % ROW_TILE or n_chains < 1 or int(n_leap) < 1:
         raise ValueError(
-            f"fused trajectory kernel takes dim_padded in {_cuda.DIM_PADDED}, "
-            f"a row count that is a multiple of {ROW_TILE}, at least one "
-            f"chain and one leapfrog; got {dp}, {n_rows}, {n_chains}, {n_leap}")
+            f"fused trajectory kernel takes a row count that is a multiple "
+            f"of {ROW_TILE}, at least one chain and one leapfrog; got "
+            f"{n_rows}, {n_chains}, {n_leap}")
     lib = _cuda.load()
     z_out = torch.empty_like(z)
     p_out = torch.empty_like(p)
@@ -552,12 +571,16 @@ def _check_live_dim(dim, dp):
 
 def _live_width(dim, dp):
     """The columns a fused Gaussian trajectory evolves when the model's
-    dimension is ``dim``: the smallest of ``_cuda.GAUSSIAN_LIVE_WIDTHS`` that
-    holds it, the width the kernel runs; ``dp`` where none does or ``dim``
-    is not given."""
+    dimension is ``dim``, the width the kernel runs: at 128 padded columns
+    or fewer the smallest of ``_cuda.GAUSSIAN_LIVE_WIDTHS`` that holds it
+    (``dp`` where none does); wider, ``dim`` rounded up to a multiple of
+    ``_cuda.WIDE_LIVE_MULTIPLE`` (at most ``dp``); ``dp`` when ``dim`` is
+    not given."""
     from mcmc_tpu_torch.ops import _cuda
 
     dim = _check_live_dim(dim, dp)
+    if dp > 128:
+        return min(_round_up(dim, _cuda.WIDE_LIVE_MULTIPLE), dp)
     return min([w for w in _cuda.GAUSSIAN_LIVE_WIDTHS if dim <= w <= dp],
                default=dp)
 
@@ -613,6 +636,7 @@ def fused_gaussian_trajectory_cuda(z, p, P, mean, eps, n_leap, dim=None):
     n_chains, dp = z.shape
     dev = z.device
     dim = _check_live_dim(dim, dp)
+    _check_width("fused Gaussian trajectory", dp)
     eps = _eps_on_device(eps, dev)
     _check_tensors("fused Gaussian trajectory", dev,
                    [(z, torch.float32, (n_chains, dp)),
@@ -620,12 +644,10 @@ def fused_gaussian_trajectory_cuda(z, p, P, mean, eps, n_leap, dim=None):
                     (P, torch.float32, (dp, dp)),
                     (mean, torch.float32, (dp,)),
                     (eps, torch.float32, ())])
-    if dp not in _cuda.GAUSSIAN_DIM_PADDED or n_chains < 1 \
-            or int(n_leap) < 1:
+    if n_chains < 1 or int(n_leap) < 1:
         raise ValueError(
-            f"fused Gaussian trajectory kernel takes dim_padded in "
-            f"{_cuda.GAUSSIAN_DIM_PADDED} (dim <= 128), at least one chain "
-            f"and one leapfrog; got {dp}, {n_chains}, {n_leap}")
+            f"fused Gaussian trajectory kernel takes at least one chain and "
+            f"one leapfrog; got {n_chains}, {n_leap}")
     lib = _cuda.load()
     z_out = torch.empty_like(z)
     p_out = torch.empty_like(p)
@@ -671,7 +693,7 @@ def make_fused_gaussian_trajectory(precision, mean=None, step_size=0.1,
     coordinates and contribute zero to U because z starts 0 there and the
     momentum is masked by the caller, matching :func:`make_fused_hmc_step`'s
     column mask convention). ``device`` defaults to ``precision``'s when it
-    is a tensor, else the card. On the card ``dim <= 128``."""
+    is a tensor, else the card. On the card ``dim <= 1024``."""
     if int(n_leap) < 1:
         raise ValueError(f"n_leap must be >= 1, got {n_leap}")
     device = resolve_device(device, precision)

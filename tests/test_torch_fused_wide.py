@@ -1,0 +1,262 @@
+"""The fused trajectories past 128 padded columns against the JAX package's.
+
+The CUDA kernels take every multiple of 128 up to 1024 padded columns: the
+GLM trajectory (K1, and K3, its run-time-parameter entry) through a cluster
+body of one block per 128-column panel, the Gaussian trajectory (K2) by
+streaming P from L2. On the CPU the port runs their plain PyTorch versions,
+which these tests hold against the JAX package's Pallas kernels in interpret
+mode, as tests/test_torch_fused_logreg.py and tests/test_torch_fused_gaussian.py
+do at 128 columns: K1 at 256, 384 and 896 padded columns (200, 300 and 784
+of them the model's; 784 is an MNIST image's pixel count) and every link at
+384, K3 at 384, K2 at 256 and 512 on a diagonal and a dense precision, and
+one fused HMC transition at 384 fed JAX's momenta and uniforms. The kernels
+themselves are held against these plain versions on the card in
+tests/test_torch_kernels_cuda.py.
+
+Inputs are small (8 chains, 64 data rows, 2-3 leapfrogs) and made with
+numpy from a seed; each JAX run is built once per module. Tolerances are
+those of the 128-column files: the GLM trajectory's z and p to atol 1e-5 and
+U to rtol 1e-5 (both sides round z and r to bf16 at the same points and
+accumulate in f32); the Gaussian trajectory's z, p and U to rtol 2e-4,
+atol 2e-4 (f32, only the summation order differs). The fused step's stored
+potential is the f32 one at the end position (a Deviation: the JAX step
+stores the trajectory's bf16-path U), so it is held to JAX's bf16-path U at
+the reference's rtol 2e-2 (tests/test_fused_logreg.py:46-49) and to JAX's
+f32 ``reference_potential`` at rtol 1e-5.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mcmc_tpu.ops import fused_logreg as jfl
+from mcmc_tpu_torch.ops import fused_logreg as tfl
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for every test here: the tests run in several
+    worker processes at once, and torch's default of a thread per core
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+N, L, EPS, N_CHAINS = 64, 2, 0.05, 8
+LINKS = ["logistic", "poisson", "linear", "probit", "studentt"]
+
+
+def _links(name):
+    if name == "studentt":
+        return jfl.studentt_link(4.0), tfl.studentt_link(4.0)
+    return name, name
+
+
+def _glm_data(name, dim, seed=0):
+    rng = np.random.default_rng(seed + dim)
+    X = (rng.standard_normal((N, dim)) / np.sqrt(dim)).astype(np.float32)
+    eta = X @ rng.standard_normal(dim)
+    if name in ("logistic", "probit"):
+        y = rng.uniform(size=N) < 1.0 / (1.0 + np.exp(-eta))
+    elif name == "poisson":
+        y = rng.poisson(np.exp(0.5 * eta))
+    elif name == "studentt":
+        y = eta + 0.3 * rng.standard_t(4.0, size=N)
+    else:
+        y = eta + 0.1 * rng.standard_normal(N)
+    return X, np.asarray(y, np.float32)
+
+
+def _state(dim, dp, seed=1, scale=0.1):
+    rng = np.random.default_rng(seed)
+    z = np.zeros((N_CHAINS, dp), np.float32)
+    p = np.zeros((N_CHAINS, dp), np.float32)
+    z[:, :dim] = scale * rng.standard_normal((N_CHAINS, dim))
+    p[:, :dim] = rng.standard_normal((N_CHAINS, dim))
+    return z, p
+
+
+def _inv_mass(dim, dp):
+    im = np.ones(dp, np.float32)
+    im[:dim] = np.linspace(0.5, 2.0, dim)
+    return im
+
+
+@pytest.fixture(scope="module")
+def jax_glm():
+    """``(name, dim) -> (z0, p0, JAX's (z, p, U))``: the JAX package's fused
+    trajectory on the model, its interpret-mode kernel built once."""
+    made = {}
+
+    def get(name, dim):
+        if (name, dim) not in made:
+            X, y = _glm_data(name, dim)
+            traj = jfl.make_fused_trajectory(X, y, 10.0, EPS, L,
+                                             block_chains=8, interpret=True,
+                                             link=_links(name)[0])
+            z0, p0 = _state(dim, traj.dim_padded)
+            out = traj(jnp.asarray(z0), jnp.asarray(p0))
+            made[name, dim] = (z0, p0, [np.asarray(a) for a in out])
+        return made[name, dim]
+
+    return get
+
+
+def _check_glm(got, want, dim):
+    zt, pt, ut = (t.numpy() for t in got)
+    zj, pj, uj = want
+    np.testing.assert_allclose(zt, zj, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ut, uj, rtol=1e-5)
+    assert np.all(zt[:, dim:] == 0) and np.all(pt[:, dim:] == 0)
+
+
+@pytest.mark.parametrize("dim,dp", [(200, 256), (300, 384), (784, 896)])
+def test_trajectory_matches_pallas(dim, dp, jax_glm):
+    """K1's plain version, logistic, at 256, 384 and 896 padded columns."""
+    X, y = _glm_data("logistic", dim)
+    traj = tfl.make_fused_trajectory(X, y, 10.0, EPS, L, block_chains=8,
+                                     device="cpu")
+    assert traj.dim_padded == dp
+    z0, p0, want = jax_glm("logistic", dim)
+    _check_glm(traj(torch.from_numpy(z0), torch.from_numpy(p0)), want, dim)
+
+
+@pytest.mark.parametrize("name", LINKS[1:])
+def test_every_link_at_384(name, jax_glm):
+    """The other four built-in links at 384 padded columns (logistic is
+    ``test_trajectory_matches_pallas[300-384]``)."""
+    X, y = _glm_data(name, 300)
+    traj = tfl.make_fused_trajectory(X, y, 10.0, EPS, L, block_chains=8,
+                                     link=_links(name)[1], device="cpu")
+    z0, p0, want = jax_glm(name, 300)
+    _check_glm(traj(torch.from_numpy(z0), torch.from_numpy(p0)), want, 300)
+
+
+def test_trajectory_rt_at_384_matches_pallas_and_the_fixed_step():
+    """K3's plain version at 384 padded columns with a diagonal inverse
+    mass against the JAX package's run-time-parameter trajectory; at
+    inverse mass 1 the bits of the fixed-step trajectory."""
+    dim = 300
+    X, y = _glm_data("logistic", dim)
+    jtraj = jfl.make_fused_trajectory_rt(X, y, 10.0, L, block_chains=8,
+                                         interpret=True)
+    ttraj = tfl.make_fused_trajectory_rt(X, y, 10.0, L, block_chains=8,
+                                         device="cpu")
+    assert ttraj.dim_padded == jtraj.dim_padded == 384
+    z0, p0 = _state(dim, 384)
+    im = _inv_mass(dim, 384)
+    want = jtraj(jnp.asarray(z0), jnp.asarray(p0), jnp.asarray(EPS),
+                 jnp.asarray(im))
+    z, p = torch.from_numpy(z0), torch.from_numpy(p0)
+    _check_glm(ttraj(z, p, EPS, torch.from_numpy(im)),
+               [np.asarray(a) for a in want], dim)
+    fixed = tfl.make_fused_trajectory(X, y, 10.0, EPS, L, block_chains=8,
+                                      device="cpu")
+    for a, b in zip(ttraj(z, p, torch.tensor(EPS), torch.ones(384)),
+                    fixed(z, p)):
+        assert torch.equal(a, b)
+
+
+def _gauss_target(kind, dim, seed=2):
+    rng = np.random.default_rng(seed + dim)
+    var = np.logspace(0.0, 3.0, dim)
+    if kind == "diagonal":
+        return (1.0 / var).astype(np.float32), None
+    Q, _ = np.linalg.qr(rng.standard_normal((dim, dim)))
+    P = (Q / var) @ Q.T
+    return (0.5 * (P + P.T)).astype(np.float32), \
+        rng.standard_normal(dim).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["diagonal", "dense"])
+@pytest.mark.parametrize("dim,dp", [(250, 256), (500, 512)])
+def test_gaussian_trajectory_matches_pallas(kind, dim, dp):
+    """K2's plain version at 256 and 512 padded columns (the live widths of
+    250 and 500 dimensions are the padded widths), 3 leapfrogs at step 0.9
+    on log-spaced variances, condition number 1e3."""
+    P, mean = _gauss_target(kind, dim)
+    jtraj = jfl.make_fused_gaussian_trajectory(P, mean, 0.9, 3,
+                                               block_chains=8, interpret=True)
+    ttraj = tfl.make_fused_gaussian_trajectory(P, mean, 0.9, 3,
+                                               block_chains=8, device="cpu")
+    assert ttraj.dim_padded == jtraj.dim_padded == dp
+    assert tfl._live_width(dim, dp) == dp
+    z0, p0 = _state(dim, dp, scale=1.0)
+    want = jtraj(jnp.asarray(z0), jnp.asarray(p0))
+    got = ttraj(torch.from_numpy(z0), torch.from_numpy(p0))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4,
+                                   atol=2e-4)
+    assert torch.all(got[0][:, dim:] == 0) and torch.all(got[1][:, dim:] == 0)
+
+
+def test_fused_step_at_384_fed_jax_draws(monkeypatch):
+    """One ``make_fused_hmc_step`` transition at 384 padded columns, its
+    momenta and accept uniforms those JAX's step draws from its key: the
+    same accept decisions and positions (the trajectory's tolerances), the
+    stored potential JAX's bf16-path one within 2e-2 and JAX's f32
+    ``reference_potential`` at the new positions within 1e-5."""
+    dim = 300
+    X, y = _glm_data("logistic", dim)
+    pos = (0.1 * np.random.default_rng(4).standard_normal((N_CHAINS, dim))
+           ).astype(np.float32)
+    jstep = jfl.make_fused_hmc_step(X, y, step_size=EPS, n_leap=L,
+                                    block_chains=8, interpret=True)
+    tstep = tfl.make_fused_hmc_step(X, y, step_size=EPS, n_leap=L,
+                                    block_chains=8, device="cpu")
+    assert tstep.dim_padded == jstep.dim_padded == 384
+    key = jax.random.PRNGKey(9)
+    js0 = jstep.init(jnp.asarray(pos))
+    js1, jinfo = jstep(key, js0)
+    # the draws of JAX's step (fused_logreg.py make_fused_hmc_step: step)
+    k_mom, k_acc = jax.random.split(key)
+    p0 = np.array(jax.random.normal(k_mom, (N_CHAINS, 384), jnp.float32))
+    u = np.array(jax.random.uniform(k_acc, (N_CHAINS,), jnp.float32))
+    feed = {"randn": torch.from_numpy(p0), "rand": torch.from_numpy(u)}
+    monkeypatch.setattr(torch, "randn", lambda *a, **k: feed["randn"])
+    monkeypatch.setattr(torch, "rand", lambda *a, **k: feed["rand"])
+    ts0 = tstep.init(torch.from_numpy(pos))
+    ts1, tinfo = tstep(torch.Generator(), ts0)
+    np.testing.assert_array_equal(tinfo["accepted"].numpy(),
+                                  np.asarray(jinfo["accepted"]))
+    np.testing.assert_allclose(ts1.position.numpy(), np.asarray(js1.position),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ts1.potential.numpy(),
+                               np.asarray(js1.potential), rtol=2e-2)
+    f32 = np.asarray(jstep.init(js1.position[:, :dim]).potential)
+    np.testing.assert_allclose(ts1.potential.numpy(), f32, rtol=1e-5)
+
+
+def test_kernels_refuse_past_1024_columns():
+    """The launching wrappers check the width first, naming the limit: a
+    1100-column model pads to 1152, past the kernels' 1024. The plain
+    versions take any width, so on the CPU the factories still run it."""
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((N, 1100)).astype(np.float32)
+    y = (rng.uniform(size=N) < 0.5).astype(np.float32)
+    traj = tfl.make_fused_trajectory(X, y, 10.0, EPS, 1, block_chains=1,
+                                     device="cpu")
+    assert traj.dim_padded == 1152
+    z = torch.zeros((2, 1152))
+    args = (traj.Xb, traj.y, traj.mask, traj.inv_pv)
+    with pytest.raises(ValueError, match="up to 1024"):
+        tfl.fused_trajectory_cuda(z, z, *args, EPS, 1, "logistic")
+    with pytest.raises(ValueError, match="up to 1024"):
+        tfl.fused_trajectory_rt_cuda(z, z, *args, EPS, 1, "logistic",
+                                     torch.ones(1152))
+    zn, pn, un = traj(z, z.clone())
+    assert zn.shape == (2, 1152) and bool(torch.isfinite(un).all())
+    g = tfl.make_fused_gaussian_trajectory(np.ones(1100, np.float32),
+                                           block_chains=1, device="cpu")
+    with pytest.raises(ValueError, match="up to 1024"):
+        tfl.fused_gaussian_trajectory_cuda(z, z, g.P, g.mean, 0.1, 1, 1100)
+    with pytest.raises(ValueError, match="dim_padded a multiple of 128"):
+        tfl.fused_gaussian_trajectory_cuda(z[:, :200], z[:, :200],
+                                           g.P[:200, :200], g.mean[:200],
+                                           0.1, 1, 150)
+    assert all(bool(torch.isfinite(t).all()) for t in g(z, z.clone()))

@@ -85,8 +85,13 @@ def test_plain_gaussian_trajectory_past_the_live_width(dim):
 
 @pytest.mark.parametrize("dim, dp, want", [
     (None, 128, 128), (1, 128, 32), (32, 128, 32), (33, 128, 64),
-    (100, 128, 104), (105, 128, 128), (200, 256, 256), (4, 8, 8)])
+    (100, 128, 104), (105, 128, 128), (200, 256, 208), (4, 8, 8),
+    (None, 512, 512), (129, 256, 144), (250, 256, 256), (784, 896, 784),
+    (1000, 1024, 1008)])
 def test_live_width(dim, dp, want):
+    """At 128 padded columns the smallest instantiated live width; past
+    128, the dimension rounded up to a multiple of 16 (the wide kernel's
+    rule)."""
     assert tfl._live_width(dim, dp) == want
 
 
@@ -133,12 +138,15 @@ def test_operands_must_start_on_16_bytes():
 
 def test_gaussian_live_widths():
     """Multiples of 8 up to the padded width, the suite's 100 dimensions
-    served by 104, every dimension by some width."""
+    served by 104, every dimension by some width; the kernels take every
+    multiple of 128 up to 1024 padded columns, and no other width."""
     widths = _cuda.GAUSSIAN_LIVE_WIDTHS
     assert list(widths) == sorted(widths) and widths[-1] == 128
     assert all(w % 8 == 0 for w in widths)
     assert min(w for w in widths if w >= 100) == 104
-    assert _cuda.GAUSSIAN_DIM_PADDED == (128,)
+    assert _cuda.MAX_DIM_PADDED == 1024
+    assert [dp for dp in range(1, 2049) if _cuda.takes_dim_padded(dp)] == \
+        list(range(128, 1025, 128))
 
 
 def test_build_hash_covers_headers(tmp_path, monkeypatch):
@@ -159,9 +167,10 @@ def test_the_package_ships_every_file_the_build_reads():
     """Each source and header is matched by a package-data pattern of
     ``pyproject.toml``, so a wheel builds what the tree builds."""
     names = {f.name for f in _cuda.headers()}
-    assert "fused_glm_trajectory_wmma.cuh" in names
+    assert names == {"fused_glm_common.cuh"}
     assert {f.name for f in _cuda.sources()} == {
-        "fused_glm_trajectory.cu", "fused_gaussian_trajectory.cu"}
+        "fused_glm_trajectory.cu", "fused_glm_trajectory_wide.cu",
+        "fused_gaussian_trajectory.cu", "fused_gaussian_trajectory_wide.cu"}
     root = Path(_cuda.__file__).resolve().parents[2]
     with open(root / "pyproject.toml", "rb") as f:
         data = tomllib.load(f)["tool"]["setuptools"]["package-data"]

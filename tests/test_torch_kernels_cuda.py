@@ -115,6 +115,27 @@ def test_callable_link_raises_on_card():
         tfl.fused_trajectory(z, p, *args[:-1], link)
 
 
+def _close_but_rare(got, want, chains):
+    """A GLM kernel's ``(z, p, U)`` against its plain version's: strict up
+    to 65 chains; past it all elements of z and p to 1e-3 and all but one
+    in 100,000 to 1e-4, U to rtol 1e-3 and all but one chain in 1,000 to
+    1e-4 (a rare element lands on the other bf16 neighbour of z or r)."""
+    (zk, pk, uk), (zp, pp, up) = got, want
+    for a, b in ((zk, zp), (pk, pp)):
+        if chains <= 65:
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+        else:
+            diff = (a - b).abs()
+            assert float(diff.max()) <= 1e-3
+            assert float((diff > 1e-4).float().mean()) <= 1e-5
+    if chains <= 65:
+        torch.testing.assert_close(uk, up, rtol=1e-4, atol=0)
+    else:
+        rel = (uk - up).abs() / up.abs()
+        assert float(rel.max()) <= 1e-3, float(rel.max())
+        assert float((rel > 1e-4).float().mean()) <= 1e-3
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("chains", [1, 63, 65, 16385])
 @pytest.mark.parametrize("dim,n", [(25, 1000), (100, 130), (200, 1000)])
@@ -142,21 +163,9 @@ def test_kernel_tilings(dim, n, chains):
     want_rt = tfl._fused_trajectory_plain(z, p, Xb, y, mask, inv_pv, eps_t,
                                           n_leap, link, im)
     torch.cuda.synchronize()
-    for (zk, pk, uk), (zp, pp, up) in ((got, want), (got_rt, want_rt)):
-        for a, b in ((zk, zp), (pk, pp)):
-            if chains <= 65:
-                torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
-            else:
-                diff = (a - b).abs()
-                assert float(diff.max()) <= 1e-3
-                assert float((diff > 1e-4).float().mean()) <= 1e-5
-        if chains <= 65:
-            torch.testing.assert_close(uk, up, rtol=1e-4, atol=0)
-        else:
-            rel = (uk - up).abs() / up.abs()
-            assert float(rel.max()) <= 1e-3, float(rel.max())
-            assert float((rel > 1e-4).float().mean()) <= 1e-3
-        assert torch.all(zk[:, dim:] == 0) and torch.all(pk[:, dim:] == 0)
+    for g, w in ((got, want), (got_rt, want_rt)):
+        _close_but_rare(g, w, chains)
+        assert torch.all(g[0][:, dim:] == 0) and torch.all(g[1][:, dim:] == 0)
 
 
 def _inv_mass(dp, dim):
@@ -337,21 +346,157 @@ def test_gaussian_kernel_is_deterministic_and_reads_eps_on_the_card():
 
 @pytest.mark.cuda
 def test_widths_not_instantiated_raise():
-    """Beyond the instantiated widths the wrappers raise: the Gaussian
-    kernel takes dim <= 128, the GLM kernel dim <= 256."""
+    """Beyond the widths the kernels take the wrappers raise, naming the
+    limit: both kernels take every multiple of 128 up to 1024 padded
+    columns, so a 1100-column model (1152 padded) is refused."""
     _require_card()
-    traj = tfl.make_fused_gaussian_trajectory(np.ones(200), block_chains=1,
+    traj = tfl.make_fused_gaussian_trajectory(np.ones(1100), block_chains=1,
                                               device="cuda")
     z = torch.zeros((8, traj.dim_padded), device="cuda")
-    with pytest.raises(ValueError, match="dim_padded"):
+    with pytest.raises(ValueError, match="up to 1024"):
         traj(z, z.clone())
     rng = np.random.default_rng(0)
     glm = tfl.make_fused_trajectory(
-        torch.tensor(rng.standard_normal((64, 300)), dtype=torch.float32),
+        torch.tensor(rng.standard_normal((64, 1100)), dtype=torch.float32),
         torch.zeros(64), 10.0, 0.01, 2, block_chains=1, device="cuda")
     z = torch.zeros((8, glm.dim_padded), device="cuda")
-    with pytest.raises(ValueError, match="dim_padded"):
+    with pytest.raises(ValueError, match="up to 1024"):
         glm(z, z.clone())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains", [1, 100, 300])
+@pytest.mark.parametrize("dim,n", [(200, 1000), (300, 130), (784, 2000),
+                                   (1000, 200)])
+def test_wide_kernel_matches_plain(dim, n, chains):
+    """The cluster body at 256, 384, 896 and 1024 padded columns, for the
+    fixed-step and the run-time entry: one chain, a ragged last chain tile
+    (100: one warpgroup empty; 300: the third tile ragged), row counts that
+    are no multiple of the 64-row tile (130, 1000, 2000); padded columns
+    exactly zero; one launch per call."""
+    _require_card()
+    z, p, args = _problem("logistic", dim, n=n, chains=chains)
+    Xb, y, mask, inv_pv, eps, n_leap, link = args
+    before = (tfl.fused_trajectory_cuda.launches,
+              tfl.fused_trajectory_rt_cuda.launches)
+    got = tfl.fused_trajectory_cuda(z, p, *args)
+    want = tfl._fused_trajectory_plain(z, p, *args)
+    im = _inv_mass(z.shape[1], dim)
+    eps_t = torch.tensor(0.013, device="cuda")
+    got_rt = tfl.fused_trajectory_rt_cuda(z, p, Xb, y, mask, inv_pv, eps_t,
+                                          n_leap, link, im)
+    want_rt = tfl._fused_trajectory_plain(z, p, Xb, y, mask, inv_pv, eps_t,
+                                          n_leap, link, im)
+    torch.cuda.synchronize()
+    assert (tfl.fused_trajectory_cuda.launches,
+            tfl.fused_trajectory_rt_cuda.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    for g, w in ((got, want), (got_rt, want_rt)):
+        _close_but_rare(g, w, chains)
+        assert torch.all(g[0][:, dim:] == 0) and torch.all(g[1][:, dim:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["logistic", "poisson", "linear", "probit",
+                                  "studentt"])
+def test_wide_kernel_links(name):
+    """Every built-in link through the cluster body at 384 padded columns
+    (300 of them the model's), 100 chains."""
+    _require_card()
+    z, p, args = _problem(name, 300)
+    got = tfl.fused_trajectory_cuda(z, p, *args)
+    want = tfl._fused_trajectory_plain(z, p, *args)
+    torch.cuda.synchronize()
+    _close_but_rare(got, want, 100)
+    assert torch.all(got[0][:, 300:] == 0) and torch.all(got[1][:, 300:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [300, 784])
+def test_wide_kernel_is_deterministic_and_rt_at_unit_mass_equal(dim):
+    """Two launches of the cluster body give the same bits (the cluster's
+    sums run in rank order); the run-time entry at inverse mass 1 and the
+    same step gives the fixed-step entry's bits."""
+    _require_card()
+    z, p, args = _problem("logistic", dim, chains=1000)
+    Xb, y, mask, inv_pv, eps, n_leap, link = args
+    a = tfl.fused_trajectory_cuda(z, p, *args)
+    b = tfl.fused_trajectory_cuda(z, p, *args)
+    ones = torch.ones((z.shape[1],), device="cuda")
+    c = tfl.fused_trajectory_rt_cuda(z, p, Xb, y, mask, inv_pv,
+                                     torch.tensor(eps, device="cuda"), n_leap,
+                                     link, ones)
+    for u, v, w in zip(a, b, c):
+        assert torch.equal(u, v) and torch.equal(u, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains", [1, 17, 2048])
+@pytest.mark.parametrize("dim", [129, 250, 500, 784, 1000])
+@pytest.mark.parametrize("kind", ["diagonal", "dense"])
+def test_wide_gaussian_kernel_matches_plain(kind, dim, chains):
+    """The body that streams P at 256, 512, 896 and 1024 padded columns:
+    chain counts of one, one over the 16-chain tile and the suite's 2048;
+    live widths 144, 256, 512, 784 and 1008 (the columns past them copied);
+    padded columns exactly zero; two launches bit-equal; on the diagonal
+    precision z and p bit-equal to the plain version. z, p and U to rtol
+    1e-4 and 1e-4 of each output's largest magnitude: the positions span
+    the variances' 1 to 1e3 (up to about 100), and the two sum products of
+    up to 1000 terms in different orders, so an element near 0 of a chain
+    far out (measured: 1.3e-4 at 0.04 in one of a million elements, 500
+    dims) differs by more than a fixed 1e-4."""
+    _require_card()
+    _traj, args = _gaussian_problem(kind, dim, chains)
+    zp, pp, up = tfl._fused_gaussian_trajectory_plain(*args)
+    before = tfl.fused_gaussian_trajectory_cuda.launches
+    got = tfl.fused_gaussian_trajectory_cuda(*args)
+    again = tfl.fused_gaussian_trajectory_cuda(*args)
+    torch.cuda.synchronize()
+    assert tfl.fused_gaussian_trajectory_cuda.launches == before + 2
+    zk, pk, uk = got
+    for a, b in ((zk, zp), (pk, pp), (uk, up)):
+        torch.testing.assert_close(
+            a, b, rtol=1e-4, atol=1e-4 * max(1.0, float(b.abs().max())))
+    assert torch.all(zk[:, dim:] == 0) and torch.all(pk[:, dim:] == 0)
+    for u, v in zip(got, again):
+        assert torch.equal(u, v)
+    if kind == "diagonal":   # one non-zero term per product: exact
+        assert torch.equal(zk, zp) and torch.equal(pk, pp)
+
+
+@pytest.mark.cuda
+def test_wide_gaussian_kernel_and_plain_agree_past_the_live_width():
+    """With the padding contract broken past the live width (784 of 896
+    columns) kernel and plain version still compute one function: the live
+    block as from clean padding, the other columns as they went in."""
+    _require_card()
+    dim = 784
+    _traj, args = _gaussian_problem("dense", dim, 9)
+    clean = tfl.fused_gaussian_trajectory_cuda(*args)
+    live = tfl._live_width(dim, 896)
+    assert live == 784
+    z, p, P, mean = (t.clone() for t in args[:4])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for t in (z, p):
+        t[:, live:] = torch.randn(t[:, live:].shape, device="cuda",
+                                  generator=gen)
+    mean[live:] = 2.0
+    P[live:, :] = 0.5
+    P[:, live:] = 0.5
+    zk, pk, uk = tfl.fused_gaussian_trajectory_cuda(z, p, P, mean, *args[4:])
+    zp, pp, up = tfl._fused_gaussian_trajectory_plain(z, p, P, mean,
+                                                      *args[4:])
+    torch.cuda.synchronize()
+    assert torch.equal(zk[:, :live], clean[0][:, :live])
+    assert torch.equal(pk[:, :live], clean[1][:, :live])
+    assert torch.equal(uk, clean[2])
+    for got in (zk, zp):
+        assert torch.equal(got[:, live:], z[:, live:])
+    for got in (pk, pp):
+        assert torch.equal(got[:, live:], p[:, live:])
+    torch.testing.assert_close(zk, zp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(uk, up, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
