@@ -246,9 +246,11 @@ throughout, NUTS's gradients included.
 import dataclasses
 import json
 import math
+import os
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -785,11 +787,33 @@ def glm_compare(what, fns, got, want, dim):
     return ms, plain_ms, abs_err, err_max
 
 
-def wide_widths(dev, fl):
+def wgmma_advisories(_cuda):
+    """Every line of ptxas's output that mentions ``wgmma`` (its notes
+    C7510-C7520: a serialised or fenced ``wgmma`` pipeline). The build's own
+    log when this process built the library; otherwise the wide GLM source
+    is compiled once more, alone, to read its notes."""
+    log = _cuda.build_log
+    if not log:
+        src = _cuda.CSRC / "fused_glm_trajectory_wide.cu"
+        with tempfile.TemporaryDirectory() as tmp:
+            out = subprocess.run(
+                [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-c", "-o",
+                 os.path.join(tmp, "wide.o"), str(src)],
+                capture_output=True, text=True, timeout=600)
+        log = out.stdout + out.stderr
+    return [line.strip() for line in log.splitlines() if "wgmma" in line]
+
+
+def wide_widths(dev, fl, wgmma_notes):
     """Phases 3-8's additions at the widths past 128 padded columns (one
     lap): the kernels against their plain versions and timed at each width,
-    then the wide GLM and Gaussian paths. Returns each kernel's per-width
-    records for the kernels' JSON line."""
+    then the wide GLM and Gaussian paths. ``wgmma_notes`` are ptxas's
+    ``wgmma`` advisories from the build: none may name the wide GLM kernel,
+    whose time rests on its products' pipeline. Returns each kernel's
+    per-width records for the kernels' JSON line."""
+    check(not any("fused_glm_wide_kernel" in line for line in wgmma_notes),
+          "ptxas serialises or fences the wide GLM kernel's wgmma: "
+          + "; ".join(wgmma_notes))
     from mcmc_tpu_torch import (HMCSettings, diagnostics, fused_gaussian_hmc,
                                 fused_glm_hmc, hmc)
     from mcmc_tpu_torch.models import (ill_conditioned_gaussian,
@@ -3068,6 +3092,9 @@ def main():
     for line in _cuda.build_log.splitlines():
         if "Compiling" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    wgmma_notes = wgmma_advisories(_cuda)
+    for line in wgmma_notes:
+        print("  ptxas advisory:", line)
 
     # --- kernel vs plain version, flagship shapes
     X, y, beta = make_logistic_regression_data(0, N_DATA, DIM)
@@ -3344,7 +3371,7 @@ def main():
 
     lap("1-8")
     # --- phases 3-8 at the widths past 128 padded columns
-    wide = wide_widths(dev, fl)
+    wide = wide_widths(dev, fl, wgmma_notes)
     lap("3-8 wide")
     print(f"phases 3-8 at the wide widths: {phase_s['3-8 wide']} s")
     # --- adapted NUTS, the quality line, before any profiler runs
