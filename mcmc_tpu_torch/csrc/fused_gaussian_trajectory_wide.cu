@@ -1,5 +1,6 @@
 // Fused HMC leapfrog trajectory on N(m, P^-1) at dim_padded 256 to 1024,
-// for Hopper (sm_90a): P streamed from L2.
+// for Hopper (sm_90a): P streamed from L2 into each block by bulk copies on
+// an mbarrier ring.
 //
 // Replaces the TPU kernel of mcmc_tpu/ops/fused_logreg.py
 // (make_fused_gaussian_trajectory: kernel body :330-365, pallas_call :381)
@@ -10,94 +11,132 @@
 // product. All f32, as the reference (the target is ill-conditioned on
 // purpose): the products are FP32 FMAs, not TF32.
 //
-// What bounds it on this card: the FP32 FMA pipe, through 158 dependent
-// products at the suite's protocol: 2 * 2048 * 250^2 * 158 flop = 40 GFLOP
-// at 250 dims (0.60 ms at 67 TFLOP/s), 9.66 ms at 1000.
-//
-// Why not the 128 body, wider: it keeps its live block of P in registers,
-// 64 KB a block at 128 columns; P is 256 KB at 256 columns and 4 MB at
-// 1024, more than an SM holds. So P stays in the 50 MB L2 and is streamed
-// through shared memory once a product:
-// - a block takes 16 chains for the whole trajectory (2048 chains are 128
-//   blocks, one an SM); a thread accumulates 8 chains x 4 adjacent columns,
-//   a warp 8 chains x 128 columns;
-// - P's live rows arrive in panels of kt whole padded rows (32 KB at most,
-//   one contiguous range of P) by cp.async into a ring of three, two panels
-//   ahead, with one block barrier a panel; the ring runs on from one
-//   product into the next, since P never changes;
+// What bounds it on this card: the work is the FP32 FMA pipe's, 158
+// dependent products at the suite's protocol: 2 * 2048 * 250^2 * 158 flop =
+// 40 GFLOP at 250 dims (0.60 ms at 67 TFLOP/s), 9.66 ms at 1000. P does not
+// fit an SM (256 KB at 256 columns, 4 MB at 1024), so a block takes 16
+// chains for the whole trajectory (2048 chains are 128 blocks, one an SM)
+// and streams P's live rows from the 50 MB L2 through shared memory once a
+// product, in panels of kt whole padded rows (one contiguous range of P).
+// Clock counters in the first body of this shape (a thread on 8 chains x 4
+// columns, 512 threads, z and p in registers, one block barrier a panel, a
+// cp.async ring filled by every thread) put a panel at about 2,500 clocks:
+// 1,680 in the FMA loop, as long with the panel resident in shared memory
+// as streamed, and 700-960 in issuing the copies. Not the L2: the loop was
+// bound by shared-memory cycles (a row of P cost a warp three 16-byte loads,
+// four cycles each, to 8 cycles of FMA issue), and the rest by the ring. So:
+// - a thread accumulates 8 chains x 8 columns (two groups of 4 adjacent
+//   columns, 128 apart, so that a warp's load of each group is 512
+//   contiguous bytes; the 8 chains' d two 16-byte loads every lane shares):
+//   a row is 64 FMAs to four loads, 16 shared-memory cycles to 16 of FMA
+//   issue. 8 warps of 256 threads, up to 255 registers each;
+// - z and p live in z_out and p_out between updates and in registers a
+//   column group at a time around them: with their 128 registers held
+//   across the products the loop took 1,850 clocks a panel, alone 1,190;
+// - one instantiation a padded width, so that every stride and the split-K
+//   groups' size are constants and their addresses immediates;
+// - the rows are software-pipelined across panels: a warp loads the next
+//   panel's first row before this panel's last FMAs (a barrier wait or
+//   arrival between panels is a fence no load crosses, and the pipeline
+//   drained there: 13% of the loop);
+// - a panel comes in as one bulk copy, so no thread issues copies (the
+//   same panel multicast to clusters of 2 blocks measured the same on an
+//   H100 at 256-896 columns and 1.2% faster at 1024: the L2 is not the
+//   limit, so the blocks share nothing);
+// - the ring of kStages panels runs on mbarriers, with no block barrier a
+//   panel: a stage's "full" barrier completes with its copy's bytes; its
+//   "empty" barrier when every warp has arrived on it after reading the
+//   stage; the warps take turns to issue, each waiting on "empty" first.
+//   Two block barriers a product remain (d_s written; the split-K
+//   hand-off);
 // - narrow models split each panel's rows over ks groups of warps (split-K),
-//   so that every width puts 12-16 warps on the SM; the first group holds z
-//   and p in registers, adds the other groups' sums in group order and
-//   updates;
-// - d = z - m of the 16 chains lies in shared memory transposed, so a
-//   thread's 8 chains of one row of P are two 16-byte loads that every lane
-//   of the warp shares (a broadcast), beside one 16-byte load of its 4
-//   columns of P: 32 FMAs to three loads (8 chains x 8 columns a thread,
-//   64 FMAs to four loads on half the warps, measured slower);
+//   the first group adding the other groups' sums in group order and
+//   updating;
 // - it does not multiply the padding: the wrapper passes the model's
 //   dimension, the kernel's live width is that rounded up to 16, and the
 //   columns past it are copied from the input to the output (P the
 //   identity there, z, p and m zero: they come out exactly zero).
-// Each P element read from L2 serves 16 chains, 32 flop to 4 bytes: at the
-// FMA pipe's rate that is about 8 TB/s of L2 reads, near what L2 gives, so
-// the chain tile is the trade-off (32 chains would halve
-// it and leave half the SMs idle at 2048 chains).
+// What bounds it now: shared-memory cycles (the loads, and the copies'
+// 32 KB a panel written into every block) and, at 256 columns, the update
+// between products (z and p through L2, d's stores into shared memory, 20%
+// of a product there).
+// Every output's sum keeps the order of the first body (the same panels,
+// the same split-K groups, each group's rows in order, the groups added in
+// order, U's lanes by the same butterfly and its 128-column parts in
+// order), so z, p and U are that body's bits.
 //
-// Chains past n_chains in the last tile are computed on zeros and never
-// stored. Per-chain sums for U are reduced in a fixed order, so a launch is
-// deterministic. As in the 128 body, the update uses explicitly rounded
-// multiplies and adds, so that it rounds where the plain tensor code rounds;
-// on a diagonal P every product has one non-zero term and z, p equal the
-// plain version's bit for bit.
+// Chains past n_chains are computed on zeros and never stored. Per-chain
+// sums for U are reduced in a fixed order, so a launch is deterministic. As
+// in the 128 body, the update uses explicitly rounded multiplies and adds,
+// so that it rounds where the plain tensor code rounds; on a diagonal P
+// every product has one non-zero term and z, p equal the plain version's
+// bit for bit.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
+#include "hopper_ptx.cuh"
 
 namespace {
 
-constexpr int C = 16;     // chains per block
-constexpr int CT = 8;     // chains per thread
-constexpr int kCols = 4;  // adjacent columns per thread
-constexpr int kWarpCols = 32 * kCols;
-constexpr int kStages = 3;  // panels of P in flight: the current and two
+constexpr int C = 16;      // chains per block
+constexpr int CT = 8;      // chains per thread
+constexpr int kCols = 4;   // adjacent columns per thread and column group
+constexpr int kGroups = 2;  // column groups per thread, 128 columns apart
+constexpr int kWarpCols = 32 * kCols * kGroups;  // a warp's 256 columns
+constexpr int kMaxWarps = 8;
+constexpr int kStages = 5;  // ring stages: the most that fit at 1024
+// a warp that starts panel gp + 1 has had panels up to gp + 1 + kAhead issued
+constexpr int kAhead = kStages - 2;
 constexpr int kStageFloats = 8192;  // 32 KB: a panel's rows x live columns
 constexpr int kLiveMultiple = 16;
 constexpr int kMaxLive = 1024;
-constexpr int kMaxWarps = 16;
-constexpr int kSlots = CT * kCols;  // a thread's accumulators
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until all but the newest kStages - 2 groups of this thread's
-// copies have landed.
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
-}
+constexpr int kSlots = CT * kCols * kGroups;  // a thread's accumulators
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+// One row of the product: a thread's 4 + 4 columns of P (pa at j0, pb at
+// jb) and its 8 chains of d (da, db), and their 64 FMAs into acc
+struct Row {
+  float4 pa, pb, da, db;
+};
+
+__device__ __forceinline__ Row load_row(const float* p_row, const float* d_row,
+                                        int j0, int jb) {
+  return Row{load4(p_row + j0), load4(p_row + jb), load4(d_row),
+             load4(d_row + 4)};
+}
+
+__device__ __forceinline__ void fma_row(float (&acc)[CT][kSlots / CT],
+                                        const Row& o) {
+  const float dv[CT] = {o.da.x, o.da.y, o.da.z, o.da.w,
+                        o.db.x, o.db.y, o.db.z, o.db.w};
+#pragma unroll
+  for (int c = 0; c < CT; ++c) {
+    acc[c][0] = __fmaf_rn(dv[c], o.pa.x, acc[c][0]);
+    acc[c][1] = __fmaf_rn(dv[c], o.pa.y, acc[c][1]);
+    acc[c][2] = __fmaf_rn(dv[c], o.pa.z, acc[c][2]);
+    acc[c][3] = __fmaf_rn(dv[c], o.pa.w, acc[c][3]);
+    acc[c][4] = __fmaf_rn(dv[c], o.pb.x, acc[c][4]);
+    acc[c][5] = __fmaf_rn(dv[c], o.pb.y, acc[c][5]);
+    acc[c][6] = __fmaf_rn(dv[c], o.pb.z, acc[c][6]);
+    acc[c][7] = __fmaf_rn(dv[c], o.pb.w, acc[c][7]);
+  }
+}
+
 // The work split at live width `live` of a model padded to `dp` columns:
-// column warps of 128 columns, split-K groups (each takes rows / ks of every
-// panel of P, so that narrow models still put kMaxWarps warps on the SM),
-// rows of P per panel, and shared memory in floats (the ring of panels
-// [kStages][kt][dp]: whole padded rows, so that a panel is one contiguous
-// range of P; d transposed [live][C]; the other groups' partial sums
-// [ks - 1][kSlots][group threads]; U's partial sums [C][column warps]).
+// column warps of 256 columns, split-K groups, rows of P per panel, and
+// shared memory in 4-byte words (the ring of panels [kStages][kt][dp]:
+// whole padded rows, so that a panel is one contiguous range of P; d
+// [live][C]; the other groups' partial sums [ks - 1][kSlots][group
+// threads]; U's partial sums [C][128-column parts]; the ring's barriers).
+// The groups are those of the first body, which put as many warps of 128
+// columns on the SM as made 16, so every sum keeps its order: here they
+// make at most 8 warps of 256. A group's rows of a panel are 4 or 8.
 struct Split {
   int ncw, ks, kt, threads, floats;
 };
@@ -111,43 +150,60 @@ __host__ __device__ inline Split split_of(int live, int dp) {
       s.kt = kt;
       break;
     }
+  const int parts = (live + 127) / 128;
   s.ks = 1;
-  while (2 * s.ks * 2 * s.ncw <= kMaxWarps && s.kt % (2 * s.ks) == 0)
+  while (2 * s.ks * 2 * parts <= 2 * kMaxWarps && s.kt % (2 * s.ks) == 0)
     s.ks *= 2;
   s.threads = 32 * 2 * s.ncw * s.ks;
   s.floats = kStages * s.kt * dp + live * C +
-             (s.ks - 1) * kSlots * (s.threads / s.ks) + C * s.ncw;
+             (s.ks - 1) * kSlots * (s.threads / s.ks) + C * kGroups * s.ncw +
+             4 * kStages;
   return s;
 }
 
+// One instantiation a padded width DP, so that the column warps, the
+// split-K groups' size and every stride are constants: the addresses of
+// the hand-off's 64 sums, z, p and P's rows are immediates, which leaves the
+// registers to the products.
+template <int DP>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1)
-    fused_gaussian_wide_kernel(const float* __restrict__ z_in,
-                               const float* __restrict__ p_in,
+    fused_gaussian_wide_kernel(const float* z_in, const float* p_in,
                                const float* __restrict__ P,
                                const float* __restrict__ mean,
                                const float* __restrict__ eps_ptr,
-                               float* __restrict__ z_out,
-                               float* __restrict__ p_out,
+                               float* z_out, float* p_out,
                                float* __restrict__ u_out, int n_chains,
-                               int dim_padded, int live, int n_leap) {
+                               int live, int n_leap) {
   extern __shared__ __align__(16) float smem[];
+  constexpr int dim_padded = DP;
+  // every live width of a model padded to DP has this many column warps
+  constexpr int n_cw = (DP + kWarpCols - 1) / kWarpCols;
+  constexpr int group_threads = 2 * 32 * n_cw;
   const Split sp = split_of(live, dim_padded);
-  const int n_cw = sp.ncw, kt = sp.kt, group_threads = sp.threads / sp.ks;
+  const int kt = sp.kt;
   const int panel_floats = kt * dim_padded;
   float* p_s = smem;                          // [kStages][kt][dim_padded]
   float* d_s = p_s + kStages * panel_floats;  // [live][C]
   float* red_s = d_s + live * C;              // [ks - 1][kSlots][group]
-  float* ured_s = red_s + (sp.ks - 1) * kSlots * group_threads;  // [C][ncw]
+  float* ured_s = red_s + (sp.ks - 1) * kSlots * group_threads;
+  // the ring's barriers: full[s] at bars + 8 s, empty[s] after them
+  const uint32_t bars = smem_u32(ured_s + C * kGroups * n_cw);
 
-  const int tid = threadIdx.x, lane = tid % 32;
+  const int tid = threadIdx.x, lane = tid % 32, n_warps = sp.threads / 32;
   // split-K group kg takes rows kg * rows .. + rows - 1 of each panel; in
-  // it, chains 8 half .. 8 half + 7 of the tile, columns j0 .. j0 + 3
+  // it, chains 8 half .. 8 half + 7 of the tile, columns j0 + 128 g .. + 3
+  // of column group g
   const int kg = tid / group_threads, tig = tid % group_threads;
   const int warp = tig / 32, half = warp / n_cw, cw = warp % n_cw;
-  const int rows = kt / sp.ks, row0 = kg * rows;
+  const int row0 = kg * (kt / sp.ks);  // a group's rows: 4 or 8
   const int j0 = cw * kWarpCols + kCols * lane;
-  const bool live_cols = j0 < live;
-  const bool leader = kg == 0;  // holds z and p, and updates them
+  bool live_g[kGroups];
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) live_g[g] = j0 + 128 * g < live;
+  // a dead second group reads the first group's columns (never used), so
+  // that no load leaves the row
+  const int jb = live_g[1] ? j0 + 128 : j0;
+  const bool leader = kg == 0;  // updates z and p
   const int c0 = blockIdx.x * C;
   const int n_here = min(C, n_chains - c0);
   const float eps = *eps_ptr;
@@ -155,99 +211,131 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
   const int n_panels = live / kt;
   const int total = (n_leap + 1) * n_panels;
 
-  // the copies of panel gp (rows (gp % n_panels) * kt .. + kt - 1 of P,
-  // one contiguous range) into stage gp % kStages; a group is committed
-  // even past the last panel, so that the ring's wait counts alike
-  auto start_panel = [&](int gp) {
-    if (gp < total) {
-      const float* src = P + (size_t)(gp % n_panels) * panel_floats;
-      const uint32_t dst = smem_u32(p_s + (gp % kStages) * panel_floats);
-      for (int v = tid; v < panel_floats / 4; v += sp.threads)
-        cp_async16(dst + 16 * v, src + 4 * v);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kStages + s), n_warps);
     }
-    cp_async_commit();
+    fence_mbarrier_init();
+  }
+  __syncthreads();  // the barriers are set up before a copy reaches them
+
+  // one thread: panel q (rows (q % n_panels) * kt .. + kt - 1 of P) into
+  // stage q % kStages, once every warp is done with the panel it held
+  auto issue = [&](int q) {
+    const int s = q % kStages;
+    if (q >= kStages) mbar_wait(bars + 8 * (kStages + s), (q / kStages - 1) & 1);
+    mbar_arrive_tx(bars + 8 * s, 4 * panel_floats);
+    bulk_from_global(smem_u32(p_s + s * panel_floats),
+                     P + (size_t)(q % n_panels) * panel_floats,
+                     4 * panel_floats, bars + 8 * s);
   };
 
-  float z[CT][kCols], p[CT][kCols], acc[CT][kCols], m[kCols];
+  // z and p of the leader's chains and columns live in z_out and p_out
+  // (read back, so not __restrict__) between updates, and in registers a
+  // column group at a time around them, which leaves the registers to the
+  // products: v <- src, or dst <- v, for column group g
   bool ok[CT];
-  {
-    float4 mv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (live_cols) mv = load4(mean + j0);
-    m[0] = mv.x, m[1] = mv.y, m[2] = mv.z, m[3] = mv.w;
-  }
 #pragma unroll
-  for (int c = 0; c < CT; ++c) {
-    const int q = CT * half + c;
-    ok[c] = leader && live_cols && q < n_here;
-    float4 zv = make_float4(0.0f, 0.0f, 0.0f, 0.0f), pv = zv;
-    if (ok[c]) {
-      const size_t gi = (size_t)(c0 + q) * dim_padded + j0;
-      zv = load4(z_in + gi);
-      pv = load4(p_in + gi);
+  for (int c = 0; c < CT; ++c) ok[c] = leader && CT * half + c < n_here;
+  auto at = [&](int c, int g) {
+    return (size_t)(c0 + CT * half + c) * dim_padded + j0 + 128 * g;
+  };
+  auto load_zp = [&](float (&v)[CT][kCols], const float* src, int g) {
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (ok[c] && live_g[g]) x = load4(src + at(c, g));
+      v[c][0] = x.x, v[c][1] = x.y, v[c][2] = x.z, v[c][3] = x.w;
     }
-    z[c][0] = zv.x, z[c][1] = zv.y, z[c][2] = zv.z, z[c][3] = zv.w;
-    p[c][0] = pv.x, p[c][1] = pv.y, p[c][2] = pv.z, p[c][3] = pv.w;
-  }
-
-  // d = z - m of the leader's chains and columns, to d_s
-  auto store_d = [&]() {
-    if (!leader || !live_cols) return;
+  };
+  auto store_zp = [&](const float (&v)[CT][kCols], float* dst, int g) {
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+      if (ok[c] && live_g[g])
+        *reinterpret_cast<float4*>(dst + at(c, g)) =
+            make_float4(v[c][0], v[c][1], v[c][2], v[c][3]);
+  };
+  // d = z - m of column group g of the leader's chains, to d_s (chains past
+  // n_chains 0)
+  auto store_d = [&](const float (&z)[CT][kCols], int g) {
+    if (!live_g[g]) return;
+    const float4 mv = load4(mean + j0 + 128 * g);
+    const float m[kCols] = {mv.x, mv.y, mv.z, mv.w};
 #pragma unroll
     for (int e = 0; e < kCols; ++e) {
       float d[CT];
 #pragma unroll
       for (int c = 0; c < CT; ++c)
         d[c] = ok[c] ? __fsub_rn(z[c][e], m[e]) : 0.0f;
-      float* row = d_s + (j0 + e) * C + CT * half;
+      float* row = d_s + (j0 + 128 * g + e) * C + CT * half;
       *reinterpret_cast<float4*>(row) = make_float4(d[0], d[1], d[2], d[3]);
       *reinterpret_cast<float4*>(row + 4) =
           make_float4(d[4], d[5], d[6], d[7]);
     }
   };
 
-  // the leader's acc[c][e] <- sum over the live rows k of d[chain c][k] *
-  // P[k][j0 + e]: each group sums its rows of every panel in order, then
-  // the leader adds the other groups' sums in group order. The global
-  // panel index gp runs on from product to product.
+  // acc[c][4 g + e] <- sum over the live rows k of d[chain c][k] *
+  // P[k][j0 + 128 g + e]: each group sums its rows of every panel in
+  // order. The global panel index gp runs on from product to product.
+  // The rows are software-pipelined across panels: a warp loads the next
+  // panel's first row before the FMAs of this panel's last, since a wait or
+  // an arrival on a barrier is a fence no load is moved across (without it,
+  // the pipeline drained at every panel: 13% of the loop). Lanes past the
+  // live width compute on P's padding, and nothing of theirs is stored.
+  float acc[CT][kSlots / CT];
   int gp = 0;
-  auto product = [&]() {
+  int turn = kAhead % n_warps;  // the warp that issues panel gp + kAhead
+  const float* d_half = d_s + CT * half;
+  auto p_row = [&](int g, int i) {
+    return p_s + (g % kStages) * panel_floats + (row0 + i) * dim_padded;
+  };
+  auto panels = [&](auto rows_c) {
+    constexpr int R = decltype(rows_c)::value;
 #pragma unroll
     for (int c = 0; c < CT; ++c)
 #pragma unroll
-      for (int e = 0; e < kCols; ++e) acc[c][e] = 0.0f;
+      for (int e = 0; e < kSlots / CT; ++e) acc[c][e] = 0.0f;
+    __syncthreads();  // d_s is written
+    mbar_wait(bars + 8 * (gp % kStages), (gp / kStages) & 1);
+    Row cur = load_row(p_row(gp, 0), d_half + row0 * C, j0, jb);
     for (int pi = 0; pi < n_panels; ++pi, ++gp) {
-      cp_async_wait_ring();  // this thread's copies of panel gp
-      // every thread's copies have landed, d_s is written, and every
-      // thread is done with panel gp - 1, whose stage is refilled now
-      __syncthreads();
-      start_panel(gp + kStages - 1);
-      if (live_cols) {
-        const float* pp = p_s + (gp % kStages) * panel_floats + j0;
-        const float* dd = d_s + (pi * kt + row0) * C + CT * half;
-#pragma unroll 4
-        for (int r = row0; r < row0 + rows; ++r, dd += C) {
-          const float4 pv = load4(pp + r * dim_padded);
-          const float4 da = load4(dd);
-          const float4 db = load4(dd + 4);
-          const float dv[CT] = {da.x, da.y, da.z, da.w,
-                                db.x, db.y, db.z, db.w};
+      const int r0 = pi * kt + row0;  // this group's first row of d
 #pragma unroll
-          for (int c = 0; c < CT; ++c) {
-            acc[c][0] = __fmaf_rn(dv[c], pv.x, acc[c][0]);
-            acc[c][1] = __fmaf_rn(dv[c], pv.y, acc[c][1]);
-            acc[c][2] = __fmaf_rn(dv[c], pv.z, acc[c][2]);
-            acc[c][3] = __fmaf_rn(dv[c], pv.w, acc[c][3]);
+      for (int i = 0; i < R; ++i) {
+        Row next = cur;
+        if (i + 1 < R) {
+          next = load_row(p_row(gp, i + 1), d_half + (r0 + i + 1) * C, j0, jb);
+        } else {
+          // the next panel of this product has landed: its first row
+          if (pi + 1 < n_panels) {
+            mbar_wait(bars + 8 * ((gp + 1) % kStages),
+                      ((gp + 1) / kStages) & 1);
+            next = load_row(p_row(gp + 1, 0), d_half + (r0 + kt) * C, j0,
+                            jb);
           }
+          // the block's warps take turns to issue the panel kAhead ahead
+          const int q = gp + 1 + kAhead;
+          turn = turn + 1 == n_warps ? 0 : turn + 1;
+          if (lane == 0 && turn == tid / 32 && q < total) issue(q);
         }
+        fma_row(acc, cur);
+        cur = next;
       }
+      // this warp is done with the stage: one arrival on its "empty"
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (kStages + gp % kStages));
     }
+  };
+  // the leader adds the other groups' sums in group order
+  auto hand_off = [&]() {
     if (!leader) {
       float* out = red_s + (kg - 1) * kSlots * group_threads + tig;
 #pragma unroll
       for (int c = 0; c < CT; ++c)
 #pragma unroll
-        for (int e = 0; e < kCols; ++e)
-          out[(c * kCols + e) * group_threads] = acc[c][e];
+        for (int e = 0; e < kSlots / CT; ++e)
+          out[(c * (kSlots / CT) + e) * group_threads] = acc[c][e];
     }
     __syncthreads();  // every thread is done reading d_s; the sums are in
     if (leader) {
@@ -256,78 +344,132 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1)
 #pragma unroll
         for (int c = 0; c < CT; ++c)
 #pragma unroll
-          for (int e = 0; e < kCols; ++e)
-            acc[c][e] = __fadd_rn(acc[c][e],
-                                  in[(c * kCols + e) * group_threads]);
+          for (int e = 0; e < kSlots / CT; ++e)
+            acc[c][e] = __fadd_rn(
+                acc[c][e], in[(c * (kSlots / CT) + e) * group_threads]);
       }
     }
   };
 
-  start_panel(0);
-  start_panel(1);
-  store_d();
-  product();
-  for (int k = 0; k < n_leap; ++k) {
-    // half kick with the carried gradient g = -acc, then drift
+  if (tid == 0)
+    for (int q = 0; q <= kAhead && q < total; ++q) issue(q);
+  float z[CT][kCols], p[CT][kCols];
+  if (leader)
 #pragma unroll
-    for (int c = 0; c < CT; ++c)
+    for (int g = 0; g < kGroups; ++g) {
+      load_zp(z, z_in, g);
+      store_d(z, g);
+    }
+  // U's part of each chain and column group: the group's four columns
+  float ug[CT][kGroups];
+  for (int t = 0; t <= n_leap; ++t) {
+    const float* z_src = t == 0 ? z_in : z_out;
+    const float* p_src = t == 0 ? p_in : p_out;
+    if (kt / sp.ks == 8)
+      panels(std::integral_constant<int, 8>{});
+    else
+      panels(std::integral_constant<int, 4>{});
+    // the leader's first column group is read while the other split-K
+    // groups hand off
+    if (leader) {
+      load_zp(z, z_src, 0);
+      load_zp(p, p_src, 0);
+    }
+    hand_off();
+    if (!leader) continue;
 #pragma unroll
-      for (int e = 0; e < kCols; ++e) {
-        p[c][e] = __fadd_rn(p[c][e], __fmul_rn(half_eps, -acc[c][e]));
-        z[c][e] = __fadd_rn(z[c][e], __fmul_rn(eps, p[c][e]));
+    for (int g = 0; g < kGroups; ++g) {
+      if (g > 0) {
+        load_zp(z, z_src, g);
+        load_zp(p, p_src, g);
       }
-    store_d();
-    product();
-    // second half kick
+      // the last leapfrog's second half kick with the gradient g = -acc,
+      // then (but after the last product) this one's first and the drift
 #pragma unroll
-    for (int c = 0; c < CT; ++c)
+      for (int c = 0; c < CT; ++c)
 #pragma unroll
-      for (int e = 0; e < kCols; ++e)
-        p[c][e] = __fadd_rn(p[c][e], __fmul_rn(half_eps, -acc[c][e]));
+        for (int e = 0; e < kCols; ++e) {
+          const float a = acc[c][4 * g + e];
+          if (t > 0) p[c][e] = __fadd_rn(p[c][e], __fmul_rn(half_eps, -a));
+          if (t < n_leap) {
+            p[c][e] = __fadd_rn(p[c][e], __fmul_rn(half_eps, -a));
+            z[c][e] = __fadd_rn(z[c][e], __fmul_rn(eps, p[c][e]));
+          }
+        }
+      store_zp(p, p_out, g);
+      if (t < n_leap) {
+        store_zp(z, z_out, g);
+        store_d(z, g);
+        continue;
+      }
+      // U = 0.5 * sum_j d_j (d . P)_j per chain, with (d . P) = acc at the
+      // end position; a dead group's sums are another group's (its loads
+      // aliased)
+      float4 mv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (live_g[g]) mv = load4(mean + j0 + 128 * g);
+      const float m[kCols] = {mv.x, mv.y, mv.z, mv.w};
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        float d[kCols];
+#pragma unroll
+        for (int e = 0; e < kCols; ++e)
+          d[e] = ok[c] && live_g[g] ? __fsub_rn(z[c][e], m[e]) : 0.0f;
+        const float* a = acc[c] + 4 * g;
+        ug[c][g] = live_g[g] ? __fadd_rn(__fadd_rn(__fmul_rn(d[0], a[0]),
+                                                   __fmul_rn(d[1], a[1])),
+                                         __fadd_rn(__fmul_rn(d[2], a[2]),
+                                                   __fmul_rn(d[3], a[3])))
+                             : 0.0f;
+      }
+    }
   }
-
-  // U = 0.5 * sum_j d_j (d . P)_j per chain, with (d . P) = acc at the end
-  // position: the leader's four columns, its warp's lanes by butterfly,
-  // then the column warps in order
+  // U: each column group's part over its 32 lanes by butterfly, then the
+  // 128-column parts in order
+  const int parts = (live + 127) / 128;
   if (leader) {
 #pragma unroll
-    for (int c = 0; c < CT; ++c) {
-      float d[kCols];
+    for (int c = 0; c < CT; ++c)
 #pragma unroll
-      for (int e = 0; e < kCols; ++e)
-        d[e] = ok[c] ? __fsub_rn(z[c][e], m[e]) : 0.0f;
-      float u = __fadd_rn(
-          __fadd_rn(__fmul_rn(d[0], acc[c][0]), __fmul_rn(d[1], acc[c][1])),
-          __fadd_rn(__fmul_rn(d[2], acc[c][2]), __fmul_rn(d[3], acc[c][3])));
+      for (int g = 0; g < kGroups; ++g) {
+        float u = ug[c][g];
 #pragma unroll
-      for (int off = 16; off >= 1; off >>= 1)
-        u = __fadd_rn(u, __shfl_xor_sync(0xffffffffu, u, off));
-      if (lane == 0) ured_s[(CT * half + c) * n_cw + cw] = u;
-    }
+        for (int off = 16; off >= 1; off >>= 1)
+          u = __fadd_rn(u, __shfl_xor_sync(0xffffffffu, u, off));
+        if (lane == 0)
+          ured_s[(CT * half + c) * kGroups * n_cw + kGroups * cw + g] = u;
+      }
   }
   __syncthreads();
   if (tid < n_here) {
-    float us = ured_s[tid * n_cw];
-    for (int w = 1; w < n_cw; ++w) us = __fadd_rn(us, ured_s[tid * n_cw + w]);
+    const float* ur = ured_s + tid * kGroups * n_cw;
+    float us = ur[0];
+    for (int w = 1; w < parts; ++w) us = __fadd_rn(us, ur[w]);
     u_out[c0 + tid] = __fmul_rn(0.5f, us);
   }
 
-#pragma unroll
-  for (int c = 0; c < CT; ++c) {
-    if (ok[c]) {
-      const size_t gi = (size_t)(c0 + CT * half + c) * dim_padded + j0;
-      *reinterpret_cast<float4*>(z_out + gi) =
-          make_float4(z[c][0], z[c][1], z[c][2], z[c][3]);
-      *reinterpret_cast<float4*>(p_out + gi) =
-          make_float4(p[c][0], p[c][1], p[c][2], p[c][3]);
-    }
-  }
   // columns at and past the live width pass through
   const int n_pad = dim_padded - live;
   for (int i = tid; i < n_here * n_pad; i += sp.threads) {
     const size_t o = (size_t)(c0 + i / n_pad) * dim_padded + live + i % n_pad;
     z_out[o] = z_in[o];
     p_out[o] = p_in[o];
+  }
+}
+
+using WideKernel = void (*)(const float*, const float*, const float*,
+                           const float*, const float*, float*, float*, float*,
+                           int, int, int);
+
+// The instantiation for dim_padded, a multiple of 128 in (128, 1024].
+WideKernel wide_kernel(int dim_padded) {
+  switch (dim_padded) {
+    case 256: return fused_gaussian_wide_kernel<256>;
+    case 384: return fused_gaussian_wide_kernel<384>;
+    case 512: return fused_gaussian_wide_kernel<512>;
+    case 640: return fused_gaussian_wide_kernel<640>;
+    case 768: return fused_gaussian_wide_kernel<768>;
+    case 896: return fused_gaussian_wide_kernel<896>;
+    default: return fused_gaussian_wide_kernel<1024>;
   }
 }
 
@@ -347,16 +489,21 @@ int fused_gaussian_wide_launch(const void* z, const void* p, const void* P,
   const Split sp = split_of(live, dim_padded);
   const int bytes = 4 * sp.floats;
   if (bytes > 232448) return (int)cudaErrorInvalidValue;
+  const WideKernel kernel = wide_kernel(dim_padded);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_gaussian_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_chains + C - 1) / C);
-  fused_gaussian_wide_kernel<<<grid, sp.threads, bytes, stream>>>(
-      static_cast<const float*>(z), static_cast<const float*>(p),
-      static_cast<const float*>(P), static_cast<const float*>(mean),
-      static_cast<const float*>(eps), static_cast<float*>(z_out),
-      static_cast<float*>(p_out), static_cast<float*>(u_out), n_chains,
-      dim_padded, live, n_leap);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n_chains + C - 1) / C);
+  cfg.blockDim = dim3(sp.threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const float*>(z),
+      static_cast<const float*>(p), static_cast<const float*>(P),
+      static_cast<const float*>(mean), static_cast<const float*>(eps),
+      static_cast<float*>(z_out), static_cast<float*>(p_out),
+      static_cast<float*>(u_out), n_chains, live, n_leap);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

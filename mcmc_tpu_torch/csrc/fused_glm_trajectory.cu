@@ -325,7 +325,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid == 0) {
     for (int s = 0; s < 2 * kStages; ++s)
       mbar_init(ring.full + 8 * s, kThreads);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbarrier_init();
   }
   __syncthreads();
   for (int gi = 0; gi < kAhead; ++gi) start_tile(ring, gi, tid);

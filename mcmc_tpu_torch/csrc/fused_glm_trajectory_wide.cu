@@ -138,30 +138,6 @@ static_assert(kSlots <= 32 && kMaxCluster <= 8,
 static_assert(kEtaBytes >= kWGChains * (int)sizeof(float2),
               "a warpgroup's per-chain sums of U fit its eta slots");
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// Every thread of the cluster: this thread's writes, to its own block's
-// shared memory or another's, are seen by every thread after the barrier.
-// Only at the start and at the end.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.aligned;\n"
-      "barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// The address in block `rank`'s shared memory of this block's `addr`.
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(addr), "r"(rank));
-  return r;
-}
-
 __device__ __forceinline__ float2 ld_cluster_f2(uint32_t addr) {
   float2 v;
   asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
@@ -180,50 +156,6 @@ __device__ __forceinline__ void st_async_f4(uint32_t addr, float4 v,
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
       "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
       "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
-      : "memory");
-}
-
-// This thread's arrival on `bar`, expecting `bytes` more of transactions
-// in the phase.
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// mbar_wait with acquire at cluster scope: the bytes that completed the
-// phase came from other blocks. Traps after a few seconds, as mbar_wait.
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
-                                                  uint32_t parity) {
-  long long t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) t0 = clock64();
-    if (clock64() - t0 > (1ll << 33)) __trap();
-  }
-}
-
-// A bulk copy of `bytes` from this block's shared memory at `src` to the
-// cluster address `dst`, completing the transactions of the mbarrier at
-// cluster address `bar` (in dst's block).
-__device__ __forceinline__ void bulk_to_block(uint32_t dst, uint32_t src,
-                                              int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
-      "bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "r"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -608,7 +540,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(base + kOffBar + 8 * (2 * kStages + w), 128);
       mbar_init(base + kOffBar + 8 * (2 * kStages + kWGs + w), 128);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbarrier_init();
   }
   // every block of the cluster has started and set up its barriers: from
   // here on the blocks write into each other's shared memory

@@ -71,18 +71,32 @@ extern "C" int trial_launch(bool rt, const void* z, const void* p,
 """
 
 
-def build(variants):
-    """Compile every variant at once; return name -> bound library."""
+def bind_glm(lib):
+    """Argument types of the GLM shim's launch."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.trial_launch.argtypes = [ctypes.c_bool] + [vp] * 10 + \
+        [ci] * 4 + [cf] * 3 + [ci, cf, vp]
+    lib.trial_launch.restype = ci
+
+
+def build(variants, shim=SHIM, bind=bind_glm, defines=None):
+    """Compile every variant at once; return name -> bound library.
+    ``shim`` wraps a source (its ``{src}``) in a C entry for ctypes (or
+    maps a variant's name to its own shim),
+    ``bind`` sets that entry's argument types, and ``defines`` maps a
+    variant's name to its extra ``-D`` flags."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src in variants.items():
         src = Path(src).resolve()
-        shim = OUT / f"{name}_shim.cu"
-        shim.write_text(SHIM.format(src=src))
+        wrapper = OUT / f"{name}_shim.cu"
+        template = shim[name] if isinstance(shim, dict) else shim
+        wrapper.write_text(template.format(src=src))
         so = OUT / f"{name}.so"
-        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I",
+        flags = [f"-D{d}" for d in (defines or {}).get(name, ())]
+        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, *flags, "-shared", "-I",
                str(src.parent), "-I", str(_cuda.CSRC), "-o", str(so),
-               str(shim)]
+               str(wrapper)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        so)
@@ -96,10 +110,7 @@ def build(variants):
         if proc.returncode != 0:
             raise SystemExit(f"build of {name} failed:\n{log}")
         lib = ctypes.CDLL(str(so))
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.trial_launch.argtypes = [ctypes.c_bool] + [vp] * 10 + \
-            [ci] * 4 + [cf] * 3 + [ci, cf, vp]
-        lib.trial_launch.restype = ci
+        bind(lib)
         libs[name] = lib
     return libs
 

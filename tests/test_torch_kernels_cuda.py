@@ -474,6 +474,62 @@ def test_wide_gaussian_kernel_matches_plain(kind, dim, chains):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("chains", [1, 15, 17, 2048])
+@pytest.mark.parametrize("dim", [250, 500, 784, 1000])
+@pytest.mark.parametrize("kind", ["diagonal", "dense"])
+def test_wide_gaussian_kernel_at_block_edges(kind, dim, chains):
+    """The wide body takes 16 chains a block: one chain, one below and one
+    above a block (15, 17), and the suite's 2,048. The tolerances of
+    test_wide_gaussian_kernel_matches_plain; on the diagonal precision z
+    and p bit-equal to the plain version."""
+    _require_card()
+    _traj, args = _gaussian_problem(kind, dim, chains)
+    zp, pp, up = tfl._fused_gaussian_trajectory_plain(*args)
+    zk, pk, uk = tfl.fused_gaussian_trajectory_cuda(*args)
+    torch.cuda.synchronize()
+    for a, b in ((zk, zp), (pk, pp), (uk, up)):
+        torch.testing.assert_close(
+            a, b, rtol=1e-4, atol=1e-4 * max(1.0, float(b.abs().max())))
+    assert torch.all(zk[:, dim:] == 0) and torch.all(pk[:, dim:] == 0)
+    if kind == "diagonal":
+        assert torch.equal(zk, zp) and torch.equal(pk, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [250, 500, 784, 1000])
+def test_wide_gaussian_kernel_five_launches_bit_equal(dim):
+    """Five launches at 2,048 chains (128 blocks, every warp arriving on
+    its block's ring barriers) give the same bits."""
+    _require_card()
+    _traj, args = _gaussian_problem("dense", dim, 2048)
+    first = tfl.fused_gaussian_trajectory_cuda(*args)
+    for _ in range(4):
+        again = tfl.fused_gaussian_trajectory_cuda(*args)
+        torch.cuda.synchronize()
+        for u, v in zip(first, again):
+            assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["diagonal", "dense"])
+def test_wide_gaussian_kernel_500_launches_bit_equal(kind):
+    """500 back-to-back launches at 256 padded columns, 2,048 chains and
+    157 leapfrogs, the wide Gaussian path's shape (it launches the kernel
+    1,200 times):
+    none fails and every one gives the first one's bits, so the ring's
+    barriers neither stall nor let a stage be overwritten early."""
+    _require_card()
+    _traj, args = _gaussian_problem(kind, 250, 2048, n_leap=157)
+    first = tfl.fused_gaussian_trajectory_cuda(*args)
+    differ = torch.zeros((), dtype=torch.int64, device="cuda")
+    for _ in range(499):
+        again = tfl.fused_gaussian_trajectory_cuda(*args)
+        differ += sum((u != v).any().long() for u, v in zip(first, again))
+    torch.cuda.synchronize()
+    assert int(differ) == 0
+
+
+@pytest.mark.cuda
 def test_wide_gaussian_kernel_and_plain_agree_past_the_live_width():
     """With the padding contract broken past the live width (784 of 896
     columns) kernel and plain version still compute one function: the live
