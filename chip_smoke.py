@@ -9,12 +9,21 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. device: a CUDA card is required; prints its name and power limit;
 2. build: compiles the kernels of ``mcmc_tpu_torch/csrc`` (nvcc, sm_90a,
-   one compiler per source, together) and prints the build time;
+   one compiler per source, together) and, beside them, the libraries of
+   two links traced from torch (``ops/link_codegen.py``: a complementary
+   log-log Bernoulli link on the 128 and the cluster body, the JAX
+   package's logistic hook on the 128 body; ``_cuda.build_link``); prints
+   the build time, ptxas's registers and spills, and gates on no ``wgmma``
+   advisory for a traced link;
 3. the GLM trajectory kernel against its plain PyTorch version at the
    flagship shapes (16384 chains, 100 dims, 1000 observations, 4 leapfrogs
    at step 0.01) for each built-in link, Student-t included: max errors
    against the stated tolerances, padded columns exactly zero, and the
-   median time of each;
+   median time of each; then the two traced links the same way (cloglog on
+   responses drawn from it, the hook on the flagship's), also within
+   ``tests/test_torch_kernels_cuda.py``'s ``_close_but_rare`` bounds, two
+   launches bit-equal, and the hook within those bounds of the built-in
+   logistic (whether bit-equal printed);
 4. the fused main path: ``fused_glm_hmc`` at 16384 chains for 600
    transitions, from numpy data with no ``device=`` (so it must put itself
    on the card), with the kernel's launch count, acceptance, leapfrog
@@ -22,11 +31,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 5. the generic ``hmc`` at 1024 chains over the same transitions, whose
    posterior mean must agree with the fused run's within 0.3; its max
    split R-hat is printed (600 transitions of 4 leapfrogs at step 0.01 from
-   the 0.05-scale start do not converge);
+   the 0.05-scale start do not converge); then phases 4-5 again with
+   ``fused_glm_hmc(link=cloglog)`` (one K1 launch a transition, acceptance
+   in (0.5, 1], the mean within 0.3 of the generic ``hmc``'s on the same
+   torch density; ms a transition printed);
 6. the run-time-parameter entry of the GLM kernel at the flagship shapes
    (step size as a 0-d tensor on the card, a diagonal inverse mass):
    against its plain version, bit-equal to phase 3's kernel at inverse
    mass 1, and driven through its factory ``make_fused_trajectory_rt``;
+   the same on the traced cloglog link;
 7. the Gaussian trajectory kernel against its plain version at the suite's
    shapes (2048 chains, 100 dims, 157 leapfrogs at step 0.9, condition
    number 1e4), on the suite's diagonal precision and on a dense one of
@@ -41,7 +54,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    at inverse mass 1, and through its factory), K2 at 256, 512 and 1024
    (250, 500 and 1000 dims, diagonal and dense, two launches bit-equal),
    each against its plain version at its phase's tolerances and timed;
-   ``fused_glm_hmc`` on the 784 x 2000 model at 16384 chains (one launch a
+   K1 on the traced cloglog link at 896 (with a 20-transition
+   ``fused_glm_hmc`` path there) and K3 on it at 384 (bit-equal to K1 at
+   inverse mass 1, and through its factory), each against its plain
+   version; ``fused_glm_hmc`` on the 784 x 2000 model at 16384 chains (one
+   launch a
    transition, acceptance in (0.5, 1], its mean within 0.3 of the generic
    ``hmc``'s over the same transitions), and ``fused_gaussian_hmc`` on the
    dense rotation of the 250-d ill-conditioned Gaussian at phase 8's
@@ -96,6 +113,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    each of phases 11-13 also prints its draws/s, warmup seconds,
    warmup-inclusive min ESS/s, host synchronisations and leapfrogs per
    kept draw, and its seconds;
+14-16 run ``rmhmc_fisher``, ``elliptical_latent_gp_64d``, ``aees_mixture``,
+   ``pt_mixture`` and ``gibbs_hierarchical`` (with its NUTS reference) at
+   their depths in worker processes of their own (``WORKER_ROWS``,
+   spawned at the start of phase 14 and joined at the end of phase 16),
+   beside the main process's rows; each such row says that its seconds
+   were measured sharing the host and the card;
 14. the suite's rows of the reference library's samplers at their full
    settings (``benchmarks/suite.py``), each through its entry point from
    numpy inputs with no ``device=``: ``rwmh_gaussian_2d`` (256 chains,
@@ -513,6 +536,23 @@ MMALA_ROW = {"chains": 1024, "warm": 250, "keep": 500, "full": (1500, 4000),
 # kernel-level sync audit of the looping samplers: draws run under CUDA's
 # sync debug mode, against the kernel's own count
 LOOP_SYNC_DRAWS = 10
+# Phases 14-16 held the script past its 1,200 s on slow hosts (774 s of a
+# 1,292 s run on an H100 80GB HBM3 at 700 W). No cut of depth pays there: a
+# row's max rank R-hat sits near 1 + (tau - 1) / n_keep, tau its integrated
+# autocorrelation time, whatever its chain count (more chains and fewer
+# draws keep the ESS but raise R-hat), and the long rows are the slow-mixing
+# ones: rmhmc_fisher (tau about 18: rank R-hat 1.0046 at 4,000 kept),
+# elliptical_latent_gp_64d (about 90: 1.0076 at 12,000), aees_mixture
+# (1.0077 at 24,000), pt_mixture (about 16: 1.0052 at 3,000) and
+# gibbs_hierarchical with its NUTS reference (about 4 at 1,000 and 3 at 400:
+# 1.0040, 1.0074). Each runs at its depth in a worker process of its own
+# (spawned, one generator per row), beside the others and the main
+# process's rows: each is launch-bound, the card 5-16% busy, one host core.
+# Every row of phases 14-16 says so (SHARED_HOST): its seconds and draws/s
+# were measured sharing the host and the card.
+SHARED_HOST = {"host": "shared: phases 14-16's rows run at once, the main "
+                       "process's beside the worker processes'"}
+WORKER_TIMEOUT_S = 900.0
 
 # the one-call workflow (phase 17) on the flagship posterior: fit() with a
 # Pathfinder start (NUTS, fit's defaults), map_laplace and a Laplace-started
@@ -619,6 +659,19 @@ PEAK_SFU = 16 * 132 * 1.98e9
 # quotients; + two logs. Student-t: one quotient; + quotient, log.
 LINK_SFU = {"logistic": (2, 2), "poisson": (1, 0), "linear": (0, 0),
             "probit": (5, 2), "studentt": (1, 2)}
+# links traced from torch into K1 and K3 (ops/link_codegen.py): a
+# complementary log-log Bernoulli link on responses drawn from it for the
+# flagship's X and beta_true (numpy, seeded by CLOGLOG_SEED plus the
+# model's columns), and the JAX package's logistic hook
+# (tests/test_fused_logreg.py test_fused_trajectory_custom_link_hook) on
+# the flagship's own. Their special-function counts come from the traced
+# graph (TracedLink.sfu). Kernel against plain version at phase 3's
+# tolerances and tests/test_torch_kernels_cuda.py's _close_but_rare
+# bounds; cloglog's fused_glm_hmc at the flagship's chains under phases
+# 4-5's protocol; K3 at 128 and 384; K1 at 896 with a short path there
+CLOGLOG_SEED = 60
+TRACED_WIDE_K1, TRACED_WIDE_K3 = (784, 2000), (300, 1000)
+TRACED_WIDE_PATH = 20         # transitions of the short path at 896
 
 
 def check(ok, what):
@@ -668,13 +721,15 @@ def glm_bound_ms(n_chains, dim, n_rows, n_leap, rt, link="logistic"):
     operations (n_leap + 1 gradients of two bf16 products each), the link's
     special-function operations (``LINK_SFU``) and the bytes (z, p in, z,
     p, U out, X in bf16, y and mask, and eps, inv_mass for the run-time
-    entry); ``which`` names the largest. With the model's own sizes this is
+    entry); ``which`` names the largest. ``link`` is a built-in link's name
+    or a traced link's ``(per gradient, per log-likelihood)``
+    special-function counts. With the model's own sizes this is
     the work the function needs; with the padded ones, the work the kernel
     is handed."""
     flop = (n_leap + 1) * 2 * 2 * n_chains * dim * n_rows
     n_bytes = 4 * (4 * n_chains * dim + n_chains) + 2 * n_rows * dim \
         + 4 * 2 * n_rows + (4 * (dim + 1) if rt else 0)
-    per_grad, per_ll = LINK_SFU[link]
+    per_grad, per_ll = LINK_SFU[link] if isinstance(link, str) else link
     sfu = n_chains * n_rows * ((n_leap + 1) * per_grad + per_ll)
     ms, by = bound_ms(flop, PEAK_BF16, n_bytes)
     which = "tensor operations" if by == "operations" else "bytes"
@@ -763,6 +818,76 @@ def link_data(name, X, beta, rng):
                         device=X.device)
 
 
+def cloglog(eta, y):
+    """The complementary log-log Bernoulli link, P(y = 1) = 1 - exp(-e^eta),
+    as a user writes it in torch: ``(mu_eff, ll_terms)`` with mu_eff = y -
+    d ll / d eta."""
+    m = torch.exp(eta)
+    p = -torch.expm1(-m)
+    score = y * m * torch.exp(-m) / p - (1 - y) * m
+    return y - score, y * torch.log(p) - (1 - y) * m
+
+
+def logistic_hook(eta, yv):
+    """The JAX package's logistic hook, in torch."""
+    return torch.sigmoid(eta), \
+        yv * eta - torch.nn.functional.softplus(eta)
+
+
+TRACED_LINKS = {"cloglog": cloglog, "logistic_hook": logistic_hook}
+
+
+def cloglog_y(X, beta, seed):
+    """Responses y ~ Bernoulli(1 - exp(-exp(X beta))), drawn with numpy."""
+    eta = (X.cpu().double() @ beta.cpu().double()).numpy()
+    rng = np.random.default_rng(seed)
+    y = rng.uniform(size=eta.shape[0]) < -np.expm1(-np.exp(eta))
+    return torch.tensor(y.astype(np.float32), device=X.device)
+
+
+def close_but_rare(what, got, want, chains):
+    """tests/test_torch_kernels_cuda.py's ``_close_but_rare`` as gates: z
+    and p to atol 1e-4 up to 65 chains, past it all to 1e-3 and all but one
+    in 100,000 to 1e-4; U to rtol 1e-4, past 65 chains all to 1e-3 and all
+    but one chain in 1,000 to 1e-4. Returns the max |dz|, |dp| and the max
+    relative |dU|."""
+    (zk, pk, uk), (zp, pp, up) = got, want
+    dzp = max(float((zk - zp).abs().max()), float((pk - pp).abs().max()))
+    rel = (uk - up).abs() / up.abs()
+    for a, b, name in ((zk, zp, "z"), (pk, pp, "p")):
+        diff = (a - b).abs()
+        if chains <= 65:
+            check(float(diff.max()) <= 1e-4, f"{what}: {name} within 1e-4")
+        else:
+            check(float(diff.max()) <= 1e-3, f"{what}: {name} within 1e-3")
+            check(float((diff > 1e-4).float().mean()) <= 1e-5,
+                  f"{what}: all but 1e-5 of {name} within 1e-4")
+    if chains <= 65:
+        check(float(rel.max()) <= 1e-4, f"{what}: U within rtol 1e-4")
+    else:
+        check(float(rel.max()) <= 1e-3, f"{what}: U within rtol 1e-3")
+        check(float((rel > 1e-4).float().mean()) <= 1e-3,
+              f"{what}: all but 1e-3 of U within rtol 1e-4")
+    return dzp, float(rel.max())
+
+
+def traced_builds(_cuda):
+    """Print each traced link's build (nvcc seconds; ptxas's registers,
+    spills and wgmma notes) and gate on no wgmma advisory: the traced link
+    sits under no branch, so ptxas must pipeline its products as it does
+    the built-in links'."""
+    for path, (seconds, log) in _cuda.link_builds.items():
+        print(f"  traced link {path.name}: nvcc {seconds:.1f} s")
+        notes = []
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("    ptxas:", line.strip())
+            if "wgmma" in line or "C75" in line:
+                notes.append(line.strip())
+                print("    ptxas advisory:", line.strip())
+        check(not notes, f"ptxas serialises or fences {path.name}'s wgmma")
+
+
 def glm_compare(what, fns, got, want, dim):
     """Check a GLM kernel's outputs against its plain version's at phase
     3's tolerances, padded columns exactly zero; time ``fns`` (the kernel,
@@ -804,7 +929,7 @@ def wgmma_advisories(_cuda):
     return [line.strip() for line in log.splitlines() if "wgmma" in line]
 
 
-def wide_widths(dev, fl, wgmma_notes):
+def wide_widths(dev, fl, lc, wgmma_notes):
     """Phases 3-8's additions at the widths past 128 padded columns (one
     lap): the kernels against their plain versions and timed at each width,
     then the wide GLM and Gaussian paths. ``wgmma_notes`` are ptxas's
@@ -838,7 +963,7 @@ def wide_widths(dev, fl, wgmma_notes):
     data = {}
     for dim, n in WIDE_GLM:
         X, y, beta = make_logistic_regression_data(dim, n, dim)
-        data[dim] = (X, y)
+        data[dim] = (X, y, beta)
         rng = np.random.default_rng(dim)
         for name in LINKS if dim == WIDE_LINK_DIM else ("logistic",):
             yl = y if name == "logistic" else link_data(name, X, beta, rng)
@@ -903,7 +1028,7 @@ def wide_widths(dev, fl, wgmma_notes):
           f"{bound[0]:.4f} ms, {100 * bound[0] / ms:.1f}% of it")
     check(same, f"K3 at {dp}, inverse mass 1 and K1's step: K1's bits")
     note("K3", dp, ms, plain_ms, bound[0], abs_err, err)
-    X, y = data[dim]
+    X, y = data[dim][:2]
     traj_rt = fl.make_fused_trajectory_rt(X.cpu().numpy(), y.cpu().numpy(),
                                           PRIOR_SCALE, N_LEAP)
     fl.fused_trajectory_rt_cuda.launches = 0
@@ -919,6 +1044,93 @@ def wide_widths(dev, fl, wgmma_notes):
           f"K3 path at {dp}: output finite")
     rec["K3"]["launches"][str(dp)] = launches
     del z, p, got, want, one, k3_in, k1_out, zc, pc
+
+    # phases 3 and 6 on the traced cloglog link: K1 at 896 and a short
+    # fused_glm_hmc path there; K3 at 384, at inverse mass 1 bit-equal to
+    # K1, and through its factory
+    sfu = lc.trace_link(cloglog).sfu
+    for k, (dim, n) in (("K1", TRACED_WIDE_K1), ("K3", TRACED_WIDE_K3)):
+        X, _y, beta = data[dim]
+        ycl = cloglog_y(X, beta, CLOGLOG_SEED + dim)
+        traj = fl.make_fused_trajectory(X, ycl, PRIOR_SCALE, STEP_SIZE,
+                                        N_LEAP, link=cloglog)
+        dp = traj.dim_padded
+        z = torch.zeros((N_CHAINS, dp), device=dev)
+        p = torch.zeros((N_CHAINS, dp), device=dev)
+        z[:, :dim] = beta + 0.3 * torch.randn((N_CHAINS, dim), generator=gen,
+                                              device=dev)
+        p[:, :dim] = torch.randn((N_CHAINS, dim), generator=gen, device=dev)
+        args = (traj.Xb, traj.y, traj.mask, traj.inv_pv, STEP_SIZE, N_LEAP,
+                cloglog)
+        what = f"{k} cloglog (traced) at {dp} ({dim} x {n})"
+        if k == "K1":
+            launch = lambda: fl.fused_trajectory_cuda(z, p, *args)
+            plain = lambda: fl._fused_trajectory_plain(z, p, *args)
+        else:
+            eps_t = torch.tensor(STEP_SIZE, dtype=torch.float32, device=dev)
+            im = torch.ones((dp,), device=dev)
+            im[:dim] = torch.linspace(0.5, 2.0, dim, device=dev)
+            rt_args = (*args[:4], eps_t, N_LEAP, cloglog, im)
+            launch = lambda: fl.fused_trajectory_rt_cuda(z, p, *rt_args)
+            plain = lambda: fl._fused_trajectory_plain(z, p, *rt_args)
+        got, want = launch(), plain()
+        torch.cuda.synchronize()
+        dzp, du = close_but_rare(what, got, want, N_CHAINS)
+        ms, plain_ms, abs_err, err = glm_compare(what, [launch, plain], got,
+                                                 want, dim)
+        bound = glm_bound_ms(N_CHAINS, dim, n, N_LEAP, k == "K3", sfu)
+        print(f"  max |dz|, |dp| {dzp:.3e}, max relative |dU| {du:.3e} "
+              f"(_close_but_rare's bounds); bound {bound[0]:.4f} ms "
+              f"({bound[2]}), {100 * bound[0] / ms:.1f}% of it")
+        if k == "K1":
+            # a short path at 896: one launch a transition
+            fl.fused_trajectory_cuda.launches = 0
+            out = fused_glm_hmc(X.cpu().numpy(), ycl.cpu().numpy(),
+                                link=cloglog, prior_scale=PRIOR_SCALE,
+                                step_size=WG_STEP, n_leap=N_LEAP,
+                                n_chains=N_CHAINS, n_burnin_draws=0,
+                                n_keep_draws=TRACED_WIDE_PATH, key=58)
+            torch.cuda.synchronize()
+            launches = fl.fused_trajectory_cuda.launches
+            check(launches == TRACED_WIDE_PATH, f"{launches} launches of K1 "
+                  f"on the traced link at {dp} for {TRACED_WIDE_PATH} "
+                  "transitions")
+            check(bool(torch.isfinite(out.draws).all()),
+                  f"traced cloglog path at {dp}: draws finite")
+            accept = float(out.diagnostics["accept_rate_per_chain"].mean())
+            print(f"  fused_glm_hmc(link=cloglog) at {dp}: "
+                  f"{TRACED_WIDE_PATH} transitions, {launches} launches, "
+                  f"accept {accept:.4f}")
+            del out
+        else:
+            one = fl.fused_trajectory_rt_cuda(z, p, *rt_args[:-1],
+                                              torch.ones_like(im))
+            k1 = fl.fused_trajectory_cuda(z, p, *args)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(one, k1))
+            check(same, f"{what}: at inverse mass 1 K1's bits")
+            traj_rt = fl.make_fused_trajectory_rt(
+                X.cpu().numpy(), ycl.cpu().numpy(), PRIOR_SCALE, N_LEAP,
+                link=cloglog)
+            fl.fused_trajectory_rt_cuda.launches = 0
+            zc, pc = z, p
+            for _ in range(RT_CALLS):
+                zc, pc, uc = traj_rt(zc, pc, eps_t, im)
+                eps_t = eps_t * 1.01
+            torch.cuda.synchronize()
+            launches = fl.fused_trajectory_rt_cuda.launches
+            check(launches == RT_CALLS, f"{launches} launches of K3 on the "
+                  f"traced link at {dp} for {RT_CALLS} factory calls")
+            check(bool(torch.isfinite(uc).all()), f"{what}: path finite")
+            print(f"  at inverse mass 1 bit-equal to K1: {same}; {RT_CALLS} "
+                  f"chained trajectories through its factory, {launches} "
+                  "launches")
+            del one, k1, zc, pc
+        rec[k]["traced"] = {str(dp): {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "launches": launches,
+            "max_abs_err": abs_err, "max_scaled_err": err}}
+        del z, p, got, want
 
     # phase 7: K2 at 256, 512 and 1,024 padded columns
     gen = torch.Generator(device=dev).manual_seed(53)
@@ -992,7 +1204,7 @@ def wide_widths(dev, fl, wgmma_notes):
 
     # phases 4-5: the wide GLM path, then the generic hmc over the same
     # transitions
-    X, y = data[WG_DIM]
+    X, y = data[WG_DIM][:2]
     X_np, y_np = X.cpu().numpy(), y.cpu().numpy()
     n_trans = (WG_BURNIN + WG_KEEP) * WG_STEPS_PER_DRAW
     fl.fused_trajectory_cuda.launches = 0
@@ -1616,14 +1828,16 @@ def gate_row(row, out, syncs, setup_syncs, zero_syncs=True, cut=None,
     gate it on finite draws, max rank R-hat <= ``SUITE_RHAT_MAX`` (the
     suite's ``all_converged``) and, with ``zero_syncs``, no host sync per
     draw. ``cut``, a row's settings whose draws were cut from the suite's
-    ``full`` (warm, keep), adds the cut and the margin under the gate."""
+    ``full`` (warm, keep), adds the cut. Every row carries its margin under
+    the R-hat gate and ``SHARED_HOST``: its seconds were measured while the
+    other rows of phases 14-16 ran."""
     name = row["config"]
     row = {**row, "syncs_per_draw": syncs, "setup_syncs": setup_syncs,
-           **extra}
+           **extra, "rank_rhat_margin": SUITE_RHAT_MAX - row["max_rank_rhat"],
+           **SHARED_HOST}
     if cut is not None and "full" in cut:
         row["draws_cut_from"] = list(cut["full"])
         row["draws"] = [cut["warm"], cut["keep"]]
-        row["rank_rhat_margin"] = SUITE_RHAT_MAX - row["max_rank_rhat"]
     print(f"{name}: {json.dumps(row)}")
     check(bool(torch.isfinite(out.draws).all()), f"{name}: every draw "
           "finite")
@@ -1651,6 +1865,61 @@ def mean_gate(what, a, b, sigmas=NUTS_MEAN_SIGMAS):
           "standard errors")
 
 
+def ms_model():
+    """``(x2, lk_ms)``: the (mu, sigma) rows' data, 2 + 2 N(0, 1), and its
+    likelihood."""
+    from mcmc_tpu_torch.models import gaussian_mean_scale_model
+    x2 = 2.0 + 2.0 * np.random.default_rng(0).standard_normal(SUITE_N_DATA)
+    return x2, gaussian_mean_scale_model(x2)
+
+
+def rmhmc_settings(warm, keep):
+    from mcmc_tpu_torch import RMHMCSettings
+    r = RMHMC_ROW
+    return RMHMCSettings(n_burnin_draws=warm, n_keep_draws=keep,
+                         step_size=r["step"], n_leap_steps=r["leap"],
+                         n_fp_steps=r["fp"])
+
+
+def row_rmhmc_fisher(dev):
+    """Phase 14's rmhmc_fisher row (module docstring), in a worker process.
+    Returns its means and MC standard errors, for the gate against
+    rwmh_gaussian_2d's on the same posterior."""
+    from mcmc_tpu_torch import rmhmc
+    from mcmc_tpu_torch.models import normal_fisher_metric
+    r = RMHMC_ROW
+    _x2, lk_ms = ms_model()
+    metric = normal_fisher_metric(SUITE_N_DATA)
+    run = lambda w, k: rmhmc(np.array([2.5, 2.5]), lk_ms, metric,
+                             rmhmc_settings(w, k), n_chains=r["chains"],
+                             key=9)
+    out, row, summ = suite_record("rmhmc_fisher",
+                                  lambda: run(r["warm"], r["keep"]))
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)), cut=r,
+             accept_rate=float(out.accept_rate.mean()),
+             leapfrogs_per_draw=r["leap"],
+             metric_evaluations_per_draw=r["leap"] * (r["fp"] + 2))
+    return {"summ": summ}
+
+
+def hard_mixture():
+    """``(mu, lk_hard)``: the tempering rows' two-mode mixture, modes at
+    +-2, variance 0.1."""
+    from mcmc_tpu_torch.models import gaussian_mixture_model
+    mu = np.array([[-2.0, -2.0], [2.0, 2.0]])
+    return mu, gaussian_mixture_model(mu, np.array([0.1, 0.1]),
+                                      np.array([0.5, 0.5]))
+
+
+def aees_settings(initial, burnin, keep):
+    from mcmc_tpu_torch import AEESSettings
+    r = AEES_ROW
+    return AEESSettings(
+        n_initial_draws=initial, n_burnin_draws=burnin, n_keep_draws=keep,
+        n_rings=r["rings"], ee_prob_par=r["ee_prob"],
+        temper_vec=np.array(r["temps"]), cov_mat=r["cov"] * np.eye(2))
+
+
 def suite_rows(dev):
     """Phase 14: the suite's rows of RWMH, MALA, DE and RM-HMC at their full
     settings, through the entry points from numpy inputs with no
@@ -1659,11 +1928,9 @@ def suite_rows(dev):
     for the profile."""
     from mcmc_tpu_torch import (AlgoSettings, DESettings, HMCSettings,
                                 MALASettings, RMHMCSettings, RWMHSettings,
-                                de, diagnostics, hmc, mala, rmhmc, rwmh,
-                                softabs_metric)
+                                de, hmc, mala, rmhmc, rwmh, softabs_metric)
     from mcmc_tpu_torch.convert import glm_data
-    from mcmc_tpu_torch.models import (gaussian_mean_scale_model,
-                                       gaussian_mixture_model,
+    from mcmc_tpu_torch.models import (gaussian_mixture_model,
                                        logistic_regression_model,
                                        make_logistic_regression_data,
                                        neals_funnel, normal_fisher_metric)
@@ -1672,8 +1939,7 @@ def suite_rows(dev):
     from mcmc_tpu_torch.samplers.rmhmc import build_rmhmc_kernel
 
     t_phase = time.perf_counter()
-    x2 = 2.0 + 2.0 * np.random.default_rng(0).standard_normal(SUITE_N_DATA)
-    lk_ms = gaussian_mean_scale_model(x2)
+    x2, lk_ms = ms_model()
 
     # rwmh_gaussian_2d
     r = RWMH_ROW
@@ -1686,24 +1952,8 @@ def suite_rows(dev):
              accept_rate=float(out.accept_rate.mean()),
              evaluations_per_draw=1)
 
-    # rmhmc_fisher, on the same (mu, sigma) posterior
-    r = RMHMC_ROW
-    rm_settings = lambda w, k: RMHMCSettings(
-        n_burnin_draws=w, n_keep_draws=k, step_size=r["step"],
-        n_leap_steps=r["leap"], n_fp_steps=r["fp"])
+    # rmhmc_fisher runs in a worker process (row_rmhmc_fisher)
     metric = normal_fisher_metric(SUITE_N_DATA)
-    run = lambda w, k: rmhmc(np.array([2.5, 2.5]), lk_ms, metric,
-                             rm_settings(w, k), n_chains=r["chains"], key=9)
-    out, row, rm_summ = suite_record("rmhmc_fisher",
-                                     lambda: run(r["warm"], r["keep"]))
-    leap, fp = RMHMC_ROW["leap"], RMHMC_ROW["fp"]
-    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)), cut=r,
-             accept_rate=float(out.accept_rate.mean()),
-             leapfrogs_per_draw=leap,
-             metric_evaluations_per_draw=leap * (fp + 2))
-    mean_gate("rmhmc_fisher vs rwmh_gaussian_2d", rm_summ, rw_summ)
-    print(f"(mu, sigma): data mean {x2.mean():.4f}, sd {x2.std():.4f}; rwmh "
-          f"{rw_summ['mean'].tolist()}, rmhmc {rm_summ['mean'].tolist()}")
 
     # mala_logreg_25d, against generic HMC on the same posterior
     r = MALA_ROW
@@ -1794,7 +2044,7 @@ def suite_rows(dev):
                                            device=dev), lk_ms, AlgoSettings(),
                                 None)
     init, rm_step = build_rmhmc_kernel(
-        prob, metric, rm_settings(RMHMC_ROW["warm"], RMHMC_ROW["keep"]))
+        prob, metric, rmhmc_settings(RMHMC_ROW["warm"], RMHMC_ROW["keep"]))
     # the (mu, sigma) posterior's exact mean under its flat prior: mu's is
     # the data's mean; sigma's, E[s] = sqrt(S / 2) G(a - 1/2) / G(a) with S
     # the sum of squared deviations and a = (n - 2) / 2
@@ -1803,7 +2053,7 @@ def suite_rows(dev):
     e_sigma = math.sqrt(S / 2.0) * math.exp(math.lgamma(a - 0.5)
                                             - math.lgamma(a))
     refs = {"lk_ms": lk_ms, "lk_lr": lk_lr, "mala_ref": ref_summ,
-            "rmhmc": rm_summ,
+            "rwmh": rw_summ, "x2": x2,
             "ms_exact": {"mean": torch.tensor([x32.mean(), e_sigma],
                                               dtype=torch.float32,
                                               device=dev),
@@ -1812,67 +2062,25 @@ def suite_rows(dev):
 
 
 def tempering_rows(dev):
-    """Phase 15: the suite's rows of AEES, PT, SMC, the stretch ensemble and
-    DE-MC(Z) at their full settings, through the entry points from numpy
-    inputs with no ``device=`` (module docstring), then the cost of an AEES
-    draw with the full history at the row's length. Returns AEES's and PT's
-    kernels, generators and states at the rows' shapes, for the profile."""
-    from mcmc_tpu_torch import (AEESSettings, DEMCZSettings, PTSettings,
-                                SMCSettings, StretchSettings, aees, demcz,
-                                pt, smc, stretch)
+    """Phase 15: the suite's rows of SMC, the stretch ensemble and DE-MC(Z)
+    at their full settings, through the entry points from numpy inputs with
+    no ``device=`` (module docstring); AEES's and PT's run in worker
+    processes (``row_aees_mixture``, ``row_pt_mixture``). Returns AEES's
+    and PT's kernels, generators and states at the rows' shapes, for the
+    profile."""
+    from mcmc_tpu_torch import (DEMCZSettings, PTSettings, SMCSettings,
+                                StretchSettings, demcz, smc, stretch)
     from mcmc_tpu_torch.models import gaussian_mixture_model
     from mcmc_tpu_torch.samplers.aees import build_aees_kernel, make_temps
     from mcmc_tpu_torch.samplers.pt import build_pt_kernel
 
     t_phase = time.perf_counter()
-    mu = np.array([[-2.0, -2.0], [2.0, 2.0]])
-    lk_hard = gaussian_mixture_model(mu, np.array([0.1, 0.1]),
-                                     np.array([0.5, 0.5]))
+    mu, lk_hard = hard_mixture()
     zero = lambda d: {"mean": torch.zeros(d, device=dev),
                       "mcse": torch.zeros(d, device=dev)}
 
-    # aees_mixture: K * (n_initial + n_burnin) discarded draws, then kept
-    r = AEES_ROW
-    K = len(r["temps"]) + 1
-    aees_s = lambda i, b, k: AEESSettings(
-        n_initial_draws=i, n_burnin_draws=b, n_keep_draws=k,
-        n_rings=r["rings"], ee_prob_par=r["ee_prob"],
-        temper_vec=np.array(r["temps"]), cov_mat=r["cov"] * np.eye(2))
-    run = lambda i, b, k: aees(mu[0], lk_hard, aees_s(i, b, k), key=r["key"],
-                               n_runs=r["runs"],
-                               history_capacity=r["capacity"])
-    out, row, summ = suite_record(
-        "aees_mixture", lambda: run(r["initial"], r["burnin"], r["keep"]))
-    n_draws = K * (r["initial"] + r["burnin"]) + r["keep"]
-    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, 0, n),
-                                             lambda n: (K + 1) * n),
-             draws=n_draws, ms_per_draw=1e3 * row["seconds"] / n_draws,
-             temperatures=out.diagnostics["temperatures"].tolist(),
-             ee_accept_rate=out.diagnostics["ee_accept_rate"].tolist(),
-             mode_share=float((out.draws[..., 0] > 0).float().mean()))
-    mean_gate("aees_mixture vs the exact mean 0", summ, zero(2))
-
-    # pt_mixture
-    r = PT_ROW
-    run = lambda w, k: pt(mu[0], lk_hard, PTSettings(
-        n_burnin_draws=w, n_keep_draws=k, n_temps=r["temps"],
-        max_temp=r["max_temp"], adapt_temps=True, inner="hmc",
-        step_size=r["step"], n_leap_steps=r["leap"]), n_chains=r["chains"],
-        key=r["key"])
-    out, row, summ = suite_record("pt_mixture",
-                                  lambda: run(r["warm"], r["keep"]))
-    trips = out.diagnostics["round_trip_rate"]
-    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)),
-             ms_per_draw=1e3 * row["seconds"] / (r["warm"] + r["keep"]),
-             accept_rate=float(out.accept_rate.mean()),
-             temperatures=out.diagnostics["temperatures"].tolist(),
-             swap_accept_rate=out.diagnostics["swap_accept_rate"]
-             .mean(dim=0).tolist(),
-             round_trip_rate=float(trips.mean()),
-             min_round_trip_rate=float(trips.min()),
-             mode_share=float((out.draws[..., 0] > 0).float().mean()))
-    check(float(trips.mean()) > 0, "pt_mixture: round_trip_rate > 0")
-    mean_gate("pt_mixture vs the exact mean 0", summ, zero(2))
+    # aees_mixture and pt_mixture run in worker processes
+    # (row_aees_mixture, row_pt_mixture)
 
     # smc_mixture: one cloud, the suite's own gates (benchmarks/suite.py
     # :234-264), and one host sync a stage
@@ -1907,7 +2115,7 @@ def tempering_rows(dev):
            "mutation_accept_rate":
                out.diagnostics["mutation_accept_rate"].tolist(),
            "syncs_per_stage": s2 - s1, "syncs_one_stage_run": s1,
-           "syncs_whole_run": s_all}
+           "syncs_whole_run": s_all, **SHARED_HOST}
     row["passed"] = log_z_err <= r["log_z_gate"] and mass_err <= r["mass_gate"]
     print(f"smc_mixture: {json.dumps(row)}")
     check(out.diagnostics["completed"], "smc_mixture: lambda reached 1")
@@ -1959,9 +2167,57 @@ def tempering_rows(dev):
              max_variance=float(out.draws.reshape(-1, d).var(dim=0).max()))
     mean_gate("demcz_correlated_10d vs the exact mean 0", summ, zero(d))
 
-    # AEES's full history at the row's length: each rung sorts its window
+    print(f"tempering rows: phase seconds {time.perf_counter() - t_phase:.1f}")
+
+    # steady draws at the rows' shapes, for the profile
     r = AEES_ROW
-    s = aees_s(r["initial"], r["burnin"], r["keep"])
+    K = len(r["temps"]) + 1
+    s = aees_settings(r["initial"], r["burnin"], r["keep"])
+    first = torch.tensor(mu[0], dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(55)
+    make0, aees_step = build_aees_kernel(lk_hard, make_temps(s), s, 2,
+                                         torch.float32, dev, r["capacity"])
+    st = make0(first, lk_hard(first[None])[0], r["runs"])
+    st = st._replace(draw_ind=K * (r["initial"] + r["burnin"]) + 600)
+    r = PT_ROW
+    make0, pt_step = build_pt_kernel(lk_hard, PTSettings(
+        n_temps=r["temps"], max_temp=r["max_temp"], adapt_temps=True,
+        inner="hmc", step_size=r["step"], n_leap_steps=r["leap"]), 2,
+        torch.float32, dev, r["warm"])
+    x0 = first.expand(r["chains"], 2)
+    pst = make0(x0, lk_hard(x0))._replace(draw_ind=r["warm"])
+    return (aees_step, gen, st), (pt_step, gen, pst)
+
+
+def row_aees_mixture(dev):
+    """Phase 15's aees_mixture row (module docstring) and the cost of an
+    AEES draw with the full history at the row's length, in a worker
+    process."""
+    from mcmc_tpu_torch import aees
+    from mcmc_tpu_torch.samplers.aees import build_aees_kernel, make_temps
+    mu, lk_hard = hard_mixture()
+    zero = lambda d: {"mean": torch.zeros(d, device=dev),
+                      "mcse": torch.zeros(d, device=dev)}
+    # K * (n_initial + n_burnin) discarded draws, then kept
+    r = AEES_ROW
+    K = len(r["temps"]) + 1
+    run = lambda i, b, k: aees(mu[0], lk_hard, aees_settings(i, b, k),
+                               key=r["key"],
+                               n_runs=r["runs"],
+                               history_capacity=r["capacity"])
+    out, row, summ = suite_record(
+        "aees_mixture", lambda: run(r["initial"], r["burnin"], r["keep"]))
+    n_draws = K * (r["initial"] + r["burnin"]) + r["keep"]
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, 0, n),
+                                             lambda n: (K + 1) * n),
+             draws=n_draws, ms_per_draw=1e3 * row["seconds"] / n_draws,
+             temperatures=out.diagnostics["temperatures"].tolist(),
+             ee_accept_rate=out.diagnostics["ee_accept_rate"].tolist(),
+             mode_share=float((out.draws[..., 0] > 0).float().mean()))
+    mean_gate("aees_mixture vs the exact mean 0", summ, zero(2))
+
+    # AEES's full history at the row's length: each rung sorts its window
+    s = aees_settings(r["initial"], r["burnin"], r["keep"])
     make0, full_step = build_aees_kernel(
         lk_hard, make_temps(s), s, 2, torch.float32, dev, None)
     first = torch.tensor(mu[0], dtype=torch.float32, device=dev)
@@ -1979,21 +2235,36 @@ def tempering_rows(dev):
     print(f"aees full history: {r['runs']} runs, windows of about "
           f"{full_step.H} entries a rung: {full_ms:.3f} ms a draw (the row "
           f"keeps a reservoir of {r['capacity']})")
-    print(f"tempering rows: phase seconds {time.perf_counter() - t_phase:.1f}")
+    return {}
 
-    # steady draws at the rows' shapes, for the profile
-    make0, aees_step = build_aees_kernel(lk_hard, make_temps(s), s, 2,
-                                         torch.float32, dev, r["capacity"])
-    st = make0(first, lk_hard(first[None])[0], r["runs"])
-    st = st._replace(draw_ind=K * (r["initial"] + r["burnin"]) + 600)
+
+def row_pt_mixture(dev):
+    """Phase 15's pt_mixture row (module docstring), in a worker process."""
+    from mcmc_tpu_torch import PTSettings, pt
+    mu, lk_hard = hard_mixture()
+    zero = lambda d: {"mean": torch.zeros(d, device=dev),
+                      "mcse": torch.zeros(d, device=dev)}
     r = PT_ROW
-    make0, pt_step = build_pt_kernel(lk_hard, PTSettings(
-        n_temps=r["temps"], max_temp=r["max_temp"], adapt_temps=True,
-        inner="hmc", step_size=r["step"], n_leap_steps=r["leap"]), 2,
-        torch.float32, dev, r["warm"])
-    x0 = first.expand(r["chains"], 2)
-    pst = make0(x0, lk_hard(x0))._replace(draw_ind=r["warm"])
-    return (aees_step, gen, st), (pt_step, gen, pst)
+    run = lambda w, k: pt(mu[0], lk_hard, PTSettings(
+        n_burnin_draws=w, n_keep_draws=k, n_temps=r["temps"],
+        max_temp=r["max_temp"], adapt_temps=True, inner="hmc",
+        step_size=r["step"], n_leap_steps=r["leap"]), n_chains=r["chains"],
+        key=r["key"])
+    out, row, summ = suite_record("pt_mixture",
+                                  lambda: run(r["warm"], r["keep"]))
+    trips = out.diagnostics["round_trip_rate"]
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)),
+             ms_per_draw=1e3 * row["seconds"] / (r["warm"] + r["keep"]),
+             accept_rate=float(out.accept_rate.mean()),
+             temperatures=out.diagnostics["temperatures"].tolist(),
+             swap_accept_rate=out.diagnostics["swap_accept_rate"]
+             .mean(dim=0).tolist(),
+             round_trip_rate=float(trips.mean()),
+             min_round_trip_rate=float(trips.min()),
+             mode_share=float((out.draws[..., 0] > 0).float().mean()))
+    check(float(trips.mean()) > 0, "pt_mixture: round_trip_rate > 0")
+    mean_gate("pt_mixture vs the exact mean 0", summ, zero(2))
+    return {}
 
 
 def sgld_data(seed, n_data, dim):
@@ -2026,23 +2297,17 @@ def loop_sync_audit(name, step, gen, state, per_draw_evals):
 
 
 def remaining_rows(dev, refs):
-    """Phase 16: the suite's rows of Barker, elliptical slice, slice and
-    block Gibbs at their full settings and the SGLD and mMALA lines,
-    through the entry points from numpy inputs with no ``device=`` (module
-    docstring). Returns the slice, ellipse and Gibbs kernels, generators
-    and states at the rows' shapes, for the profile."""
-    from mcmc_tpu_torch import (AlgoSettings, BarkerSettings,
-                                EllipticalSettings, GibbsSettings,
-                                HMCSettings, MMALASettings, NUTSSettings,
+    """Phase 16: the suite's rows of Barker and slice at their full settings
+    and the SGLD and mMALA lines, through the entry points from numpy inputs
+    with no ``device=`` (module docstring); the ellipse's and Gibbs's rows
+    run in worker processes (``row_elliptical``, ``row_gibbs``). Returns
+    the slice kernel, its generator and state at the row's shape, for the
+    profile, and adds slice's and mMALA's summaries to ``refs``."""
+    from mcmc_tpu_torch import (BarkerSettings, HMCSettings, MMALASettings,
                                 SGHMCSettings, SGLDSettings, SliceSettings,
-                                barker, elliptical_slice, gibbs, hmc, mmala,
-                                nuts, sghmc, sgld, slice_sampler)
-    from mcmc_tpu_torch.models import (gp_regression_exact_posterior,
-                                       normal_fisher_metric, rbf_kernel)
-    from mcmc_tpu_torch.samplers import common
-    from mcmc_tpu_torch.samplers.ellipse import build_elliptical_kernel
-    from mcmc_tpu_torch.samplers.gibbs import (_make_blocks, _parse_blocks,
-                                               build_gibbs_kernel)
+                                barker, hmc, mmala, sghmc, sgld,
+                                slice_sampler)
+    from mcmc_tpu_torch.models import normal_fisher_metric
     from mcmc_tpu_torch.samplers.slice import build_slice_kernel
 
     t_phase = time.perf_counter()
@@ -2068,36 +2333,8 @@ def remaining_rows(dev, refs):
     mean_gate("barker_logreg_25d vs mala_logreg_25d's hmc reference", summ,
               refs["mala_ref"])
 
-    # elliptical_latent_gp_64d, against the exact posterior mean
-    r = ELLIPSE_ROW
-    xs = np.linspace(0.0, 4.0, r["n"])
-    K = rbf_kernel(xs, r["length_scale"])
-    y = torch.tensor(np.sin(2.0 * xs), dtype=torch.float32, device=dev)
-    noise_var = r["noise_var"]
-    lik = lambda f: -0.5 * ((y - f) ** 2).sum(-1) / noise_var
-    run = lambda w, k: elliptical_slice(
-        np.zeros(r["n"]), lik, EllipticalSettings(n_burnin_draws=w,
-                                                  n_keep_draws=k),
-        prior_cov=K.cpu().numpy(), n_chains=r["chains"], key=r["key"])
-    out, row, summ = suite_record("elliptical_latent_gp_64d",
-                                  lambda: run(r["warm"], r["keep"]))
-    shrink = float(out.diagnostics["mean_shrink_steps"].mean())
-    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)), cut=r,
-             zero_syncs=False, accept_rate=float(out.accept_rate.mean()),
-             mean_shrink_steps_per_draw=shrink,
-             ms_per_draw=1e3 * row["seconds"] / (r["warm"] + r["keep"]))
-    K64 = rbf_kernel(xs, r["length_scale"], dtype=torch.float64)
-    exact, _ = gp_regression_exact_posterior(K64, np.sin(2.0 * xs),
-                                             r["noise_var"])
-    mean_gate("elliptical_latent_gp_64d vs the exact posterior mean", summ,
-              {"mean": exact.float(), "mcse": torch.zeros_like(summ["mcse"])})
-    init, ell_step = build_elliptical_kernel(
-        lik, torch.zeros(r["n"], device=dev),
-        common.make_spd(K, r["n"], torch.float32, dev), 64)
-    ell_state = loop_sync_audit(
-        "elliptical_latent_gp_64d", ell_step, gen,
-        init(out.draws[-1].clone()), "each draw: one sync a shrink step "
-        "short of the cap, the chains' largest shrink count in evaluations")
+    # elliptical_latent_gp_64d and gibbs_hierarchical run in worker
+    # processes (row_elliptical, row_gibbs)
 
     # slice_gaussian_2d, against rmhmc_fisher's means on the same posterior
     r = SLICE_ROW
@@ -2112,79 +2349,14 @@ def remaining_rows(dev, refs):
              mean_kernel_evals_per_draw=float(
                  out.diagnostics["mean_kernel_evals"].mean()),
              ms_per_draw=1e3 * row["seconds"] / (r["warm"] + r["keep"]))
-    ms_exact, rm = refs["ms_exact"], refs["rmhmc"]
-    mean_gate("slice_gaussian_2d vs the exact posterior mean", summ, ms_exact)
-    print(f"(mu, sigma) exact posterior mean {ms_exact['mean'].tolist()}: "
-          f"slice {summ['mean'].tolist()}, rmhmc_fisher {rm['mean'].tolist()} "
-          f"({mean_z(rm, ms_exact):.3f} of its MC standard errors from it); "
-          f"slice vs rmhmc_fisher {mean_z(summ, rm):.3f} combined MC standard "
-          "errors, printed, not gated: that row is biased")
+    mean_gate("slice_gaussian_2d vs the exact posterior mean", summ,
+              refs["ms_exact"])
+    refs["slice"] = summ    # against rmhmc_fisher's once its worker is done
     init, sl_step = build_slice_kernel(lk_ms, 2, torch.float32, 1.0, 8, 32)
     sl_state = loop_sync_audit(
         "slice_gaussian_2d", sl_step, gen, init(out.draws[-1].clone()),
         "per coordinate: the stepping-out's iterations, then the "
         "shrinkage's, each one sync and one or two evaluations")
-
-    # gibbs_hierarchical: exact theta block + adapted HMC hyperblock,
-    # against adapted NUTS on the same log-kernel
-    r = GIBBS_ROW
-    J = r["J"]
-    rng = np.random.default_rng(r["data_seed"])
-    theta_true = 4.0 + 6.0 * rng.standard_normal(J)
-    y_np = theta_true + 4.0 * rng.standard_normal(J)
-    yg = torch.tensor(y_np, dtype=torch.float32, device=dev)
-    sg = torch.full((J,), 4.0, device=dev)
-
-    def lk_gibbs(v):
-        theta, mu_h, log_tau = v[:, :J], v[:, J], v[:, J + 1]
-        tau = torch.exp(log_tau)
-        lp = -0.5 * ((yg - theta) ** 2 / sg ** 2).sum(-1)
-        lp = lp - 0.5 * ((theta - mu_h[:, None]) ** 2).sum(-1) / tau ** 2 \
-            - J * log_tau
-        lp = lp - 0.5 * mu_h ** 2 / 25.0
-        return lp - 0.5 * tau ** 2 / 64.0 + log_tau
-
-    def cond_theta(g, full):
-        mu_h, tau = full[:, J:J + 1], torch.exp(full[:, J + 1:J + 2])
-        prec = 1.0 / sg ** 2 + 1.0 / tau ** 2
-        mean = (yg / sg ** 2 + mu_h / tau ** 2) / prec
-        return mean + torch.randn(mean.shape, generator=g,
-                                  device=full.device) / torch.sqrt(prec)
-
-    blocks = [(list(range(J)), cond_theta),
-              ([J, J + 1], "hmc", {"step_size": r["step"],
-                                   "n_leap_steps": r["leap"]})]
-    run = lambda w, k: gibbs(np.zeros(J + 2), lk_gibbs,
-                             GibbsSettings(n_burnin_draws=w, n_keep_draws=k),
-                             blocks=blocks, n_chains=r["chains"],
-                             key=r["key"])
-    out, row, summ = suite_record("gibbs_hierarchical",
-                                  lambda: run(r["warm"], r["keep"]))
-    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)), cut=r,
-             block_accept_rate=out.diagnostics["block_accept_rate"]
-             .mean(dim=0).tolist(),
-             ms_per_sweep=1e3 * row["seconds"] / (r["warm"] + r["keep"]),
-             data="numpy-seeded (default_rng(42)); the suite draws it "
-                  "from a JAX key")
-    g = GIBBS_REF
-    ref, ref_row, ref_summ = suite_record(
-        "gibbs_hierarchical nuts reference", lambda: nuts(
-            out.draws[-1, :g["chains"]].clone(), lk_gibbs, NUTSSettings(
-                n_burnin_draws=g["warm"], n_keep_draws=g["keep"],
-                n_adapt_draws=g["warm"], max_tree_depth=g["depth"]),
-            key=g["key"], adapt_mass_matrix=True))
-    print(f"gibbs_hierarchical nuts reference: {json.dumps(ref_row)}")
-    check(bool(torch.isfinite(ref.draws).all()), "gibbs's nuts reference: "
-          "draws finite")
-    check(max(ref_row["max_split_rhat"], ref_row["max_rank_rhat"])
-          <= SUITE_RHAT_MAX, "gibbs's nuts reference converged (split and "
-          f"rank R-hat <= {SUITE_RHAT_MAX})")
-    mean_gate("gibbs_hierarchical vs nuts reference", summ, ref_summ)
-    prob = common.setup_problem(out.draws[-1].clone(), lk_gibbs,
-                                AlgoSettings(), None)
-    init, gibbs_step = build_gibbs_kernel(
-        _make_blocks(_parse_blocks(blocks, J + 2), prob, r["warm"]), prob)
-    gibbs_state = init(prob.first_draw)
 
     # the SGLD line: sgld shared and per-chain, sghmc shared, against a
     # full-data hmc reference
@@ -2251,7 +2423,7 @@ def remaining_rows(dev, refs):
                "max_abs_mean_diff_vs_hmc": diff, "tolerance": SGLD_MEAN_TOL,
                "draws_per_sec_with_warmup": n_draws * r["chains"]
                / row["seconds"], "syncs_per_draw": syncs,
-               "setup_syncs": setup}
+               "setup_syncs": setup, **SHARED_HOST}
         print(f"{name}: {json.dumps(row)}")
         check(bool(torch.isfinite(out.draws).all()), f"{name}: draws finite")
         check(rate == 1.0, f"{name}: finite-update rate {rate} == 1.0")
@@ -2277,12 +2449,259 @@ def remaining_rows(dev, refs):
              ms_per_draw=1e3 * row["seconds"] / (r["warm"] + r["keep"]))
     mean_gate("mmala_fisher vs the exact posterior mean", summ,
               refs["ms_exact"])
-    print(f"mmala_fisher {summ['mean'].tolist()}: vs rmhmc_fisher "
-          f"{mean_z(summ, refs['rmhmc']):.3f} combined MC standard errors, "
-          "printed, not gated: that row is biased")
+    refs["mmala"] = summ
     print(f"remaining rows: phase seconds {time.perf_counter() - t_phase:.1f}")
-    return ((sl_step, gen, sl_state), (ell_step, gen, ell_state),
-            (gibbs_step, gen, gibbs_state))
+    return sl_step, gen, sl_state
+
+
+def ellipse_model(dev):
+    """``(xs, K, lik)`` of the elliptical_latent_gp_64d row: the inputs,
+    the prior covariance ``rbf_kernel(xs, 0.5)`` and the Gaussian
+    likelihood of y = sin(2x) at noise variance 0.25."""
+    from mcmc_tpu_torch.models import rbf_kernel
+    r = ELLIPSE_ROW
+    xs = np.linspace(0.0, 4.0, r["n"])
+    K = rbf_kernel(xs, r["length_scale"])
+    y = torch.tensor(np.sin(2.0 * xs), dtype=torch.float32, device=dev)
+    noise_var = r["noise_var"]
+    return xs, K, lambda f: -0.5 * ((y - f) ** 2).sum(-1) / noise_var
+
+
+def row_elliptical(dev):
+    """Phase 16's elliptical_latent_gp_64d row (module docstring), in a
+    worker process. Returns its last draws (the profile's start)."""
+    from mcmc_tpu_torch import EllipticalSettings, elliptical_slice
+    from mcmc_tpu_torch.models import (gp_regression_exact_posterior,
+                                       rbf_kernel)
+    r = ELLIPSE_ROW
+    xs, K, lik = ellipse_model(dev)
+    run = lambda w, k: elliptical_slice(
+        np.zeros(r["n"]), lik, EllipticalSettings(n_burnin_draws=w,
+                                                  n_keep_draws=k),
+        prior_cov=K.cpu().numpy(), n_chains=r["chains"], key=r["key"])
+    out, row, summ = suite_record("elliptical_latent_gp_64d",
+                                  lambda: run(r["warm"], r["keep"]))
+    shrink = float(out.diagnostics["mean_shrink_steps"].mean())
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)), cut=r,
+             zero_syncs=False, accept_rate=float(out.accept_rate.mean()),
+             mean_shrink_steps_per_draw=shrink,
+             ms_per_draw=1e3 * row["seconds"] / (r["warm"] + r["keep"]))
+    K64 = rbf_kernel(xs, r["length_scale"], dtype=torch.float64)
+    exact, _ = gp_regression_exact_posterior(K64, np.sin(2.0 * xs),
+                                             r["noise_var"])
+    mean_gate("elliptical_latent_gp_64d vs the exact posterior mean", summ,
+              {"mean": exact.float(), "mcse": torch.zeros_like(summ["mcse"])})
+    return {"last": out.draws[-1]}
+
+
+def gibbs_model(dev):
+    """``(lk_gibbs, blocks, J)`` of the gibbs_hierarchical row: the eight-
+    schools-like hierarchy on numpy-seeded data, its exact theta block and
+    its HMC hyperblock."""
+    r = GIBBS_ROW
+    J = r["J"]
+    rng = np.random.default_rng(r["data_seed"])
+    theta_true = 4.0 + 6.0 * rng.standard_normal(J)
+    y_np = theta_true + 4.0 * rng.standard_normal(J)
+    yg = torch.tensor(y_np, dtype=torch.float32, device=dev)
+    sg = torch.full((J,), 4.0, device=dev)
+
+    def lk_gibbs(v):
+        theta, mu_h, log_tau = v[:, :J], v[:, J], v[:, J + 1]
+        tau = torch.exp(log_tau)
+        lp = -0.5 * ((yg - theta) ** 2 / sg ** 2).sum(-1)
+        lp = lp - 0.5 * ((theta - mu_h[:, None]) ** 2).sum(-1) / tau ** 2 \
+            - J * log_tau
+        lp = lp - 0.5 * mu_h ** 2 / 25.0
+        return lp - 0.5 * tau ** 2 / 64.0 + log_tau
+
+    def cond_theta(g, full):
+        mu_h, tau = full[:, J:J + 1], torch.exp(full[:, J + 1:J + 2])
+        prec = 1.0 / sg ** 2 + 1.0 / tau ** 2
+        mean = (yg / sg ** 2 + mu_h / tau ** 2) / prec
+        return mean + torch.randn(mean.shape, generator=g,
+                                  device=full.device) / torch.sqrt(prec)
+
+    blocks = [(list(range(J)), cond_theta),
+              ([J, J + 1], "hmc", {"step_size": r["step"],
+                                   "n_leap_steps": r["leap"]})]
+    return lk_gibbs, blocks, J
+
+
+def row_gibbs(dev):
+    """Phase 16's gibbs_hierarchical row and its NUTS reference (module
+    docstring), in a worker process. Returns its last draws (the profile's
+    start)."""
+    from mcmc_tpu_torch import GibbsSettings, NUTSSettings, gibbs, nuts
+    r = GIBBS_ROW
+    lk_gibbs, blocks, J = gibbs_model(dev)
+    run = lambda w, k: gibbs(np.zeros(J + 2), lk_gibbs,
+                             GibbsSettings(n_burnin_draws=w, n_keep_draws=k),
+                             blocks=blocks, n_chains=r["chains"],
+                             key=r["key"])
+    out, row, summ = suite_record("gibbs_hierarchical",
+                                  lambda: run(r["warm"], r["keep"]))
+    gate_row(row, out, *entry_syncs_per_draw(lambda n: run(n, n)), cut=r,
+             block_accept_rate=out.diagnostics["block_accept_rate"]
+             .mean(dim=0).tolist(),
+             ms_per_sweep=1e3 * row["seconds"] / (r["warm"] + r["keep"]),
+             data="numpy-seeded (default_rng(42)); the suite draws it "
+                  "from a JAX key")
+    g = GIBBS_REF
+    ref, ref_row, ref_summ = suite_record(
+        "gibbs_hierarchical nuts reference", lambda: nuts(
+            out.draws[-1, :g["chains"]].clone(), lk_gibbs, NUTSSettings(
+                n_burnin_draws=g["warm"], n_keep_draws=g["keep"],
+                n_adapt_draws=g["warm"], max_tree_depth=g["depth"]),
+            key=g["key"], adapt_mass_matrix=True))
+    print(f"gibbs_hierarchical nuts reference: {json.dumps(ref_row)}")
+    check(bool(torch.isfinite(ref.draws).all()), "gibbs's nuts reference: "
+          "draws finite")
+    check(max(ref_row["max_split_rhat"], ref_row["max_rank_rhat"])
+          <= SUITE_RHAT_MAX, "gibbs's nuts reference converged (split and "
+          f"rank R-hat <= {SUITE_RHAT_MAX})")
+    mean_gate("gibbs_hierarchical vs nuts reference", summ, ref_summ)
+    return {"last": out.draws[-1]}
+
+
+# phases 14-16's rows that run in worker processes, by name
+WORKER_ROWS = {"rmhmc_fisher": row_rmhmc_fisher,
+               "elliptical_latent_gp_64d": row_elliptical,
+               "aees_mixture": row_aees_mixture,
+               "gibbs_hierarchical": row_gibbs,
+               "pt_mixture": row_pt_mixture}
+
+
+def _numpy(tree):
+    """Tensors of a dict (nested) as numpy arrays, to cross processes."""
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy() if torch.is_tensor(tree) else tree
+
+
+def _row_worker(name, conn):
+    """A worker process's body: row ``name`` of ``WORKER_ROWS`` on the card,
+    its printed lines captured; sends ``(ok, lines, payload or the
+    traceback, seconds)``."""
+    import contextlib
+    import io
+    import traceback
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)   # six processes share the host's cores
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            payload = _numpy(WORKER_ROWS[name](torch.device("cuda")))
+        conn.send((True, buf.getvalue(), payload, time.perf_counter() - t0))
+    except Exception:   # noqa: BLE001 -- reported by the main process
+        conn.send((False, buf.getvalue(), traceback.format_exc(),
+                   time.perf_counter() - t0))
+    finally:
+        conn.close()
+
+
+def start_row_workers():
+    """One spawned process for each of ``WORKER_ROWS``, all started
+    together; returns ``{name: (process, receiving end)}``."""
+    import torch.multiprocessing as tmp
+    ctx = tmp.get_context("spawn")
+    workers = {}
+    for name in WORKER_ROWS:
+        recv, send = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=_row_worker, args=(name, send),
+                           daemon=True)
+        proc.start()
+        send.close()
+        workers[name] = (proc, recv)
+    return workers
+
+
+def join_row_workers(workers, dev):
+    """Wait for every worker row; print each one's lines under a heading
+    with its seconds; raise if any failed. Returns ``{name: payload}``,
+    arrays as tensors on ``dev``."""
+    done, failed = {}, []
+    deadline = time.perf_counter() + WORKER_TIMEOUT_S
+    for name, (proc, recv) in workers.items():
+        if not recv.poll(max(1.0, deadline - time.perf_counter())):
+            raise RuntimeError(f"worker row {name} did not finish within "
+                               f"{WORKER_TIMEOUT_S} s")
+        try:
+            ok, lines, payload, seconds = recv.recv()
+        except EOFError:   # the worker died before it could report
+            ok, lines, payload, seconds = False, "", "no report", 0.0
+        proc.join()
+        print(f"[worker process: {name}, {seconds:.1f} s, sharing the host "
+              f"and the card with {len(workers) - 1} other worker rows and "
+              "the main process's rows]")
+        print(lines, end="")
+        if ok:
+            done[name] = {k: ({kk: torch.as_tensor(vv, device=dev)
+                               for kk, vv in v.items()}
+                              if isinstance(v, dict)
+                              else torch.as_tensor(v, device=dev))
+                          for k, v in payload.items()}
+        else:
+            failed.append(f"{name}:\n{payload}")
+    check(not failed, "worker rows failed: " + "\n".join(failed))
+    return done
+
+
+def stop_row_workers(workers):
+    """Stop any worker still running (after a failure in the main
+    process)."""
+    for proc, recv in workers.values():
+        if proc.is_alive():
+            proc.terminate()
+        proc.join()
+        recv.close()
+
+
+def worker_rows_after(dev, refs, done):
+    """What phases 14-16 take from their worker rows once they are done:
+    rmhmc_fisher's means against rwmh_gaussian_2d's (gated) and against
+    slice's and mMALA's and the closed form (printed: that row is biased);
+    the ellipse's kernel-level sync audit and the ellipse's and Gibbs's
+    kernels, generators and states at the rows' shapes from their last
+    draws, for the profile."""
+    from mcmc_tpu_torch import AlgoSettings
+    from mcmc_tpu_torch.samplers import common
+    from mcmc_tpu_torch.samplers.ellipse import build_elliptical_kernel
+    from mcmc_tpu_torch.samplers.gibbs import (_make_blocks, _parse_blocks,
+                                               build_gibbs_kernel)
+    rm, rw, x2 = done["rmhmc_fisher"]["summ"], refs["rwmh"], refs["x2"]
+    mean_gate("rmhmc_fisher vs rwmh_gaussian_2d", rm, rw)
+    print(f"(mu, sigma): data mean {x2.mean():.4f}, sd {x2.std():.4f}; rwmh "
+          f"{rw['mean'].tolist()}, rmhmc {rm['mean'].tolist()}")
+    ms_exact, sl = refs["ms_exact"], refs["slice"]
+    print(f"(mu, sigma) exact posterior mean {ms_exact['mean'].tolist()}: "
+          f"slice {sl['mean'].tolist()}, rmhmc_fisher {rm['mean'].tolist()} "
+          f"({mean_z(rm, ms_exact):.3f} of its MC standard errors from it); "
+          f"slice vs rmhmc_fisher {mean_z(sl, rm):.3f} combined MC standard "
+          "errors, printed, not gated: that row is biased")
+    print(f"mmala_fisher {refs['mmala']['mean'].tolist()}: vs rmhmc_fisher "
+          f"{mean_z(refs['mmala'], rm):.3f} combined MC standard errors, "
+          "printed, not gated: that row is biased")
+    gen = torch.Generator(device=dev).manual_seed(57)
+    r = ELLIPSE_ROW
+    _xs, K, lik = ellipse_model(dev)
+    init, ell_step = build_elliptical_kernel(
+        lik, torch.zeros(r["n"], device=dev),
+        common.make_spd(K, r["n"], torch.float32, dev), 64)
+    ell_state = loop_sync_audit(
+        "elliptical_latent_gp_64d", ell_step, gen,
+        init(done["elliptical_latent_gp_64d"]["last"]), "each draw: one "
+        "sync a shrink step short of the cap, the chains' largest shrink "
+        "count in evaluations")
+    lk_gibbs, blocks, J = gibbs_model(dev)
+    prob = common.setup_problem(done["gibbs_hierarchical"]["last"], lk_gibbs,
+                                AlgoSettings(), None)
+    init, gibbs_step = build_gibbs_kernel(
+        _make_blocks(_parse_blocks(blocks, J + 2), prob, GIBBS_ROW["warm"]),
+        prob)
+    return (ell_step, gen, ell_state), (gibbs_step, gen,
+                                         init(prob.first_draw))
 
 
 def workflow_phase(X_np, y_np, ref):
@@ -3065,6 +3484,7 @@ def main():
                                        make_logistic_regression_data)
     from mcmc_tpu_torch.ops import _cuda
     from mcmc_tpu_torch.ops import fused_logreg as fl
+    from mcmc_tpu_torch.ops import link_codegen as lc
 
     # f32 matmuls of the plain versions in full f32, as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3084,11 +3504,26 @@ def main():
     print(f"cuts that pay for phase 20 (before, after): "
           f"{json.dumps(MESH_CUTS)}")
 
-    # --- build
+    # --- build: the library and the traced links' libraries (the cloglog
+    # link on the 128 and the cluster body, the hook on the 128 body), every
+    # nvcc started together
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    _cuda.load()
+    with ThreadPoolExecutor(4) as pool:
+        builds = [pool.submit(_cuda.load)]   # tracing runs beside it
+        traced = {name: lc.trace_link(f) for name, f in TRACED_LINKS.items()}
+        builds += [pool.submit(_cuda.build_link, traced[name].source, wide)
+                   for name, wide in (("cloglog", False), ("cloglog", True),
+                                      ("logistic_hook", False))]
+        for b in builds:
+            b.result()
     print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_cuda.build_seconds and round(_cuda.build_seconds, 1)} s)")
+          f"(nvcc {_cuda.build_seconds and round(_cuda.build_seconds, 1)} s "
+          "for the library, the traced links' beside it)")
+    for name, t in traced.items():
+        print(f"  {name} traced to {len(t.ops)} aten ops, {t.sfu[0]} + "
+              f"{t.sfu[1]} special-function operations an element")
+    traced_builds(_cuda)
     for line in _cuda.build_log.splitlines():
         if "Compiling" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -3144,6 +3579,57 @@ def main():
         if name == "logistic":   # kept for the run-time entry's phase
             k1_inputs, k1_outputs = (z, p, args), (zk, pk, uk)
         del z, p, zk, pk, uk, zp, pp, up
+
+    # --- K1 on the links traced from torch, against their plain versions
+    # (the same callables run by torch): cloglog on its own responses, the
+    # hook on the flagship's; the hook also against the built-in logistic
+    ycl = cloglog_y(X, beta, CLOGLOG_SEED + DIM)
+    tr_timing, tr_err = {}, {}
+    for name, link in TRACED_LINKS.items():
+        traj = fl.make_fused_trajectory(X, ycl if name == "cloglog" else y,
+                                        PRIOR_SCALE, STEP_SIZE, N_LEAP,
+                                        link=link)
+        z = torch.zeros((N_CHAINS, traj.dim_padded), device=dev)
+        p = torch.zeros_like(z)
+        z[:, :DIM] = beta + 0.3 * torch.randn((N_CHAINS, DIM), generator=gen,
+                                              device=dev)
+        p[:, :DIM] = torch.randn((N_CHAINS, DIM), generator=gen, device=dev)
+        args = (traj.Xb, traj.y, traj.mask, traj.inv_pv, STEP_SIZE, N_LEAP,
+                link)
+        got = fl.fused_trajectory_cuda(z, p, *args)
+        again = fl.fused_trajectory_cuda(z, p, *args)
+        want = fl._fused_trajectory_plain(z, p, *args)
+        torch.cuda.synchronize()
+        what = f"K1 {name} (traced)"
+        dzp, du = close_but_rare(what, got, want, N_CHAINS)
+        ms, plain_ms, abs_err, err = glm_compare(
+            what, [lambda: fl.fused_trajectory_cuda(z, p, *args),
+                   lambda: fl._fused_trajectory_plain(z, p, *args)],
+            got, want, DIM)
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        bound = glm_bound_ms(N_CHAINS, DIM, N_DATA, N_LEAP, False,
+                             traced[name].sfu)
+        print(f"  two launches bit-equal: {repeat}; max |dz|, |dp| "
+              f"{dzp:.3e}, max relative |dU| {du:.3e} (_close_but_rare's "
+              f"bounds); bound {bound[0]:.4f} ms ({bound[2]}), "
+              f"{100 * bound[0] / ms:.1f}% of it")
+        check(repeat, f"{what}: two launches bit-equal")
+        tr_timing[name] = (ms, plain_ms, bound)
+        tr_err[name] = (abs_err, err)
+        if name == "logistic_hook":
+            builtin = fl.fused_trajectory_cuda(z, p, *args[:-1], "logistic")
+            torch.cuda.synchronize()
+            dzp, du = close_but_rare("the traced hook against the built-in "
+                                     "logistic", got, builtin, N_CHAINS)
+            same = all(torch.equal(a, b) for a, b in zip(got, builtin))
+            print(f"K1 logistic_hook (traced) against the built-in logistic "
+                  f"(fast __expf and __fdividef): max |dz|, |dp| {dzp:.3e}, "
+                  f"max relative |dU| {du:.3e}, within _close_but_rare's "
+                  f"bounds; bit-equal: {same}")
+            del builtin
+        else:
+            traced_k3_in = (z, p, args, got)
+        del z, p, got, again, want
 
     # --- the fused main path at full width
     n_trans = (N_BURNIN + N_KEEP) * STEPS_PER_DRAW
@@ -3212,6 +3698,52 @@ def main():
     hmc_mean = ref.draws.mean(dim=(0, 1))
     del ref
 
+    # --- the traced cloglog link's path: fused_glm_hmc at the flagship's
+    # chains, then the generic hmc on the same torch density, as above
+    ycl_np = ycl.cpu().numpy()
+    fl.fused_trajectory_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fused_glm_hmc(X_np, ycl_np, link=cloglog, prior_scale=PRIOR_SCALE,
+                        step_size=STEP_SIZE, n_leap=N_LEAP, n_chains=N_CHAINS,
+                        n_burnin_draws=N_BURNIN, n_keep_draws=N_KEEP,
+                        steps_per_draw=STEPS_PER_DRAW, key=16)
+    torch.cuda.synchronize()
+    cl_seconds = time.perf_counter() - t0
+    cl_launches = fl.fused_trajectory_cuda.launches
+    check(cl_launches == n_trans, f"{cl_launches} launches of K1 on the "
+          f"traced cloglog link for {n_trans} transitions")
+    check(out.draws.is_cuda and tuple(out.draws.shape) ==
+          (N_KEEP, N_CHAINS, DIM), "cloglog draws on the card, shape")
+    check(bool(torch.isfinite(out.draws).all()), "cloglog draws finite")
+    cl_accept = float(out.diagnostics["accept_rate_per_chain"].mean())
+    check(0.5 < cl_accept <= 1.0, f"cloglog accept rate {cl_accept} in "
+          "(0.5, 1]")
+    cl_mean = out.draws.mean(dim=(0, 1))
+    del out
+    ycl_d = torch.as_tensor(ycl_np, device=dev)
+    X_d = torch.as_tensor(X_np, device=dev)
+    cl_density = lambda th: cloglog(th @ X_d.T, ycl_d)[1].sum(-1) \
+        - 0.5 * (th * th).sum(-1) / PRIOR_SCALE ** 2
+    gen = torch.Generator(device=dev).manual_seed(17)
+    init = 0.05 * torch.randn((HMC_CHAINS, DIM), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    ref = hmc(init, cl_density, settings, key=18)
+    torch.cuda.synchronize()
+    diff = float((ref.draws.mean(dim=(0, 1)) - cl_mean).abs().max())
+    cl_ms = 1e3 * cl_seconds / n_trans
+    print(f"fused_glm_hmc, traced cloglog link: {N_CHAINS} chains, {n_trans} "
+          f"transitions in {cl_seconds:.3f} s ({cl_ms:.4f} ms a transition), "
+          f"{cl_launches} launches of K1; accept {cl_accept:.4f}; "
+          f"{n_trans * N_LEAP * N_CHAINS / cl_seconds:.4e} leapfrog "
+          f"steps/s; hmc at {HMC_CHAINS} chains on the same torch density "
+          f"over the same transitions {time.perf_counter() - t0:.3f} s, "
+          f"accept {float(ref.accept_rate.mean()):.4f}, max |mean - fused "
+          f"mean| {diff:.4f} (tol {MEAN_ATOL})")
+    check(diff <= MEAN_ATOL, f"cloglog: hmc mean within {MEAN_ATOL} of the "
+          "fused mean")
+    del ref
+
     # --- the run-time-parameter entry of the GLM kernel, flagship shapes
     (z, p, args), k1_out = k1_inputs, k1_outputs
     Xb, yr, mask, inv_pv = args[:4]
@@ -3264,6 +3796,45 @@ def main():
     print(f"make_fused_trajectory_rt: {RT_CALLS} chained trajectories, "
           f"{rt_launches} launches of K3")
     del z, p, zc, pc, got, want, one, k1_inputs, k1_outputs, k1_out
+    # the same on the traced cloglog link
+    z, p, args, k1_out = traced_k3_in
+    eps_t = torch.tensor(STEP_SIZE, dtype=torch.float32, device=dev)
+    rt_args = (*args[:4], eps_t, N_LEAP, cloglog, im)
+    got = fl.fused_trajectory_rt_cuda(z, p, *rt_args)
+    want = fl._fused_trajectory_plain(z, p, *rt_args)
+    one = fl.fused_trajectory_rt_cuda(z, p, *rt_args[:-1],
+                                      torch.ones_like(im))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(one, k1_out))
+    dzp, du = close_but_rare("K3 cloglog (traced)", got, want, N_CHAINS)
+    rt_tr_ms, rt_tr_plain_ms, rt_tr_abs, rt_tr_err = glm_compare(
+        "K3 cloglog (traced), inverse mass 0.5..2",
+        [lambda: fl.fused_trajectory_rt_cuda(z, p, *rt_args),
+         lambda: fl._fused_trajectory_plain(z, p, *rt_args)], got, want, DIM)
+    check(same, "K3 on the traced link at inverse mass 1 and K1's step is "
+          "bit-equal to K1")
+    traj_rt = fl.make_fused_trajectory_rt(X_np, ycl_np, PRIOR_SCALE, N_LEAP,
+                                          link=cloglog)
+    fl.fused_trajectory_rt_cuda.launches = 0
+    zc, pc = z, p
+    for _ in range(RT_CALLS):
+        zc, pc, uc = traj_rt(zc, pc, eps_t, im)
+        eps_t = eps_t * 1.01
+    torch.cuda.synchronize()
+    rt_tr_launches = fl.fused_trajectory_rt_cuda.launches
+    check(rt_tr_launches == RT_CALLS, f"{rt_tr_launches} launches of K3 on "
+          f"the traced link for {RT_CALLS} calls of its factory's trajectory")
+    check(bool(torch.isfinite(zc).all() and torch.isfinite(uc).all()),
+          "K3 path on the traced link: output finite")
+    rt_tr_bound = glm_bound_ms(N_CHAINS, DIM, N_DATA, N_LEAP, True,
+                               traced["cloglog"].sfu)
+    print(f"  max |dz|, |dp| {dzp:.3e}, max relative |dU| {du:.3e} "
+          f"(_close_but_rare's bounds); at inverse mass 1 bit-equal to K1: "
+          f"{same}; {RT_CALLS} chained trajectories through "
+          f"make_fused_trajectory_rt(link=cloglog), {rt_tr_launches} "
+          f"launches of K3; bound {rt_tr_bound[0]:.4f} ms "
+          f"({rt_tr_bound[2]}), {100 * rt_tr_bound[0] / rt_tr_ms:.1f}% of it")
+    del z, p, zc, pc, got, want, one, traced_k3_in, k1_out
 
     # --- the Gaussian kernel vs its plain version, the suite's shapes
     variances = ill_conditioned_gaussian(G_DIM, G_COND).variances
@@ -3371,7 +3942,7 @@ def main():
 
     lap("1-8")
     # --- phases 3-8 at the widths past 128 padded columns
-    wide = wide_widths(dev, fl, wgmma_notes)
+    wide = wide_widths(dev, fl, lc, wgmma_notes)
     lap("3-8 wide")
     print(f"phases 3-8 at the wide widths: {phase_s['3-8 wide']} s")
     # --- adapted NUTS, the quality line, before any profiler runs
@@ -3404,17 +3975,23 @@ def main():
     mclmc_path = microcanonical_lines(X, y, ref)
 
     lap("11-13")
-    # --- the suite's rows of RWMH, MALA, DE and RM-HMC, at full settings
-    mala_path, rmhmc_path, refs = suite_rows(dev)
-    lap("14")
-
-    # --- the suite's rows of AEES, PT, SMC, stretch and DE-MC(Z), likewise
-    aees_path, pt_path = tempering_rows(dev)
-    lap("15")
-
-    # --- the suite's rows of slice, elliptical slice, Barker and Gibbs,
-    # and the SGLD and mMALA lines
-    slice_path, ellipse_path, gibbs_path = remaining_rows(dev, refs)
+    # --- phases 14-16: the rows with the longest autocorrelation times run
+    # in worker processes (WORKER_ROWS), started here, beside the rest
+    workers = start_row_workers()
+    try:
+        # the suite's rows of RWMH, MALA and DE, at full settings
+        mala_path, rmhmc_path, refs = suite_rows(dev)
+        lap("14")
+        # the suite's rows of SMC, stretch and DE-MC(Z), likewise
+        aees_path, pt_path = tempering_rows(dev)
+        lap("15")
+        # the suite's rows of slice and Barker, the SGLD and mMALA lines,
+        # then the worker rows as they finish
+        slice_path = remaining_rows(dev, refs)
+        done = join_row_workers(workers, dev)
+    finally:
+        stop_row_workers(workers)
+    ellipse_path, gibbs_path = worker_rows_after(dev, refs, done)
     lap("16")
 
     # --- the one-call workflow on the flagship posterior
@@ -3501,6 +4078,9 @@ def main():
               "of it")
     print(f"K3 logistic: bound {k3_bound[0]:.4f} ms ({k3_bound[2]}); kernel "
           f"{rt_ms:.3f} ms, {100 * k3_bound[0] / rt_ms:.1f}% of it")
+    for name, (t_ms, _plain, b) in tr_timing.items():
+        print(f"K1 {name} (traced): bound {b[0]:.4f} ms ({b[2]}); kernel "
+              f"{t_ms:.3f} ms, {100 * b[0] / t_ms:.1f}% of it")
     print(f"K2: bound {k2_bound[0]:.4f} ms (FP32 operations on the model's "
           f"{G_DIM} columns); kernel {g_ms:.3f} ms, "
           f"{100 * k2_bound[0] / g_ms:.1f}% of it")
@@ -3513,34 +4093,68 @@ def main():
         return {f"{f}_by_width": {"128": v, **wide[k][f]} for f, v in zip(
             ("ms", "plain_ms", "bound_ms", "launches"), at_128)}
 
+    tr = {f"{k} (traced)": v for k, v in tr_timing.items()}
     print(json.dumps({"kernels": [{
         "name": "fused_glm_trajectory", "route": "cuda",
-        "source": src + "fused_glm_trajectory.cu",
-        "wide_source": src + "fused_glm_trajectory_wide.cu",
+        "source": src + "fused_glm_body.cuh",
+        "wide_source": src + "fused_glm_wide_body.cuh",
+        "library_sources": [src + "fused_glm_trajectory.cu",
+                            src + "fused_glm_trajectory_wide.cu"],
+        "traced_link_source": "mcmc_tpu_torch/ops/link_codegen.py",
         "replaces": "mcmc_tpu/ops/fused_logreg.py:163",
         "launches": launches,
-        "max_abs_err": max(max_abs_err, wide["K1"]["max_abs_err"]),
-        "max_scaled_err": max(max_scaled_err, wide["K1"]["max_scaled_err"]),
+        "launches_by_link": {"logistic": launches,
+                             "cloglog (traced)": cl_launches},
+        "max_abs_err": max(max_abs_err, wide["K1"]["max_abs_err"],
+                           *(e[0] for e in tr_err.values())),
+        "max_scaled_err": max(max_scaled_err, wide["K1"]["max_scaled_err"],
+                              *(e[1] for e in tr_err.values())),
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
         "bound_operations": k1_bound[2], "bound_ms_padded": k1_padded,
-        "ms_by_link": {k: v[0] for k, v in timing.items()},
-        "plain_ms_by_link": {k: v[1] for k, v in timing.items()},
+        "ms_by_link": {**{k: v[0] for k, v in timing.items()},
+                       **{k: v[0] for k, v in tr.items()}},
+        "plain_ms_by_link": {**{k: v[1] for k, v in timing.items()},
+                             **{k: v[1] for k, v in tr.items()}},
+        "bound_ms_by_traced_link": {k: v[2][0] for k, v in tr.items()},
+        "max_abs_err_by_traced_link": {f"{k} (traced)": v[0]
+                                       for k, v in tr_err.items()},
         **by_width("K1", (ms, plain_ms, k1_bound[0], launches)),
         "ms_by_link_384": wide["K1"]["ms_by_link"],
         "plain_ms_by_link_384": wide["K1"]["plain_ms_by_link"],
+        "cloglog_traced_by_width": {
+            "128": {"ms": tr_timing["cloglog"][0],
+                    "plain_ms": tr_timing["cloglog"][1],
+                    "bound_ms": tr_timing["cloglog"][2][0],
+                    "launches": cl_launches,
+                    "ms_a_transition": cl_ms},
+            **wide["K1"]["traced"]},
     }, {
         "name": "fused_glm_trajectory_rt", "route": "cuda",
-        "source": src + "fused_glm_trajectory.cu",
-        "wide_source": src + "fused_glm_trajectory_wide.cu",
+        "source": src + "fused_glm_body.cuh",
+        "wide_source": src + "fused_glm_wide_body.cuh",
+        "library_sources": [src + "fused_glm_trajectory.cu",
+                            src + "fused_glm_trajectory_wide.cu"],
+        "traced_link_source": "mcmc_tpu_torch/ops/link_codegen.py",
         "replaces": "mcmc_tpu/ops/fused_logreg.py:498",
         "launches": rt_launches,
-        "max_abs_err": max(rt_abs_err, wide["K3"]["max_abs_err"]),
-        "max_scaled_err": max(rt_max, wide["K3"]["max_scaled_err"]),
+        "launches_by_link": {"logistic": rt_launches,
+                             "cloglog (traced)": rt_tr_launches},
+        "max_abs_err": max(rt_abs_err, wide["K3"]["max_abs_err"],
+                           rt_tr_abs),
+        "max_scaled_err": max(rt_max, wide["K3"]["max_scaled_err"],
+                              rt_tr_err),
         "ms": rt_ms, "plain_ms": rt_plain_ms,
         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
         "bound_operations": k3_bound[2], "bound_ms_padded": k3_padded,
+        "ms_by_link": {"logistic": rt_ms, "cloglog (traced)": rt_tr_ms},
+        "plain_ms_by_link": {"logistic": rt_plain_ms,
+                             "cloglog (traced)": rt_tr_plain_ms},
         **by_width("K3", (rt_ms, rt_plain_ms, k3_bound[0], rt_launches)),
+        "cloglog_traced_by_width": {
+            "128": {"ms": rt_tr_ms, "plain_ms": rt_tr_plain_ms,
+                    "bound_ms": rt_tr_bound[0], "launches": rt_tr_launches},
+            **wide["K3"]["traced"]},
     }, {
         "name": "fused_gaussian_trajectory", "route": "cuda",
         "source": src + "fused_gaussian_trajectory.cu",

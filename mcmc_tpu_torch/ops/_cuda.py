@@ -10,6 +10,15 @@ they include) and the flags, so an edited file is rebuilt and an unchanged
 tree is loaded as built. The library is bound with ``ctypes``:
 pointers and the stream travel as ``c_void_p``.
 
+A GLM link traced from torch (:mod:`mcmc_tpu_torch.ops.link_codegen`) is
+built by :func:`build_link` into a library of its own: a generated
+translation unit that includes the body the width needs
+(``csrc/fused_glm_body.cuh`` at 128 padded columns, the cluster body
+``csrc/fused_glm_wide_body.cuh`` at 256 to 1,024) and instantiates it on the
+traced functor, compiled with the same flags into
+``build/mcmc_tpu_torch/link-<hash>.so`` (the hash covers the generated
+source, the headers and the flags) and bound with ``ctypes`` the same way.
+
 Nothing here runs at import: :func:`load` builds and loads on first call.
 """
 
@@ -20,13 +29,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
 __all__ = ["load", "build", "library_path", "sources", "headers",
            "MAX_DIM_PADDED", "takes_dim_padded", "GAUSSIAN_LIVE_WIDTHS",
-           "WIDE_LIVE_MULTIPLE", "build_seconds", "build_log"]
+           "WIDE_LIVE_MULTIPLE", "build_seconds", "build_log", "build_link",
+           "link_source", "link_library_path", "link_builds"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -151,3 +163,140 @@ def load():
         lib.fused_glm_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+# The translation unit of a traced link: the body the width needs,
+# instantiated on the traced functor, behind the library's fixed-step and
+# run-time-parameter launch signatures without the link code and its
+# parameter (fused_glm_trajectory.cu's entries).
+_LINK_TU = """// Generated by mcmc_tpu_torch/ops/_cuda.py (build_link): the fused GLM
+// trajectory's {body} on a link traced from torch.
+#include "{header}"
+
+namespace {{
+{functor}
+bool args_ok(int n_chains, int n_rows, int dim_padded, int n_leap) {{
+  return glm_launch_args_ok(n_chains, n_rows, n_leap) && {width_ok};
+}}
+}}  // namespace
+
+extern "C" int traced_glm_launch(
+    const void* z, const void* p, const void* X, const void* y,
+    const void* mask, void* z_out, void* p_out, void* u_out, int n_chains,
+    int n_rows, int dim_padded, int n_leap, float half_eps, float eps,
+    float inv_pv, void* stream) {{
+  if (!args_ok(n_chains, n_rows, dim_padded, n_leap))
+    return (int)cudaErrorInvalidValue;
+  return (int){ns}::launch<TracedLink, false>(
+      z, p, X, y, mask, nullptr, nullptr, z_out, p_out, u_out, n_chains,
+      n_rows, {dp_arg}n_leap, half_eps, eps, inv_pv, 0, 0.0f,
+      static_cast<cudaStream_t>(stream));
+}}
+
+extern "C" int traced_glm_rt_launch(
+    const void* z, const void* p, const void* X, const void* y,
+    const void* mask, void* z_out, void* p_out, void* u_out, const void* eps,
+    const void* inv_mass, int n_chains, int n_rows, int dim_padded,
+    int n_leap, float inv_pv, void* stream) {{
+  if (eps == nullptr || inv_mass == nullptr ||
+      !args_ok(n_chains, n_rows, dim_padded, n_leap))
+    return (int)cudaErrorInvalidValue;
+  return (int){ns}::launch<TracedLink, true>(
+      z, p, X, y, mask, eps, inv_mass, z_out, p_out, u_out, n_chains,
+      n_rows, {dp_arg}n_leap, 0.0f, 0.0f, inv_pv, 0, 0.0f,
+      static_cast<cudaStream_t>(stream));
+}}
+
+extern "C" const char* traced_glm_error_string(int code) {{
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}}
+"""
+
+_link_libs = {}        # (functor source, wide) -> the bound library
+_link_lock = threading.Lock()
+# library path -> (seconds, compiler output) of each traced link this
+# process built: nvcc's time and ptxas's registers, spills and notes
+link_builds = {}
+
+
+def link_source(functor_source: str, wide: bool) -> str:
+    """The generated translation unit of a traced link's functor for the
+    cluster body (``wide``: 256 to 1,024 padded columns) or the 128 body."""
+    if wide:
+        return _LINK_TU.format(
+            body="cluster body (dim_padded 256 to 1024)",
+            header="fused_glm_wide_body.cuh", functor=functor_source,
+            ns="glm_wide", dp_arg="dim_padded, ",
+            width_ok="dim_padded > 128 &&\n"
+                     "         dim_padded <= kMaxDimPadded && "
+                     "dim_padded % 128 == 0")
+    return _LINK_TU.format(
+        body="body at dim_padded 128", header="fused_glm_body.cuh",
+        functor=functor_source, ns="glm128", dp_arg="",
+        width_ok="dim_padded == 128")
+
+
+def link_library_path(source: str) -> Path:
+    """Where the build of a generated translation unit lies or will lie: the
+    name carries a hash of the flags, the source and every header."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(source.encode())
+    for f in headers():
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"link-{h.hexdigest()[:16]}.so"
+
+
+def _bind_link(lib):
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # z, p, X, y, mask, z_out, p_out, u_out; n_chains, n_rows, dim_padded,
+    # n_leap; half_eps, eps, inv_pv; stream
+    fn = lib.traced_glm_launch
+    fn.argtypes = [vp] * 8 + [ci] * 4 + [cf] * 3 + [vp]
+    fn.restype = ci
+    # the same with eps and inv_mass as device pointers in place of
+    # half_eps, eps
+    fn = lib.traced_glm_rt_launch
+    fn.argtypes = [vp] * 10 + [ci] * 4 + [cf] + [vp]
+    fn.restype = ci
+    lib.traced_glm_error_string.argtypes = [ci]
+    lib.traced_glm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_link(functor_source: str, wide: bool):
+    """The bound library of a traced link's functor on the cluster body
+    (``wide``) or the 128 body, compiled at first use (nvcc's time is
+    printed to standard error) and shared by every link with the same
+    generated source. A failed build raises; nothing falls back. The
+    compile writes to a temporary name and renames, so a concurrent process
+    never loads a half-written library; threads may build at once."""
+    key = (functor_source, bool(wide))
+    lib = _link_libs.get(key)   # every launch passes here: no hashing
+    if lib is not None:
+        return lib
+    source = link_source(functor_source, wide)
+    out = link_library_path(source)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            cu = Path(tmp) / (out.stem + ".cu")
+            cu.write_text(source)
+            so = Path(tmp) / out.name
+            r = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-shared", "-I", str(CSRC), "-o",
+                 str(so), str(cu)], capture_output=True, text=True)
+            log = r.stdout + r.stderr
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({r.returncode}) on the "
+                                   f"traced link {out.stem}:\n{log}")
+            os.replace(so, out)
+        seconds = time.perf_counter() - t0
+        with _link_lock:
+            link_builds[out] = (seconds, log)
+        print(f"mcmc_tpu_torch: built the traced link {out.name} "
+              f"({'cluster' if wide else '128'} body) in {seconds:.1f} s",
+              file=sys.stderr)
+    lib = _bind_link(ctypes.CDLL(str(out)))
+    with _link_lock:
+        return _link_libs.setdefault(key, lib)

@@ -5,13 +5,26 @@ flagship).
 Under plain tensor code each gradient of the GLM log-posterior writes the
 ``(n_chains, n_data)`` linear predictor to device memory between two large
 matmuls. The fused trajectory runs all ``n_leap`` leapfrog steps for a tile
-of chains in one CUDA kernel (``csrc/fused_glm_trajectory.cu``): positions,
-momenta and gradients stay on chip, the design matrix is streamed in row
-tiles, and the linear predictor never leaves the SM. Models padded to 128
-columns run one block per chain tile; wider ones, up to
-``_cuda.MAX_DIM_PADDED`` (1,024) columns, a cluster of blocks, one per
-128-column panel, that sum the linear predictor through distributed shared
-memory (``csrc/fused_glm_trajectory_wide.cu``).
+of chains in one CUDA kernel: positions, momenta and gradients stay on chip,
+the design matrix is streamed in row tiles, and the linear predictor never
+leaves the SM. Models padded to 128
+columns run one block per chain tile (``csrc/fused_glm_body.cuh``); wider
+ones, up to ``_cuda.MAX_DIM_PADDED`` (1,024) columns, a cluster of blocks,
+one per 128-column panel, that sum the linear predictor through distributed
+shared memory (``csrc/fused_glm_wide_body.cuh``).
+
+Links: the five built in (logistic, poisson, linear, probit and
+:func:`studentt_link`) run from the package's kernel library, chosen at run
+time by their code. Any other callable ``link(eta, y) -> (mu_eff,
+ll_terms)``, written in torch, runs on the card too, as the JAX package's
+Pallas kernel runs any ``jnp`` link: the factories trace it with
+:func:`mcmc_tpu_torch.ops.link_codegen.trace_link` into a CUDA functor when
+their data lies on the card, and :func:`mcmc_tpu_torch.ops._cuda.build_link`
+compiles the body the width needs on it, once per link and body, into
+``build/mcmc_tpu_torch/link-<hash>.so`` (nvcc, 10-20 s at first
+use). A link outside the tracer's op table (a reduction, a view, a captured
+tensor with elements, data-dependent control flow) raises
+``NotImplementedError`` naming the op, at the factory, before any launch.
 
 Precision contract (the JAX package's): matmuls take bf16 operands — the
 position rounded to bf16 before ``eta = z X^T`` and the residual rounded to
@@ -167,9 +180,9 @@ def studentt_link(nu: float = 4.0):
     :func:`make_fused_hmc_step`. Score ``(nu+1)(y-eta)/(nu+(y-eta)^2)``
     is bounded — the robustness property — and is encoded in the
     ``mu_eff = y - score`` slot of the gradient contract. The callable
-    carries ``builtin = ("studentt", nu)``, by which the CUDA kernel knows
-    it; any other callable link runs through the plain version on CPU
-    tensors only (ROADMAP B)."""
+    carries ``builtin = ("studentt", nu)``, by which the CUDA kernel runs
+    it as its built-in link 4 (``csrc/fused_glm_common.cuh``) rather than
+    tracing it as it traces any other callable (module docstring)."""
     nu = float(nu)
     if not nu > 0.0:
         raise ValueError(f"nu must be positive, got {nu}")
@@ -185,15 +198,32 @@ def studentt_link(nu: float = 4.0):
 
 
 def _link_code(link):
-    """``(code, parameter)`` of a link the kernel has built in."""
+    """``(code, parameter)`` of a link the kernel has built in, or for any
+    other callable ``(traced, 0.0)``: the link traced to a CUDA functor
+    (:func:`mcmc_tpu_torch.ops.link_codegen.trace_link`, which raises
+    ``NotImplementedError`` naming an op it cannot trace)."""
     name, param = getattr(link, "builtin", (link, 0.0))
     if callable(name):
-        raise NotImplementedError(
-            "a callable link other than studentt_link has no CUDA kernel "
-            "(ROADMAP B); run it on CPU tensors")
+        from mcmc_tpu_torch.ops import link_codegen
+        return link_codegen.trace_link(name), 0.0
     if name not in _LINK_CODES:
         raise ValueError(f"link must be callable or one of {_LINKS}, got {link!r}")
     return _LINK_CODES[name], float(param)
+
+
+def _prepare_link(link, device, dp):
+    """On the card, trace a callable link and build its library for the
+    body of width ``dp`` now, so that a link the kernel cannot run fails at
+    the factory, before any launch; nothing to do on the CPU, where the
+    plain version runs the callable. (Past the widths the kernels take, the
+    launch raises.)"""
+    if device.type != "cuda":
+        return
+    from mcmc_tpu_torch.ops import _cuda
+
+    code, _ = _link_code(link)
+    if not isinstance(code, int) and _cuda.takes_dim_padded(dp):
+        _cuda.build_link(code.source, dp > 128)
 
 
 def _fused_trajectory_plain(z, p, Xb, y, mask, inv_pv, step_size, n_leap,
@@ -277,9 +307,11 @@ def _eps_on_device(eps, dev):
 
 def _launch_glm(z, p, Xb, y, mask, inv_pv, n_leap, link, step_size=None,
                 eps=None, inv_mass=None):
-    """Check the operands and launch ``csrc/fused_glm_trajectory.cu``: with
-    ``step_size`` (a float) its fixed-step entry, with ``eps`` (a 0-d device
-    tensor) and ``inv_mass`` its run-time-parameter entry."""
+    """Check the operands and launch the GLM trajectory: with ``step_size``
+    (a float) its fixed-step entry, with ``eps`` (a 0-d device tensor) and
+    ``inv_mass`` its run-time-parameter entry; a built-in link from the
+    package's library (``csrc/fused_glm_trajectory.cu``), a traced one from
+    its own (:func:`mcmc_tpu_torch.ops._cuda.build_link`)."""
     code, link_param = _link_code(link)
     from mcmc_tpu_torch.ops import _cuda
 
@@ -300,7 +332,10 @@ def _launch_glm(z, p, Xb, y, mask, inv_pv, n_leap, link, step_size=None,
             f"fused trajectory kernel takes a row count that is a multiple "
             f"of {ROW_TILE}, at least one chain and one leapfrog; got "
             f"{n_rows}, {n_chains}, {n_leap}")
-    lib = _cuda.load()
+    traced = not isinstance(code, int)
+    lib = _cuda.build_link(code.source, dp > 128) if traced else _cuda.load()
+    # a traced link's entries take no link code and parameter
+    link_args = () if traced else (code, link_param)
     z_out = torch.empty_like(z)
     p_out = torch.empty_like(p)
     u_out = torch.empty((n_chains,), dtype=torch.float32, device=dev)
@@ -310,23 +345,30 @@ def _launch_glm(z, p, Xb, y, mask, inv_pv, n_leap, link, step_size=None,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if eps is None:
-            rc = lib.fused_glm_trajectory_launch(
-                *ptrs, n_chains, n_rows, dp, int(n_leap), 0.5 * step_size,
-                float(step_size), float(inv_pv), code, link_param, stream)
+            launch = lib.traced_glm_launch if traced \
+                else lib.fused_glm_trajectory_launch
+            rc = launch(*ptrs, n_chains, n_rows, dp, int(n_leap),
+                        0.5 * step_size, float(step_size), float(inv_pv),
+                        *link_args, stream)
         else:
-            rc = lib.fused_glm_trajectory_rt_launch(
-                *ptrs, eps.data_ptr(), inv_mass.data_ptr(), n_chains, n_rows,
-                dp, int(n_leap), float(inv_pv), code, link_param, stream)
+            launch = lib.traced_glm_rt_launch if traced \
+                else lib.fused_glm_trajectory_rt_launch
+            rc = launch(*ptrs, eps.data_ptr(), inv_mass.data_ptr(), n_chains,
+                        n_rows, dp, int(n_leap), float(inv_pv), *link_args,
+                        stream)
     if rc != 0:
+        errors = lib.traced_glm_error_string if traced \
+            else lib.fused_glm_error_string
         raise RuntimeError("fused trajectory kernel launch failed: "
-                           + lib.fused_glm_error_string(rc).decode())
+                           + errors(rc).decode())
     return z_out, p_out, u_out
 
 
 def fused_trajectory_cuda(z, p, Xb, y, mask, inv_pv, step_size, n_leap,
                           link):
-    """Launch the fused trajectory kernel (``csrc/fused_glm_trajectory.cu``)
-    on the card: same signature and result as
+    """Launch the fused trajectory kernel (``csrc/fused_glm_body.cuh`` and
+    ``csrc/fused_glm_wide_body.cuh``, on a built-in or a traced link) on
+    the card: same signature and result as
     :func:`_fused_trajectory_plain` with a float ``step_size`` and no
     ``inv_mass``. Counts its launches in ``fused_trajectory_cuda.launches``."""
     out = _launch_glm(z, p, Xb, y, mask, inv_pv, n_leap, link,
@@ -407,9 +449,10 @@ def make_fused_trajectory(X, y, prior_scale: float, step_size: float,
     kernel's row tile, with a row mask so padded data rows contribute
     exactly zero to both gradient and log-density. ``link`` selects the GLM
     family (or is a callable ``link_fn(eta, y) -> (mu, ll_terms)``, see
-    :func:`_link_eval_fns`). ``device`` defaults to ``X``'s when it is a
-    tensor, else the card. ``block_chains`` is kept from the JAX package's API: the chain count must be a multiple
-    of it; the kernel tiles chains its own way."""
+    :func:`_link_eval_fns`; on the card it is traced and built here, module
+    docstring). ``device`` defaults to ``X``'s when it is a tensor, else the
+    card. ``block_chains`` is kept from the JAX package's API: the chain
+    count must be a multiple of it; the kernel tiles chains its own way."""
     if not callable(link) and link not in _LINKS:
         raise ValueError(f"link must be callable or one of {_LINKS}, got {link!r}")
     if int(n_leap) < 1:
@@ -417,6 +460,7 @@ def make_fused_trajectory(X, y, prior_scale: float, step_size: float,
     device = resolve_device(device, X)
     Xb, yrow, mask, dim = _padded_glm(X, y, device)
     inv_pv = 1.0 / (prior_scale * prior_scale)
+    _prepare_link(link, device, Xb.shape[1])
 
     def traj(z, p):
         n_chains = z.shape[0]
@@ -525,7 +569,8 @@ def make_fused_trajectory_rt(X, y, prior_scale: float, n_leap: int,
     the kernel reads there) and a ``(Dp,)`` diagonal inverse mass at call
     time: ``z += eps * inv_mass * p`` drift, kicks unchanged. With
     ``inv_mass = 1`` and the same step it returns the bits of
-    :func:`make_fused_trajectory`'s."""
+    :func:`make_fused_trajectory`'s. A callable ``link`` is traced and
+    built here when the data lies on the card."""
     if not callable(link) and link not in _LINKS:
         raise ValueError(f"link must be callable or one of {_LINKS}, got {link!r}")
     if int(n_leap) < 1:
@@ -534,6 +579,7 @@ def make_fused_trajectory_rt(X, y, prior_scale: float, n_leap: int,
     Xb, yrow, mask, dim = _padded_glm(X, y, device)
     Dp = Xb.shape[1]
     inv_pv = 1.0 / (prior_scale * prior_scale)
+    _prepare_link(link, device, Dp)
 
     def traj(z, p, eps, inv_mass):
         n_chains = z.shape[0]

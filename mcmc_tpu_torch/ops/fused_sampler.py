@@ -65,8 +65,10 @@ def fused_glm_hmc(X, y, *, link="logistic", prior_scale=10.0, step_size=0.05,
     """Fused-trajectory HMC on a GLM posterior ``y | X beta ~ family(link)``
     with a ``N(0, prior_scale^2)`` prior — logistic / poisson / linear /
     probit built in, :func:`mcmc_tpu_torch.ops.fused_logreg.studentt_link`
-    built in as well; any other callable link pluggable on CPU tensors.
-    ``key`` is a
+    built in as well; any other elementwise torch callable ``link(eta, y)
+    -> (mu_eff, ll_terms)`` runs in the same kernel, traced into it and
+    compiled once per link and width at first use (the module docstring of
+    :mod:`mcmc_tpu_torch.ops.fused_logreg`). ``key`` is a
     ``torch.Generator`` or an integer seed (``None``: seed 0); it draws the
     initial positions ``init_scale * N(0, 1)`` and then every transition.
     ``device`` defaults to ``X``'s when it is a tensor, else the card; on a

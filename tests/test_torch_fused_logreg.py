@@ -23,12 +23,22 @@ The run-time-parameter trajectory (``make_fused_trajectory_rt``: step size
 and diagonal inverse mass at call time) is held to the same tolerances
 against the JAX package's, and at inverse mass 1 to the bits of the
 fixed-step trajectory.
+
+Besides the five built-in links, two callable links written once in
+``jnp`` and once in torch go through the same tests at the same
+tolerances: a complementary log-log Bernoulli (``cloglog``) and the JAX
+package's logistic hook (tests/test_fused_logreg.py
+``test_fused_trajectory_custom_link_hook``). On the card the port traces
+such a callable into its kernel (``mcmc_tpu_torch.ops.link_codegen``); here
+its plain version runs the callable.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from mcmc_tpu.ops import fused_logreg as jfl
 from mcmc_tpu_torch import convert
@@ -48,21 +58,45 @@ def one_thread():
 
 D, N, L, EPS = 10, 64, 3, 0.05
 N_CHAINS = 16
-LINKS = ["logistic", "poisson", "linear", "probit", "studentt"]
+LINKS = ["logistic", "poisson", "linear", "probit", "studentt", "cloglog",
+         "logistic_hook"]
+
+
+def _cloglog(exp, expm1, log):
+    """The complementary log-log Bernoulli link, P(y = 1) = 1 - exp(-e^eta),
+    in the array library of ``exp``, ``expm1`` and ``log``."""
+    def link(eta, y):
+        m = exp(eta)
+        p = -expm1(-m)
+        score = y * m * exp(-m) / p - (1 - y) * m
+        return y - score, y * log(p) - (1 - y) * m
+    return link
+
+
+# the callable links: (the JAX package's, the port's)
+CALLABLE = {
+    "cloglog": (_cloglog(jnp.exp, jnp.expm1, jnp.log),
+                _cloglog(torch.exp, torch.expm1, torch.log)),
+    "logistic_hook": (
+        lambda eta, yv: (jax.nn.sigmoid(eta), yv * eta - jax.nn.softplus(eta)),
+        lambda eta, yv: (torch.sigmoid(eta), yv * eta - F.softplus(eta))),
+}
 
 
 def _links(name):
     if name == "studentt":
         return jfl.studentt_link(4.0), tfl.studentt_link(4.0)
-    return name, name
+    return CALLABLE.get(name, (name, name))
 
 
 def _data(name, seed=0):
     rng = np.random.default_rng(seed)
     X = (0.4 * rng.standard_normal((N, D))).astype(np.float32)
     eta = X @ (0.5 * np.ones(D))
-    if name in ("logistic", "probit"):
+    if name in ("logistic", "probit", "logistic_hook"):
         y = rng.uniform(size=N) < 1.0 / (1.0 + np.exp(-eta))
+    elif name == "cloglog":
+        y = rng.uniform(size=N) < -np.expm1(-np.exp(eta))
     elif name == "poisson":
         y = rng.poisson(np.exp(eta))
     elif name == "studentt":
@@ -195,14 +229,28 @@ def test_step_accept_potential_is_f32(name, jax_fused):
 
 
 def test_callable_link_has_no_kernel():
-    """A callable link the kernel does not know raises on the kernel path
-    instead of falling back; ``studentt_link`` is known by its code."""
+    """A callable link the tracer cannot turn into a kernel (here one that
+    reads a tensor of the data's length it captured) raises
+    ``NotImplementedError`` naming what it met, on the kernel path and at
+    the factories on the card, instead of falling back; the plain version
+    on the CPU runs it. ``studentt_link`` is known by its code, and a
+    traceable callable is traced."""
     X, y = convert.glm_data(*_data("linear"), "cpu")
     z, p = (torch.from_numpy(a) for a in _state(128))
-    with pytest.raises(NotImplementedError, match="callable link"):
-        tfl.fused_trajectory_cuda(z, p, X, y, y, 0.01, EPS, L,
-                                  lambda eta, yv: (eta, -0.5 * (yv - eta) ** 2))
+    offset = torch.linspace(0.0, 0.1, N)
+    link = lambda eta, yv: (eta + offset, -0.5 * (yv - eta - offset) ** 2)  # noqa: E731
+    with pytest.raises(NotImplementedError,
+                       match=r"captured tensor of shape \(64,\)"):
+        tfl.fused_trajectory_cuda(z, p, X, y, y, 0.01, EPS, L, link)
+    with pytest.raises(NotImplementedError, match="elementwise"):
+        tfl._prepare_link(link, torch.device("cuda"), 128)
+    tfl._prepare_link(link, torch.device("cpu"), 128)   # the CPU: nothing
+    traj = tfl.make_fused_trajectory(X, y, 10.0, EPS, L, block_chains=8,
+                                     link=link, device="cpu")
+    assert bool(torch.isfinite(traj(z, p)[2]).all())
     assert tfl._link_code(tfl.studentt_link(4.0)) == (4, 4.0)
+    assert tfl._link_code(CALLABLE["cloglog"][1])[0].ops[0] == \
+        "aten.exp.default"
     assert tfl._link_code("probit") == (3, 0.0)
     with pytest.raises(ValueError, match="nu must be positive"):
         tfl.studentt_link(0.0)

@@ -9,8 +9,11 @@ mode, as tests/test_torch_fused_logreg.py and tests/test_torch_fused_gaussian.py
 do at 128 columns: K1 at 256, 384 and 896 padded columns (200, 300 and 784
 of them the model's; 784 is an MNIST image's pixel count) and every link at
 384, K3 at 384, K2 at 256 and 512 on a diagonal and a dense precision, and
-one fused HMC transition at 384 fed JAX's momenta and uniforms. The kernels
-themselves are held against these plain versions on the card in
+one fused HMC transition at 384 fed JAX's momenta and uniforms; and two
+callable links, written once in ``jnp`` and once in torch (a complementary
+log-log Bernoulli and the JAX package's logistic hook), K1 at 384 on each
+and K3 at 384 on the first. The kernels themselves (a callable link traced
+into them) are held against these plain versions on the card in
 tests/test_torch_kernels_cuda.py.
 
 Inputs are small (8 chains, 64 data rows, 2-3 leapfrogs) and made with
@@ -30,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from mcmc_tpu.ops import fused_logreg as jfl
 from mcmc_tpu_torch.ops import fused_logreg as tfl
@@ -50,18 +54,41 @@ N, L, EPS, N_CHAINS = 64, 2, 0.05, 8
 LINKS = ["logistic", "poisson", "linear", "probit", "studentt"]
 
 
+def _cloglog(exp, expm1, log):
+    """The complementary log-log Bernoulli link, P(y = 1) = 1 - exp(-e^eta),
+    in the array library of ``exp``, ``expm1`` and ``log``."""
+    def link(eta, y):
+        m = exp(eta)
+        p = -expm1(-m)
+        score = y * m * exp(-m) / p - (1 - y) * m
+        return y - score, y * log(p) - (1 - y) * m
+    return link
+
+
+# the callable links: (the JAX package's, the port's)
+CALLABLE = {
+    "cloglog": (_cloglog(jnp.exp, jnp.expm1, jnp.log),
+                _cloglog(torch.exp, torch.expm1, torch.log)),
+    "logistic_hook": (
+        lambda eta, yv: (jax.nn.sigmoid(eta), yv * eta - jax.nn.softplus(eta)),
+        lambda eta, yv: (torch.sigmoid(eta), yv * eta - F.softplus(eta))),
+}
+
+
 def _links(name):
     if name == "studentt":
         return jfl.studentt_link(4.0), tfl.studentt_link(4.0)
-    return name, name
+    return CALLABLE.get(name, (name, name))
 
 
 def _glm_data(name, dim, seed=0):
     rng = np.random.default_rng(seed + dim)
     X = (rng.standard_normal((N, dim)) / np.sqrt(dim)).astype(np.float32)
     eta = X @ rng.standard_normal(dim)
-    if name in ("logistic", "probit"):
+    if name in ("logistic", "probit", "logistic_hook"):
         y = rng.uniform(size=N) < 1.0 / (1.0 + np.exp(-eta))
+    elif name == "cloglog":
+        y = rng.uniform(size=N) < -np.expm1(-np.exp(eta))
     elif name == "poisson":
         y = rng.poisson(np.exp(0.5 * eta))
     elif name == "studentt":
@@ -135,6 +162,43 @@ def test_every_link_at_384(name, jax_glm):
                                      link=_links(name)[1], device="cpu")
     z0, p0, want = jax_glm(name, 300)
     _check_glm(traj(torch.from_numpy(z0), torch.from_numpy(p0)), want, 300)
+
+
+@pytest.mark.parametrize("name", list(CALLABLE))
+def test_callable_link_at_384(name, jax_glm):
+    """K1's plain version on a callable link at 384 padded columns: the
+    port's torch callable against the JAX package's ``jnp`` one traced into
+    its Pallas kernel."""
+    X, y = _glm_data(name, 300)
+    traj = tfl.make_fused_trajectory(X, y, 10.0, EPS, L, block_chains=8,
+                                     link=_links(name)[1], device="cpu")
+    z0, p0, want = jax_glm(name, 300)
+    _check_glm(traj(torch.from_numpy(z0), torch.from_numpy(p0)), want, 300)
+
+
+def test_callable_link_rt_at_384():
+    """K3's plain version on the cloglog link at 384 padded columns with a
+    diagonal inverse mass against the JAX package's; at inverse mass 1 the
+    bits of the fixed-step trajectory on the same link."""
+    dim = 300
+    X, y = _glm_data("cloglog", dim)
+    jlink, tlink = _links("cloglog")
+    jtraj = jfl.make_fused_trajectory_rt(X, y, 10.0, L, block_chains=8,
+                                         interpret=True, link=jlink)
+    ttraj = tfl.make_fused_trajectory_rt(X, y, 10.0, L, block_chains=8,
+                                         link=tlink, device="cpu")
+    z0, p0 = _state(dim, 384)
+    im = _inv_mass(dim, 384)
+    want = jtraj(jnp.asarray(z0), jnp.asarray(p0), jnp.asarray(EPS),
+                 jnp.asarray(im))
+    z, p = torch.from_numpy(z0), torch.from_numpy(p0)
+    _check_glm(ttraj(z, p, EPS, torch.from_numpy(im)),
+               [np.asarray(a) for a in want], dim)
+    fixed = tfl.make_fused_trajectory(X, y, 10.0, EPS, L, block_chains=8,
+                                      link=tlink, device="cpu")
+    for a, b in zip(ttraj(z, p, torch.tensor(EPS), torch.ones(384)),
+                    fixed(z, p)):
+        assert torch.equal(a, b)
 
 
 def test_trajectory_rt_at_384_matches_pallas_and_the_fixed_step():

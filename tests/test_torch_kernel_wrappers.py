@@ -167,7 +167,8 @@ def test_the_package_ships_every_file_the_build_reads():
     """Each source and header is matched by a package-data pattern of
     ``pyproject.toml``, so a wheel builds what the tree builds."""
     names = {f.name for f in _cuda.headers()}
-    assert names == {"fused_glm_common.cuh", "hopper_ptx.cuh"}
+    assert names == {"fused_glm_common.cuh", "hopper_ptx.cuh",
+                     "fused_glm_body.cuh", "fused_glm_wide_body.cuh"}
     assert {f.name for f in _cuda.sources()} == {
         "fused_glm_trajectory.cu", "fused_glm_trajectory_wide.cu",
         "fused_gaussian_trajectory.cu", "fused_gaussian_trajectory_wide.cu"}

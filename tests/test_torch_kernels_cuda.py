@@ -7,6 +7,14 @@ on it, and the workflow: ``fit`` (NUTS, and ChEES from a Laplace start),
 the checkpoint runner's pinned double-buffered copy, and the evidence
 estimators against the CPU.
 
+The GLM kernel also runs links traced from torch (``ops/link_codegen.py``):
+a complementary log-log Bernoulli link and the JAX package's logistic hook
+against their plain versions at every padded width and chain counts 1 to
+16,384, K3 on them, five launches' bits, the hook within the same bounds of
+the built-in logistic, and a link outside the tracer's table refused before
+any launch; the built-in logistic keeps the bits it had before the bodies
+were templated on their link (digests of that build).
+
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports no JAX, so that it runs on a machine without it:
 
@@ -21,6 +29,8 @@ update alike; the summation order of their products differs, over n_leap + 1
 dependent products: z, p and U to rtol 1e-4, atol 1e-4 of values of order 1
 at 32 leapfrogs (measured about 1e-5 of scale at 157).
 """
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -104,15 +114,175 @@ def test_kernel_is_deterministic():
         assert torch.equal(u, v)
 
 
+def _cloglog(eta, y):
+    """A complementary log-log Bernoulli link, P(y = 1) = 1 - exp(-e^eta),
+    written in torch: the kernel traces it."""
+    m = torch.exp(eta)
+    p = -torch.expm1(-m)
+    score = y * m * torch.exp(-m) / p - (1 - y) * m
+    return y - score, y * torch.log(p) - (1 - y) * m
+
+
+def _logistic_hook(eta, yv):
+    """The JAX package's logistic hook (tests/test_fused_logreg.py
+    ``test_fused_trajectory_custom_link_hook``) in torch."""
+    return torch.sigmoid(eta), yv * eta - torch.nn.functional.softplus(eta)
+
+
+TRACED = {"cloglog": _cloglog, "logistic_hook": _logistic_hook}
+
+
+def _traced_problem(name, dim, n, chains, seed=5):
+    """A model of ``dim`` columns and ``n`` rows with responses of the link's
+    family, its trajectory built on the card (tracing the link and building
+    its library), and a start ``(z, p)``."""
+    rng = np.random.default_rng(seed + dim)
+    X = rng.standard_normal((n, dim)) / np.sqrt(dim)
+    eta = X @ rng.standard_normal(dim)
+    prob = -np.expm1(-np.exp(eta)) if name == "cloglog" \
+        else 1.0 / (1.0 + np.exp(-eta))
+    y = (rng.uniform(size=n) < prob).astype(np.float32)
+    link = TRACED[name]
+    traj = tfl.make_fused_trajectory(
+        torch.tensor(X, dtype=torch.float32), torch.tensor(y), 10.0, 0.01, 4,
+        block_chains=1, link=link, device="cuda")
+    dp = traj.dim_padded
+    z = torch.zeros((chains, dp), device="cuda")
+    p = torch.zeros((chains, dp), device="cuda")
+    z[:, :dim] = torch.tensor(0.5 * rng.standard_normal((chains, dim)),
+                              dtype=torch.float32)
+    p[:, :dim] = torch.tensor(rng.standard_normal((chains, dim)),
+                              dtype=torch.float32)
+    return z, p, (traj.Xb, traj.y, traj.mask, traj.inv_pv, 0.01, 4, link)
+
+
 @pytest.mark.cuda
 def test_callable_link_raises_on_card():
-    """A callable link the kernel has no code for: on CUDA tensors the
-    trajectory raises instead of falling back to the plain version."""
+    """A callable link outside the tracer's table (here a reduction over the
+    rows): on the card the factory raises ``NotImplementedError`` naming
+    the op before any launch, and so does the kernel path; nothing falls
+    back to the plain version."""
     _require_card()
     z, p, args = _problem("linear", 10)
-    link = lambda eta, yv: (eta, -0.5 * (yv - eta) ** 2)  # noqa: E731
-    with pytest.raises(NotImplementedError, match="callable link"):
+    link = lambda eta, yv: (eta - eta.mean(dim=-1, keepdim=True),  # noqa: E731
+                            -0.5 * (yv - eta) ** 2)
+    before = tfl.fused_trajectory_cuda.launches
+    with pytest.raises(NotImplementedError, match="aten.mean"):
+        tfl.make_fused_trajectory(torch.zeros((64, 10), device="cuda"),
+                                  torch.zeros(64, device="cuda"), 10.0, 0.01,
+                                  4, link=link)
+    with pytest.raises(NotImplementedError, match="aten.mean"):
         tfl.fused_trajectory(z, p, *args[:-1], link)
+    assert tfl.fused_trajectory_cuda.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains", [1, 65, 16384])
+@pytest.mark.parametrize("dim,n", [(100, 1000), (200, 1000), (300, 1000),
+                                   (784, 2000), (1000, 200)])
+@pytest.mark.parametrize("name", list(TRACED))
+def test_traced_link_matches_plain(name, dim, n, chains):
+    """K1 on a link traced from torch against its plain version (the same
+    callable run by torch) at 128, 256, 384, 896 and 1,024 padded columns
+    and chain counts 1, 65 and 16,384 (``_close_but_rare``'s tolerances),
+    padded columns zero, one launch counted."""
+    _require_card()
+    z, p, args = _traced_problem(name, dim, n, chains)
+    before = tfl.fused_trajectory_cuda.launches
+    got = tfl.fused_trajectory_cuda(z, p, *args)
+    want = tfl._fused_trajectory_plain(z, p, *args)
+    torch.cuda.synchronize()
+    assert tfl.fused_trajectory_cuda.launches == before + 1
+    _close_but_rare(got, want, chains)
+    assert torch.all(got[0][:, dim:] == 0) and torch.all(got[1][:, dim:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TRACED))
+def test_traced_link_rt_at_384(name):
+    """K3 on a traced link at 384 padded columns: against its plain version
+    with a diagonal inverse mass, at inverse mass 1 K1's bits, and through
+    its factory (which traces and builds on the card)."""
+    _require_card()
+    z, p, args = _traced_problem(name, 300, 1000, 2048)
+    Xb, y, mask, inv_pv, _eps, n_leap, link = args
+    eps = torch.tensor(0.01, device="cuda")
+    im = _inv_mass(384, 300)
+    got = tfl.fused_trajectory_rt_cuda(z, p, Xb, y, mask, inv_pv, eps, n_leap,
+                                       link, im)
+    want = tfl._fused_trajectory_plain(z, p, Xb, y, mask, inv_pv, eps,
+                                       n_leap, link, im)
+    one = tfl.fused_trajectory_rt_cuda(z, p, Xb, y, mask, inv_pv, eps, n_leap,
+                                       link, torch.ones_like(im))
+    k1 = tfl.fused_trajectory_cuda(z, p, *args)
+    torch.cuda.synchronize()
+    _close_but_rare(got, want, 2048)
+    assert all(torch.equal(a, b) for a, b in zip(one, k1))
+    rng = np.random.default_rng(305)
+    X = rng.standard_normal((1000, 300)) / np.sqrt(300)
+    traj = tfl.make_fused_trajectory_rt(
+        X, (rng.uniform(size=1000) < 0.5).astype(np.float32), 10.0, 4,
+        link=link)
+    zn, pn, un = traj(z, p, eps, im)
+    assert zn.is_cuda and bool(torch.isfinite(un).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [100, 300])
+def test_traced_link_is_deterministic(dim):
+    """Five launches of K1 on the traced cloglog link give the same bits
+    (fixed reduction order), at 128 and 384 padded columns."""
+    _require_card()
+    z, p, args = _traced_problem("cloglog", dim, 1000, 4096)
+    first = tfl.fused_trajectory_cuda(z, p, *args)
+    for _ in range(4):
+        again = tfl.fused_trajectory_cuda(z, p, *args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_traced_hook_near_builtin_logistic():
+    """The traced logistic hook against the built-in logistic link (whose
+    exponential and quotient are the fast intrinsics, the hook's the
+    accurate ones) within ``_close_but_rare``'s bounds, at 128 and 384."""
+    _require_card()
+    for dim in (100, 300):
+        z, p, args = _traced_problem("logistic_hook", dim, 1000, 16384)
+        hook = tfl.fused_trajectory_cuda(z, p, *args)
+        builtin = tfl.fused_trajectory_cuda(z, p, *args[:-1], "logistic")
+        torch.cuda.synchronize()
+        _close_but_rare(hook, builtin, 16384)
+
+
+# inputs whose built-in logistic K1 outputs are held to the digests of the
+# package's build before its bodies were templated on the link
+# (scripts/torch_kernels_parent_check.py printed them from that build, on an
+# NVIDIA H100 80GB HBM3 at 700 W with CUDA 12.8; a toolkit that compiles
+# the kernel otherwise may change them)
+DIGEST_DIMS = (100, 300)
+DIGESTS = {100: "abdd8aae87979500a3a999b0e4c7b86d",
+           300: "1d7eab972b6c58909f231ca7bad87f51"}
+
+
+def _digest_problem(dim):
+    return _problem("logistic", dim, chains=1000)
+
+
+def _digest(outs):
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", DIGEST_DIMS)
+def test_builtin_logistic_bits_unchanged(dim):
+    """The built-in logistic link gives the bits it gave before the GLM
+    bodies were templated on their link (at 128 and 384 padded columns)."""
+    _require_card()
+    z, p, args = _digest_problem(dim)
+    assert _digest(tfl.fused_trajectory_cuda(z, p, *args)) == DIGESTS[dim]
 
 
 def _close_but_rare(got, want, chains):
