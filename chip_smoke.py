@@ -11,8 +11,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 2. build: compiles the kernels of ``mcmc_tpu_torch/csrc`` (nvcc, sm_90a,
    one compiler per source, together) and, beside them, the libraries of
    two links traced from torch (``ops/link_codegen.py``: a complementary
-   log-log Bernoulli link on the 128 and the cluster body, the JAX
-   package's logistic hook on the 128 body; ``_cuda.build_link``); prints
+   log-log Bernoulli link on the 128, the cluster and the two-pass body,
+   the JAX package's logistic hook on the 128 body; ``_cuda.build_link``);
+   prints
    the build time, ptxas's registers and spills, and gates on no ``wgmma``
    advisory for a traced link;
 3. the GLM trajectory kernel against its plain PyTorch version at the
@@ -49,21 +50,23 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``device=``: launch count, acceptance, and mean and variance against
    the analytic answer; rank R-hat, min ESS and leapfrog steps/s printed;
    phases 3-8 then run again past 128 padded columns, as a lap of their
-   own: K1 logistic at 256, 384 and 896 padded columns (200 x 1000, 300 x
-   1000 and 784 x 2000) and every link at 384, K3 at 384 (bit-equal to K1
-   at inverse mass 1, and through its factory), K2 at 256, 512 and 1024
-   (250, 500 and 1000 dims, diagonal and dense, two launches bit-equal),
-   each against its plain version at its phase's tolerances and timed;
-   K1 on the traced cloglog link at 896 (with a 20-transition
-   ``fused_glm_hmc`` path there) and K3 on it at 384 (bit-equal to K1 at
-   inverse mass 1, and through its factory), each against its plain
-   version; ``fused_glm_hmc`` on the 784 x 2000 model at 16384 chains (one
-   launch a
-   transition, acceptance in (0.5, 1], its mean within 0.3 of the generic
-   ``hmc``'s over the same transitions), and ``fused_gaussian_hmc`` on the
-   dense rotation of the 250-d ill-conditioned Gaussian at phase 8's
-   protocol, gated on each eigen-coordinate's mean and variance within 5
-   Monte-Carlo standard errors of the analytic answer;
+   own: K1 logistic at 256, 384, 896, 1152, 2048, 3072 and 8192 padded
+   columns (200 x 1000, 300 x 1000, 784 x 2000, 1100 x 1000, 2000 x 1000,
+   3072 x 2000 and 8100 x 512) and every link at 384 and 2048, K3 at 384
+   and 2048 (bit-equal to K1 at inverse mass 1, and through its factory),
+   K2 at 256, 512, 1024, 1152, 2048 and 4096 (250 to 4096 dims, diagonal
+   and dense, two launches bit-equal), each against its plain version at
+   its phase's tolerances, timed, with its bound and share; K1 on the
+   traced cloglog link at 896 (with a 20-transition ``fused_glm_hmc`` path
+   there) and 2048, and K3 on it at 384 (bit-equal to K1 at inverse mass
+   1, and through its factory), each against its plain version;
+   ``fused_glm_hmc`` on the 784 x 2000 and the 3072 x 2000 models at 16384
+   chains (one launch a transition, acceptance in (0.5, 1], its mean
+   within 0.3 of the generic ``hmc``'s over the same transitions), and
+   ``fused_gaussian_hmc`` on the dense rotations of the 250-d and the
+   2000-d ill-conditioned Gaussian at phase 8's protocol, gated on each
+   eigen-coordinate's mean and variance within 5 Monte-Carlo standard
+   errors of the analytic answer;
 9. adapted NUTS, the main path's quality line, at 1024 chains on the
    flagship posterior (the protocol of ``bench.py``'s ``nuts`` line:
    ``build_nuts_kernel`` with pooled dual averaging, windowed diagonal mass
@@ -359,6 +362,43 @@ WG_BURNIN, WG_KEEP, WG_STEPS_PER_DRAW = 100, 100, 3
 WGA_DIM = 250
 WGA_BURNIN, WGA_KEEP = 300, 300
 WGA_SIGMAS = 5.0
+# past 1,024 padded columns, in the same lap: K1 logistic at 1,152 (1,100
+# x 1,000), 2,048 (2,000 x 1,000), 3,072 (the GLM path's model) and 8,192
+# (8,100 x 512: 8,000 columns would pad to 8,064) padded columns at phase
+# 3's 16,384 chains; every link, the traced cloglog link and K3 at 2,048;
+# K2 at 1,152, 2,048 and 4,096, where P (67 MB) no longer fits the 50 MB L2
+XWIDE_GLM = ((1100, 1000), (2000, 1000), (3072, 2000), (8100, 512))
+XWIDE_LINK_DIM = 2000
+XWIDE_GAUSS_DIMS = (1100, 2000, 4096)
+# the GLM path past 1,024 (phases 4-5): fused_glm_hmc on a 3,072-feature
+# logistic model (a CIFAR-10 image's 32 x 32 x 3 values; 2,000 synthetic
+# rows) at 16,384 chains, 4 leapfrogs at WG_STEP (acceptance 0.9996 on 128
+# chains of the plain version on the CPU over 20 transitions), against the
+# generic hmc at 1,024 chains over the same transitions from the same start
+# distribution. A third of the columns (3,072 - 2,000) are the prior's
+# alone, where both chains random-walk (0.08 a transition) from 0.05 N(0, 1),
+# so the generic hmc's mean carries about 0.08 sqrt(transitions) / 32 of MC
+# error a coordinate: 225 transitions keep its largest of 3,072 near half
+# of MEAN_ATOL. 25 kept draws of 16,384 x 3,072 are 5 GB on the card.
+WG3_DIM, WG3_DATA = 3072, 2000
+WG3_BURNIN, WG3_KEEP = 50, 25
+# the Gaussian path past 1,024 (phase 8): fused_gaussian_hmc on the dense
+# rotation of ill_conditioned_gaussian(2000, 1e4) at phase 8's protocol,
+# gated as the 250-d path. At 2,000 dims the step's energy error, summed
+# over eight times the narrow directions, leaves about 0.4 of the
+# transitions accepted (0.04 over the first 50 from the start), and the
+# ensemble's second moments approach their values at a rate of about 1/140
+# a transition in every band of the spectrum (3-5% low over transitions
+# 401-450 in exact float64 arithmetic: scripts/torch_gaussian_path_burnin.py),
+# so 150 + 150 transitions failed the variance gate (11.4 MC standard
+# errors) and 500 + 150 passed it (3.3); 600 burn-in transitions halve the
+# bias left at 500
+WGA2_DIM = 2000
+WGA2_BURNIN, WGA2_KEEP = 600, 150
+# the paths' acceptance floors: 0.5 at 250 dims (measured 0.77); at 2,000
+# dims measured 0.35-0.43 over 300-650 transitions, and a wrong gradient
+# accepts next to nothing
+WGA_ACCEPT_MIN, WGA2_ACCEPT_MIN = 0.5, 0.3
 
 # adapted NUTS at the bench's protocol (bench.py:45-58, :128-243)
 NUTS_CHAINS, NUTS_BIG_CHAINS = 1024, 4096
@@ -671,6 +711,7 @@ LINK_SFU = {"logistic": (2, 2), "poisson": (1, 0), "linear": (0, 0),
 # 4-5's protocol; K3 at 128 and 384; K1 at 896 with a short path there
 CLOGLOG_SEED = 60
 TRACED_WIDE_K1, TRACED_WIDE_K3 = (784, 2000), (300, 1000)
+TRACED_XWIDE_K1 = (2000, 1000)   # K1 on the traced link past 1,024
 TRACED_WIDE_PATH = 20         # transitions of the short path at 896
 
 
@@ -888,11 +929,11 @@ def traced_builds(_cuda):
         check(not notes, f"ptxas serialises or fences {path.name}'s wgmma")
 
 
-def glm_compare(what, fns, got, want, dim):
+def glm_compare(what, fns, got, want, dim, reps=10, calls=10):
     """Check a GLM kernel's outputs against its plain version's at phase
     3's tolerances, padded columns exactly zero; time ``fns`` (the kernel,
-    then the plain version); print one line. Returns ``(ms, plain ms, max
-    abs error, max scaled error)``."""
+    then the plain version) over ``reps`` windows of ``calls``; print one
+    line. Returns ``(ms, plain ms, max abs error, max scaled error)``."""
     check(all(bool(torch.isfinite(t).all()) for t in got),
           f"{what}: kernel output finite")
     per_chain, abs_err = scaled_errors(got, want)
@@ -900,12 +941,12 @@ def glm_compare(what, fns, got, want, dim):
     err_max = float(per_chain.max())
     pad_zero = bool((got[0][:, dim:] == 0).all() and
                     (got[1][:, dim:] == 0).all())
-    ms, plain_ms = median_ms(fns)
+    ms, plain_ms = median_ms(fns, reps, calls)
     print(f"{what}: max abs error of z, p {abs_err:.3e}; per-chain scaled "
           f"error: 99th percentile {err_q99:.3e} (tol {TOL_BULK:g}), max "
           f"{err_max:.3e} (tol {TOL_MAX:g}); padded columns zero: "
           f"{pad_zero}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms per "
-          "trajectory (median of 10 windows of 10 calls)")
+          f"trajectory (median of {reps} windows of {calls} calls)")
     check(err_q99 <= TOL_BULK, f"{what}: 99% of chains within {TOL_BULK}")
     check(err_max <= TOL_MAX, f"{what}: every chain within {TOL_MAX}")
     check(pad_zero, f"{what}: padded columns exactly zero")
@@ -932,23 +973,22 @@ def wgmma_advisories(_cuda):
 def wide_widths(dev, fl, lc, wgmma_notes):
     """Phases 3-8's additions at the widths past 128 padded columns (one
     lap): the kernels against their plain versions and timed at each width,
-    then the wide GLM and Gaussian paths. ``wgmma_notes`` are ptxas's
-    ``wgmma`` advisories from the build: none may name the wide GLM kernel,
-    whose time rests on its products' pipeline. Returns each kernel's
+    then the wide GLM and Gaussian paths, to 1,024 padded columns and past
+    it. ``wgmma_notes`` are ptxas's ``wgmma`` advisories from the build:
+    none may name the wide GLM kernel, whose time rests on its products'
+    pipeline (the two-pass body's are printed). Returns each kernel's
     per-width records for the kernels' JSON line."""
     check(not any("fused_glm_wide_kernel" in line for line in wgmma_notes),
           "ptxas serialises or fences the wide GLM kernel's wgmma: "
           + "; ".join(wgmma_notes))
-    from mcmc_tpu_torch import (HMCSettings, diagnostics, fused_gaussian_hmc,
-                                fused_glm_hmc, hmc)
-    from mcmc_tpu_torch.models import (ill_conditioned_gaussian,
-                                       logistic_regression_model,
-                                       make_logistic_regression_data)
+    from mcmc_tpu_torch import fused_glm_hmc
+    from mcmc_tpu_torch.models import make_logistic_regression_data
 
     rec = {k: {"ms": {}, "plain_ms": {}, "bound_ms": {}, "launches": {},
                "max_abs_err": 0.0, "max_scaled_err": 0.0}
            for k in ("K1", "K3", "K2")}
     rec["K1"]["ms_by_link"], rec["K1"]["plain_ms_by_link"] = {}, {}
+    rec["K1"]["traced"], rec["K3"]["traced"] = {}, {}
     rec["K2"]["dense_ms"] = {}
 
     def note(k, dp, ms, plain_ms, bound, abs_err, scaled_err):
@@ -958,14 +998,22 @@ def wide_widths(dev, fl, lc, wgmma_notes):
         r["max_abs_err"] = max(r["max_abs_err"], abs_err)
         r["max_scaled_err"] = max(r["max_scaled_err"], scaled_err)
 
-    # phase 3: K1 at 256, 384 and 896 padded columns, every link at 384
+    def windows(dp):
+        """median_ms's windows at a width: fewer past 1,024 columns, where a
+        plain version takes 10-50 ms."""
+        return (6, 5) if dp > 1024 else (10, 10)
+
+    # phase 3: K1 at 256, 384, 896, 1,152, 2,048, 3,072 and 8,192 padded
+    # columns, every link at 384 and 2,048
     gen = torch.Generator(device=dev).manual_seed(50)
     data = {}
-    for dim, n in WIDE_GLM:
+    k3_in = {}
+    for dim, n in WIDE_GLM + XWIDE_GLM:
         X, y, beta = make_logistic_regression_data(dim, n, dim)
         data[dim] = (X, y, beta)
         rng = np.random.default_rng(dim)
-        for name in LINKS if dim == WIDE_LINK_DIM else ("logistic",):
+        by_link = dim in (WIDE_LINK_DIM, XWIDE_LINK_DIM)
+        for name in LINKS if by_link else ("logistic",):
             yl = y if name == "logistic" else link_data(name, X, beta, rng)
             link = fl.studentt_link(STUDENTT_NU) if name == "studentt" \
                 else name
@@ -986,7 +1034,8 @@ def wide_widths(dev, fl, lc, wgmma_notes):
                    lambda: fl._fused_trajectory_plain(z, p, *args)]
             torch.cuda.synchronize()
             ms, plain_ms, abs_err, err = glm_compare(
-                f"K1 {name} at {dp} ({dim} x {n})", fns, got, want, dim)
+                f"K1 {name} at {dp} ({dim} x {n})", fns, got, want, dim,
+                *windows(dp))
             bound = glm_bound_ms(N_CHAINS, dim, n, N_LEAP, False, name)
             print(f"  bound {bound[0]:.4f} ms ({bound[2]}), "
                   f"{100 * bound[0] / ms:.1f}% of it")
@@ -997,59 +1046,65 @@ def wide_widths(dev, fl, lc, wgmma_notes):
                                                abs_err)
                 rec["K1"]["max_scaled_err"] = max(
                     rec["K1"]["max_scaled_err"], err)
-            if dim == WIDE_LINK_DIM:
-                rec["K1"]["ms_by_link"][name] = ms
-                rec["K1"]["plain_ms_by_link"][name] = plain_ms
-            if dim == WIDE_LINK_DIM and name == "logistic":
-                k3_in = (z, p, args, got)
+            if by_link:
+                rec["K1"]["ms_by_link"].setdefault(str(dp), {})[name] = ms
+                rec["K1"]["plain_ms_by_link"].setdefault(
+                    str(dp), {})[name] = plain_ms
+            if by_link and name == "logistic":
+                k3_in[dim] = (z, p, args, got)
             del z, p, got, want, fns
 
-    # phase 6: K3 at 384, against its plain version and at inverse mass 1
-    # bit-equal to K1, then through its factory
-    (z, p, args, k1_out), dim = k3_in, WIDE_LINK_DIM
-    Xb, yr, mask, inv_pv = args[:4]
-    dp = z.shape[1]
-    eps_t = torch.tensor(STEP_SIZE, dtype=torch.float32, device=dev)
-    im = torch.ones((dp,), device=dev)
-    im[:dim] = torch.linspace(0.5, 2.0, dim, device=dev)
-    rt_args = (Xb, yr, mask, inv_pv, eps_t, N_LEAP, "logistic", im)
-    got = fl.fused_trajectory_rt_cuda(z, p, *rt_args)
-    want = fl._fused_trajectory_plain(z, p, *rt_args)
-    one = fl.fused_trajectory_rt_cuda(z, p, *rt_args[:-1],
-                                      torch.ones_like(im))
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(one, k1_out))
-    ms, plain_ms, abs_err, err = glm_compare(
-        f"K3 logistic at {dp}, inverse mass 0.5..2",
-        [lambda: fl.fused_trajectory_rt_cuda(z, p, *rt_args),
-         lambda: fl._fused_trajectory_plain(z, p, *rt_args)], got, want, dim)
-    bound = glm_bound_ms(N_CHAINS, dim, 1000, N_LEAP, True)
-    print(f"  at inverse mass 1 bit-equal to K1: {same}; bound "
-          f"{bound[0]:.4f} ms, {100 * bound[0] / ms:.1f}% of it")
-    check(same, f"K3 at {dp}, inverse mass 1 and K1's step: K1's bits")
-    note("K3", dp, ms, plain_ms, bound[0], abs_err, err)
-    X, y = data[dim][:2]
-    traj_rt = fl.make_fused_trajectory_rt(X.cpu().numpy(), y.cpu().numpy(),
-                                          PRIOR_SCALE, N_LEAP)
-    fl.fused_trajectory_rt_cuda.launches = 0
-    zc, pc = z, p
-    for _ in range(RT_CALLS):
-        zc, pc, uc = traj_rt(zc, pc, eps_t, im)
-        eps_t = eps_t * 1.01
-    torch.cuda.synchronize()
-    launches = fl.fused_trajectory_rt_cuda.launches
-    check(launches == RT_CALLS, f"{launches} launches of K3 at {dp} for "
-          f"{RT_CALLS} calls of its factory's trajectory")
-    check(bool(torch.isfinite(zc).all() and torch.isfinite(uc).all()),
-          f"K3 path at {dp}: output finite")
-    rec["K3"]["launches"][str(dp)] = launches
-    del z, p, got, want, one, k3_in, k1_out, zc, pc
+    # phase 6: K3 at 384 and 2,048, against its plain version and at
+    # inverse mass 1 bit-equal to K1, then through its factory
+    for dim in (WIDE_LINK_DIM, XWIDE_LINK_DIM):
+        z, p, args, k1_out = k3_in.pop(dim)
+        Xb, yr, mask, inv_pv = args[:4]
+        dp = z.shape[1]
+        eps_t = torch.tensor(STEP_SIZE, dtype=torch.float32, device=dev)
+        im = torch.ones((dp,), device=dev)
+        im[:dim] = torch.linspace(0.5, 2.0, dim, device=dev)
+        rt_args = (Xb, yr, mask, inv_pv, eps_t, N_LEAP, "logistic", im)
+        got = fl.fused_trajectory_rt_cuda(z, p, *rt_args)
+        want = fl._fused_trajectory_plain(z, p, *rt_args)
+        one = fl.fused_trajectory_rt_cuda(z, p, *rt_args[:-1],
+                                          torch.ones_like(im))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(one, k1_out))
+        ms, plain_ms, abs_err, err = glm_compare(
+            f"K3 logistic at {dp}, inverse mass 0.5..2",
+            [lambda: fl.fused_trajectory_rt_cuda(z, p, *rt_args),
+             lambda: fl._fused_trajectory_plain(z, p, *rt_args)], got, want,
+            dim, *windows(dp))
+        bound = glm_bound_ms(N_CHAINS, dim, 1000, N_LEAP, True)
+        print(f"  at inverse mass 1 bit-equal to K1: {same}; bound "
+              f"{bound[0]:.4f} ms, {100 * bound[0] / ms:.1f}% of it")
+        check(same, f"K3 at {dp}, inverse mass 1 and K1's step: K1's bits")
+        note("K3", dp, ms, plain_ms, bound[0], abs_err, err)
+        X, y = data[dim][:2]
+        traj_rt = fl.make_fused_trajectory_rt(X.cpu().numpy(),
+                                              y.cpu().numpy(), PRIOR_SCALE,
+                                              N_LEAP)
+        fl.fused_trajectory_rt_cuda.launches = 0
+        zc, pc = z, p
+        for _ in range(RT_CALLS):
+            zc, pc, uc = traj_rt(zc, pc, eps_t, im)
+            eps_t = eps_t * 1.01
+        torch.cuda.synchronize()
+        launches = fl.fused_trajectory_rt_cuda.launches
+        check(launches == RT_CALLS, f"{launches} launches of K3 at {dp} for "
+              f"{RT_CALLS} calls of its factory's trajectory")
+        check(bool(torch.isfinite(zc).all() and torch.isfinite(uc).all()),
+              f"K3 path at {dp}: output finite")
+        rec["K3"]["launches"][str(dp)] = launches
+        del z, p, got, want, one, k1_out, zc, pc
 
-    # phases 3 and 6 on the traced cloglog link: K1 at 896 and a short
-    # fused_glm_hmc path there; K3 at 384, at inverse mass 1 bit-equal to
-    # K1, and through its factory
+    # phases 3 and 6 on the traced cloglog link: K1 at 896 with a short
+    # fused_glm_hmc path there, and at 2,048; K3 at 384, at inverse mass 1
+    # bit-equal to K1, and through its factory
     sfu = lc.trace_link(cloglog).sfu
-    for k, (dim, n) in (("K1", TRACED_WIDE_K1), ("K3", TRACED_WIDE_K3)):
+    for k, (dim, n), path in (("K1", TRACED_WIDE_K1, True),
+                              ("K1", TRACED_XWIDE_K1, False),
+                              ("K3", TRACED_WIDE_K3, False)):
         X, _y, beta = data[dim]
         ycl = cloglog_y(X, beta, CLOGLOG_SEED + dim)
         traj = fl.make_fused_trajectory(X, ycl, PRIOR_SCALE, STEP_SIZE,
@@ -1077,12 +1132,13 @@ def wide_widths(dev, fl, lc, wgmma_notes):
         torch.cuda.synchronize()
         dzp, du = close_but_rare(what, got, want, N_CHAINS)
         ms, plain_ms, abs_err, err = glm_compare(what, [launch, plain], got,
-                                                 want, dim)
+                                                 want, dim, *windows(dp))
         bound = glm_bound_ms(N_CHAINS, dim, n, N_LEAP, k == "K3", sfu)
         print(f"  max |dz|, |dp| {dzp:.3e}, max relative |dU| {du:.3e} "
               f"(_close_but_rare's bounds); bound {bound[0]:.4f} ms "
               f"({bound[2]}), {100 * bound[0] / ms:.1f}% of it")
-        if k == "K1":
+        launches = None   # read only where a path ran, never from a compare
+        if path:
             # a short path at 896: one launch a transition
             fl.fused_trajectory_cuda.launches = 0
             out = fused_glm_hmc(X.cpu().numpy(), ycl.cpu().numpy(),
@@ -1102,7 +1158,7 @@ def wide_widths(dev, fl, lc, wgmma_notes):
                   f"{TRACED_WIDE_PATH} transitions, {launches} launches, "
                   f"accept {accept:.4f}")
             del out
-        else:
+        elif k == "K3":
             one = fl.fused_trajectory_rt_cuda(z, p, *rt_args[:-1],
                                               torch.ones_like(im))
             k1 = fl.fused_trajectory_cuda(z, p, *args)
@@ -1126,27 +1182,23 @@ def wide_widths(dev, fl, lc, wgmma_notes):
                   f"chained trajectories through its factory, {launches} "
                   "launches")
             del one, k1, zc, pc
-        rec[k]["traced"] = {str(dp): {
+        rec[k]["traced"][str(dp)] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "launches": launches,
-            "max_abs_err": abs_err, "max_scaled_err": err}}
+            "bound_by": bound[1], "max_abs_err": abs_err,
+            "max_scaled_err": err,
+            **({} if launches is None else {"launches": launches})}
         del z, p, got, want
 
-    # phase 7: K2 at 256, 512 and 1,024 padded columns
+    # phase 7: K2 at 256, 512, 1,024, 1,152, 2,048 and 4,096 padded columns
     gen = torch.Generator(device=dev).manual_seed(53)
     g_eps = torch.tensor(G_STEP, dtype=torch.float32, device=dev)
     rotations = {}
-    for dim in WIDE_GAUSS_DIMS:
-        variances = ill_conditioned_gaussian(dim, G_COND).variances
-        prec_np = (1.0 / variances).cpu().numpy().astype(np.float64)
-        rng = np.random.default_rng(dim)
-        Q, _ = np.linalg.qr(rng.standard_normal((dim, dim)))
-        dense_np = (Q * prec_np) @ Q.T
-        dense_np = 0.5 * (dense_np + dense_np.T)
+    for dim in WIDE_GAUSS_DIMS + XWIDE_GAUSS_DIMS:
+        Q, dense_np, variances, m_np = dense_rotation(dim)
         rotations[dim] = (Q, dense_np, variances)
+        prec_np = (1.0 / variances).cpu().numpy().astype(np.float64)
         for name, P_np, m_np in (("diagonal", prec_np, None),
-                                 ("dense", dense_np,
-                                  rng.standard_normal(dim))):
+                                 ("dense", dense_np, m_np)):
             traj = fl.make_fused_gaussian_trajectory(P_np, m_np, G_STEP,
                                                      G_LEAP)
             dp = traj.dim_padded
@@ -1171,10 +1223,12 @@ def wide_widths(dev, fl, lc, wgmma_notes):
             repeat = all(torch.equal(a, b) for a, b in zip(got, again))
             zp_equal = torch.equal(got[0], want[0]) and \
                 torch.equal(got[1], want[1])
+            reps, calls = (3, 1) if dp > 1024 else \
+                (6, 5) if dp > 512 else (10, 10)
             ms, plain_ms = median_ms([
                 lambda: fl.fused_gaussian_trajectory_cuda(*gargs),
                 lambda: fl._fused_gaussian_trajectory_plain(*gargs)],
-                reps=6 if dp > 512 else 10, calls=5 if dp > 512 else 10)
+                reps=reps, calls=calls)
             bound = gaussian_bound_ms(G_CHAINS, dim, G_LEAP)
             print(f"K2 {name} precision at {dp} ({dim} dims): max abs error "
                   f"of z, p {abs_err:.3e}; per-chain scaled error: 99th "
@@ -1182,8 +1236,9 @@ def wide_widths(dev, fl, lc, wgmma_notes):
                   f"{err_max:.3e} (tol {G_TOL_MAX:g}); z, p bit-equal to "
                   f"plain: {zp_equal}; padded columns zero: {pad_zero}; two "
                   f"launches bit-equal: {repeat}; kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms per trajectory; bound {bound[0]:.4f} "
-                  f"ms, {100 * bound[0] / ms:.1f}% of it")
+                  f"{plain_ms:.3f} ms per trajectory (median of {reps} "
+                  f"windows of {calls}); bound {bound[0]:.4f} ms, "
+                  f"{100 * bound[0] / ms:.1f}% of it")
             check(err_q99 <= G_TOL_BULK,
                   f"K2 {name} at {dp}: 99% within {G_TOL_BULK}")
             check(err_max <= G_TOL_MAX,
@@ -1202,44 +1257,89 @@ def wide_widths(dev, fl, lc, wgmma_notes):
                 rec["K2"]["dense_ms"][str(dp)] = ms
             del z, p, got, again, want
 
-    # phases 4-5: the wide GLM path, then the generic hmc over the same
-    # transitions
-    X, y = data[WG_DIM][:2]
+    # phases 4-5 and 8: the GLM paths at 896 and 3,072 padded columns, the
+    # Gaussian paths at 256 and 2,048
+    for dim, n, burnin, keep, key in (
+            (WG_DIM, WG_DATA, WG_BURNIN, WG_KEEP, 54),
+            (WG3_DIM, WG3_DATA, WG3_BURNIN, WG3_KEEP, 59)):
+        dp, launches = wide_glm_path(dev, fl, data[dim][:2], dim, n, burnin,
+                                     keep, key)
+        rec["K1"]["launches"][str(dp)] = launches
+    for dim, burnin, keep, spd, floor, key in (
+            (WGA_DIM, WGA_BURNIN, WGA_KEEP, G_STEPS_PER_DRAW, WGA_ACCEPT_MIN,
+             57),
+            (WGA2_DIM, WGA2_BURNIN, WGA2_KEEP, 1, WGA2_ACCEPT_MIN, 61)):
+        dp, launches = wide_gaussian_path(dev, fl, rotations[dim], dim,
+                                          burnin, keep, spd, floor, key)
+        rec["K2"]["launches"][str(dp)] = launches
+    return rec
+
+
+def dense_rotation(dim):
+    """``(Q, P, variances, mean)``: ill_conditioned_gaussian(dim, G_COND)'s
+    spectrum densely rotated by the orthogonal Q of a QR of numpy normals
+    seeded by ``dim`` (the QR and the product in float64 on the card: at
+    4,096 dimensions the host's LAPACK takes seconds), P = Q diag(1 /
+    variances) Q^T made symmetric, as numpy arrays; and a mean of numpy
+    normals drawn after them."""
+    from mcmc_tpu_torch.models import ill_conditioned_gaussian
+
+    variances = ill_conditioned_gaussian(dim, G_COND).variances
+    rng = np.random.default_rng(dim)
+    A = torch.tensor(rng.standard_normal((dim, dim)), dtype=torch.float64,
+                     device=variances.device)
+    Q, _ = torch.linalg.qr(A)
+    dense = (Q / variances.double()) @ Q.T
+    dense = 0.5 * (dense + dense.T)
+    return (Q.cpu().numpy(), dense.cpu().numpy(), variances,
+            rng.standard_normal(dim))
+
+
+def wide_glm_path(dev, fl, Xy, dim, n, burnin, keep, key):
+    """Phases 4-5 on a wide model: fused_glm_hmc at N_CHAINS chains, 4
+    leapfrogs at WG_STEP, ``burnin`` burn-in and ``keep`` kept draws of
+    WG_STEPS_PER_DRAW transitions, then the generic hmc at HMC_CHAINS chains
+    over the same transitions from the same start distribution, their means
+    within MEAN_ATOL. Returns ``(dim_padded, launches)``."""
+    from mcmc_tpu_torch import HMCSettings, fused_glm_hmc, hmc
+    from mcmc_tpu_torch.models import logistic_regression_model
+
+    X, y = Xy
     X_np, y_np = X.cpu().numpy(), y.cpu().numpy()
-    n_trans = (WG_BURNIN + WG_KEEP) * WG_STEPS_PER_DRAW
+    n_trans = (burnin + keep) * WG_STEPS_PER_DRAW
     fl.fused_trajectory_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fused_glm_hmc(X_np, y_np, prior_scale=PRIOR_SCALE,
                         step_size=WG_STEP, n_leap=N_LEAP, n_chains=N_CHAINS,
-                        n_burnin_draws=WG_BURNIN, n_keep_draws=WG_KEEP,
-                        steps_per_draw=WG_STEPS_PER_DRAW, key=54)
+                        n_burnin_draws=burnin, n_keep_draws=keep,
+                        steps_per_draw=WG_STEPS_PER_DRAW, key=key)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = fl.fused_trajectory_cuda.launches
-    dp = fl._round_up(WG_DIM, 128)
+    dp = fl._round_up(dim, 128)
     check(launches == n_trans, f"{launches} kernel launches at {dp} for "
           f"{n_trans} transitions")
     check(out.draws.is_cuda and tuple(out.draws.shape) ==
-          (WG_KEEP, N_CHAINS, WG_DIM), "wide GLM draws on the card, shape")
-    check(bool(torch.isfinite(out.draws).all()), "wide GLM draws finite")
+          (keep, N_CHAINS, dim), f"wide GLM draws at {dp} on the card, shape")
+    check(bool(torch.isfinite(out.draws).all()),
+          f"wide GLM draws at {dp} finite")
     accept = float(out.diagnostics["accept_rate_per_chain"].mean())
-    check(0.5 < accept <= 1.0, f"wide GLM accept rate {accept} in (0.5, 1]")
+    check(0.5 < accept <= 1.0,
+          f"wide GLM accept rate at {dp} {accept} in (0.5, 1]")
     fused_mean = out.draws.mean(dim=(0, 1))
     del out
-    rec["K1"]["launches"][str(dp)] = launches
-    gen = torch.Generator(device=dev).manual_seed(55)
-    init = 0.05 * torch.randn((HMC_CHAINS, WG_DIM), generator=gen,
-                              device=dev)
-    settings = HMCSettings(n_burnin_draws=WG_BURNIN * WG_STEPS_PER_DRAW,
-                           n_keep_draws=WG_KEEP * WG_STEPS_PER_DRAW,
+    gen = torch.Generator(device=dev).manual_seed(key + 1)
+    init = 0.05 * torch.randn((HMC_CHAINS, dim), generator=gen, device=dev)
+    settings = HMCSettings(n_burnin_draws=burnin * WG_STEPS_PER_DRAW,
+                           n_keep_draws=keep * WG_STEPS_PER_DRAW,
                            step_size=WG_STEP, n_leap_steps=N_LEAP)
     t1 = time.perf_counter()
     ref = hmc(init, logistic_regression_model(X, y, PRIOR_SCALE), settings,
-              key=56)
+              key=key + 2)
     torch.cuda.synchronize()
     diff = float((ref.draws.mean(dim=(0, 1)) - fused_mean).abs().max())
-    print(f"fused_glm_hmc at {dp} ({WG_DIM} x {WG_DATA}): {N_CHAINS} chains, "
+    print(f"fused_glm_hmc at {dp} ({dim} x {n}): {N_CHAINS} chains, "
           f"{n_trans} transitions in {seconds:.3f} s "
           f"({1e3 * seconds / n_trans:.3f} ms each), {launches} kernel "
           f"launches; step {WG_STEP}, accept {accept:.4f}; "
@@ -1248,40 +1348,50 @@ def wide_widths(dev, fl, lc, wgmma_notes):
           f"{time.perf_counter() - t1:.3f} s, accept "
           f"{float(ref.accept_rate.mean()):.4f}, max |mean - fused mean| "
           f"{diff:.4f} (tol {MEAN_ATOL})")
-    check(diff <= MEAN_ATOL, f"wide hmc mean within {MEAN_ATOL} of the "
-          "fused mean")
-    del ref
+    check(diff <= MEAN_ATOL, f"wide hmc mean at {dp} within {MEAN_ATOL} of "
+          "the fused mean")
+    return dp, launches
 
-    # phase 8: the wide Gaussian path against the analytic moments
-    Q, dense_np, variances = rotations[WGA_DIM]
-    g_trans = (WGA_BURNIN + WGA_KEEP) * G_STEPS_PER_DRAW
+
+def wide_gaussian_path(dev, fl, rotation, dim, burnin, keep, spd, floor,
+                       key):
+    """Phase 8 on a wide model: fused_gaussian_hmc on the dense rotation of
+    ill_conditioned_gaussian(dim, 1e4) at G_CHAINS chains, G_LEAP jittered
+    leapfrogs of G_STEP, ``burnin`` and ``keep`` draws of ``spd``
+    transitions, its acceptance above ``floor`` and its eigenbasis moments
+    gated at WGA_SIGMAS MC standard errors. Returns ``(dim_padded,
+    launches)``."""
+    from mcmc_tpu_torch import diagnostics, fused_gaussian_hmc
+
+    Q, dense_np, variances = rotation
+    g_trans = (burnin + keep) * spd
     fl.fused_gaussian_trajectory_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fused_gaussian_hmc(dense_np, step_size=G_STEP, n_leap=G_LEAP,
-                             n_chains=G_CHAINS, n_burnin_draws=WGA_BURNIN,
-                             n_keep_draws=WGA_KEEP, init_scale=G_INIT_SCALE,
-                             step_jitter=G_JITTER,
-                             steps_per_draw=G_STEPS_PER_DRAW, key=57)
+                             n_chains=G_CHAINS, n_burnin_draws=burnin,
+                             n_keep_draws=keep, init_scale=G_INIT_SCALE,
+                             step_jitter=G_JITTER, steps_per_draw=spd,
+                             key=key)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = fl.fused_gaussian_trajectory_cuda.launches
-    dp = fl._round_up(WGA_DIM, 128)
+    dp = fl._round_up(dim, 128)
     check(launches == g_trans, f"{launches} launches of K2 at {dp} for "
           f"{g_trans} transitions")
     check(out.draws.is_cuda and tuple(out.draws.shape) ==
-          (WGA_KEEP, G_CHAINS, WGA_DIM), "wide Gaussian draws on the card")
-    check(bool(torch.isfinite(out.draws).all()), "wide Gaussian draws finite")
+          (keep, G_CHAINS, dim), f"wide Gaussian draws at {dp} on the card")
+    check(bool(torch.isfinite(out.draws).all()),
+          f"wide Gaussian draws at {dp} finite")
     accept = float(out.diagnostics["accept_rate_per_chain"].mean())
-    check(0.5 < accept <= 1.0,
-          f"wide Gaussian accept rate {accept} in (0.5, 1]")
-    rec["K2"]["launches"][str(dp)] = launches
+    check(floor < accept <= 1.0,
+          f"wide Gaussian accept rate at {dp} {accept} in ({floor}, 1]")
     var = variances.double()
     eig = out.draws @ torch.tensor(Q, dtype=torch.float32, device=dev)
     del out
     ess_x = diagnostics.ess(eig, chain_chunk=256).double()
     ess_sq = diagnostics.ess(eig * eig / variances, chain_chunk=256).double()
-    flat = eig.reshape(-1, WGA_DIM).double()
+    flat = eig.reshape(-1, dim).double()
     mean_z = float((flat.mean(dim=0).abs() / (var.sqrt() / ess_x.sqrt()))
                    .max())
     var_z = float(((flat.square().mean(dim=0) / var - 1.0).abs()
@@ -1289,7 +1399,7 @@ def wide_widths(dev, fl, lc, wgmma_notes):
     mean_err = float((flat.mean(dim=0).abs() / var.sqrt()).max())
     var_err = float((flat.var(dim=0) / var - 1.0).abs().max())
     del eig, flat
-    print(f"fused_gaussian_hmc at {dp} ({WGA_DIM} dims, dense): {G_CHAINS} "
+    print(f"fused_gaussian_hmc at {dp} ({dim} dims, dense): {G_CHAINS} "
           f"chains, {g_trans} transitions of {G_LEAP} leapfrogs in "
           f"{seconds:.3f} s ({1e3 * seconds / g_trans:.3f} ms each), "
           f"{launches} launches of K2; accept {accept:.4f}; in the "
@@ -1299,11 +1409,11 @@ def wide_widths(dev, fl, lc, wgmma_notes):
           f"{float(ess_sq.min()):.1f}; phase 8's figures: max |mean|/sd "
           f"{mean_err:.4f} (its tol {G_MEAN_TOL}), max |var/variance - 1| "
           f"{var_err:.4f} (its tol {G_VAR_TOL})")
-    check(mean_z <= WGA_SIGMAS, f"wide Gaussian means within {WGA_SIGMAS:g} "
-          "MC standard errors of 0")
-    check(var_z <= WGA_SIGMAS, f"wide Gaussian variances within "
+    check(mean_z <= WGA_SIGMAS, f"wide Gaussian means at {dp} within "
+          f"{WGA_SIGMAS:g} MC standard errors of 0")
+    check(var_z <= WGA_SIGMAS, f"wide Gaussian variances at {dp} within "
           f"{WGA_SIGMAS:g} MC standard errors")
-    return rec
+    return dp, launches
 
 
 def nuts_line(X, y, n_chains, prefix, seed, full_diag, n_keep=NUTS_KEEP):
@@ -3505,16 +3615,17 @@ def main():
           f"{json.dumps(MESH_CUTS)}")
 
     # --- build: the library and the traced links' libraries (the cloglog
-    # link on the 128 and the cluster body, the hook on the 128 body), every
-    # nvcc started together
+    # link on the 128, the cluster and the two-pass body, the hook on the
+    # 128 body), every nvcc started together
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = [pool.submit(_cuda.load)]   # tracing runs beside it
         traced = {name: lc.trace_link(f) for name, f in TRACED_LINKS.items()}
-        builds += [pool.submit(_cuda.build_link, traced[name].source, wide)
-                   for name, wide in (("cloglog", False), ("cloglog", True),
-                                      ("logistic_hook", False))]
+        builds += [pool.submit(_cuda.build_link, traced[name].source, dp)
+                   for name, dp in (("cloglog", 128), ("cloglog", 256),
+                                    ("cloglog", 2048),
+                                    ("logistic_hook", 128))]
         for b in builds:
             b.result()
     print(f"build: {time.perf_counter() - t0:.1f} s "
@@ -4098,8 +4209,10 @@ def main():
         "name": "fused_glm_trajectory", "route": "cuda",
         "source": src + "fused_glm_body.cuh",
         "wide_source": src + "fused_glm_wide_body.cuh",
+        "xwide_source": src + "fused_glm_xwide_body.cuh",
         "library_sources": [src + "fused_glm_trajectory.cu",
-                            src + "fused_glm_trajectory_wide.cu"],
+                            src + "fused_glm_trajectory_wide.cu",
+                            src + "fused_glm_trajectory_xwide.cu"],
         "traced_link_source": "mcmc_tpu_torch/ops/link_codegen.py",
         "replaces": "mcmc_tpu/ops/fused_logreg.py:163",
         "launches": launches,
@@ -4120,8 +4233,8 @@ def main():
         "max_abs_err_by_traced_link": {f"{k} (traced)": v[0]
                                        for k, v in tr_err.items()},
         **by_width("K1", (ms, plain_ms, k1_bound[0], launches)),
-        "ms_by_link_384": wide["K1"]["ms_by_link"],
-        "plain_ms_by_link_384": wide["K1"]["plain_ms_by_link"],
+        "ms_by_link_by_width": wide["K1"]["ms_by_link"],
+        "plain_ms_by_link_by_width": wide["K1"]["plain_ms_by_link"],
         "cloglog_traced_by_width": {
             "128": {"ms": tr_timing["cloglog"][0],
                     "plain_ms": tr_timing["cloglog"][1],
@@ -4133,8 +4246,10 @@ def main():
         "name": "fused_glm_trajectory_rt", "route": "cuda",
         "source": src + "fused_glm_body.cuh",
         "wide_source": src + "fused_glm_wide_body.cuh",
+        "xwide_source": src + "fused_glm_xwide_body.cuh",
         "library_sources": [src + "fused_glm_trajectory.cu",
-                            src + "fused_glm_trajectory_wide.cu"],
+                            src + "fused_glm_trajectory_wide.cu",
+                            src + "fused_glm_trajectory_xwide.cu"],
         "traced_link_source": "mcmc_tpu_torch/ops/link_codegen.py",
         "replaces": "mcmc_tpu/ops/fused_logreg.py:498",
         "launches": rt_launches,
@@ -4159,6 +4274,7 @@ def main():
         "name": "fused_gaussian_trajectory", "route": "cuda",
         "source": src + "fused_gaussian_trajectory.cu",
         "wide_source": src + "fused_gaussian_trajectory_wide.cu",
+        "xwide_source": src + "fused_gaussian_trajectory_xwide.cu",
         "replaces": "mcmc_tpu/ops/fused_logreg.py:330",
         "launches": g_launches,
         "max_abs_err": max(g_abs_err, wide["K2"]["max_abs_err"]),

@@ -9,9 +9,14 @@ of chains in one CUDA kernel: positions, momenta and gradients stay on chip,
 the design matrix is streamed in row tiles, and the linear predictor never
 leaves the SM. Models padded to 128
 columns run one block per chain tile (``csrc/fused_glm_body.cuh``); wider
-ones, up to ``_cuda.MAX_DIM_PADDED`` (1,024) columns, a cluster of blocks,
-one per 128-column panel, that sum the linear predictor through distributed
-shared memory (``csrc/fused_glm_wide_body.cuh``).
+ones, up to ``_cuda.CLUSTER_MAX_DIM_PADDED`` (1,024) columns, a cluster of
+blocks, one per 128-column panel, that sum the linear predictor through
+distributed shared memory (``csrc/fused_glm_wide_body.cuh``); wider still, a
+cluster of blocks that splits each gradient into two passes, the first
+over row tiles (eta, the link, bf16 r to device memory), the second over
+column panels (``csrc/fused_glm_xwide_body.cuh``). The kernels take every
+width the JAX package pads to, any multiple of 128: only device memory
+limits it.
 
 Links: the five built in (logistic, poisson, linear, probit and
 :func:`studentt_link`) run from the package's kernel library, chosen at run
@@ -40,16 +45,36 @@ potential at the start, bf16-path ones after), which differ by up to 0.5 on
 the flagship posterior (``tests/test_fused_logreg.py:48-49``), so its
 Metropolis test does not target the f32 density its docstring promises.
 
+**Deviation** (a callable link that restates a built-in one): in the JAX
+package such a callable reproduces the built-in link bit for bit
+(``tests/test_fused_logreg.py:189-209``); here it does not, for two reasons.
+On the CPU the built-in links with terms ``y eta - A(eta)`` sum a chain's
+log-likelihood as ``eta @ (w * y) - A(eta) @ w`` (two products, few passes
+over ``eta``) where a callable's is ``ll_terms @ w``: z and p are the same
+bits, U differs in its last bits (the logistic hook against ``"logistic"``:
+at most 1.9e-7 relative, about two units in the last place, on models of
+10 to 300 columns and 64 to 1,000 rows; held to 1e-6 by
+``tests/test_torch_fused_logreg.py``). On the card the built-in links'
+exponential and quotients are the fast intrinsics (``__expf``,
+``__fdividef``) where a traced link's are the accurate ones torch's are held
+to: the hook differs from ``"logistic"`` by up to 1.3e-5 in z at 16,384
+chains (measured on an NVIDIA H100; ``tests/test_torch_kernels_cuda.py``
+holds it to 1e-3, and all but one element in 100,000 to 1e-4), not
+bit-equal.
+
 :func:`make_fused_trajectory_rt` is the same trajectory with the step size
 and a diagonal inverse mass given at call time (the same kernel, with the
 step size read from device memory). The Gaussian family
 (:func:`make_fused_gaussian_trajectory`, ``csrc/fused_gaussian_trajectory.cu``)
 is all f32: its gradient is one product of the chain tile with the precision
 matrix, which the kernel keeps in registers for the whole trajectory at 128
-padded columns and streams from L2 at 256 to 1,024
-(``csrc/fused_gaussian_trajectory_wide.cu``). Models wider than 1,024
-padded columns run on CPU tensors only: on a CUDA tensor the wrappers
-raise.
+padded columns, streams from L2 at 256 to 1,024
+(``csrc/fused_gaussian_trajectory_wide.cu``), and past 1,024 splits its
+columns over a cluster of blocks on 64 chains, each streaming its slices of
+P and the chains' ``z - m`` (``csrc/fused_gaussian_trajectory_xwide.cu``).
+The bodies past 1,024 columns take a workspace in device memory, which the
+wrappers allocate with ``torch.empty``; when the card has no room, the error
+names the bytes.
 
 On a CPU tensor a trajectory runs its plain PyTorch version
 (:func:`_fused_trajectory_plain`, :func:`_fused_gaussian_trajectory_plain`);
@@ -215,15 +240,14 @@ def _prepare_link(link, device, dp):
     """On the card, trace a callable link and build its library for the
     body of width ``dp`` now, so that a link the kernel cannot run fails at
     the factory, before any launch; nothing to do on the CPU, where the
-    plain version runs the callable. (Past the widths the kernels take, the
-    launch raises.)"""
+    plain version runs the callable."""
     if device.type != "cuda":
         return
     from mcmc_tpu_torch.ops import _cuda
 
     code, _ = _link_code(link)
-    if not isinstance(code, int) and _cuda.takes_dim_padded(dp):
-        _cuda.build_link(code.source, dp > 128)
+    if not isinstance(code, int):
+        _cuda.build_link(code.source, dp)
 
 
 def _fused_trajectory_plain(z, p, Xb, y, mask, inv_pv, step_size, n_leap,
@@ -271,9 +295,18 @@ def _check_width(what, dp):
 
     if not _cuda.takes_dim_padded(dp):
         raise ValueError(
-            f"{what} kernel takes dim_padded a multiple of 128 up to "
-            f"{_cuda.MAX_DIM_PADDED} (a model of at most "
-            f"{_cuda.MAX_DIM_PADDED} columns); got {dp}")
+            f"{what} kernel takes dim_padded a multiple of 128; got {dp}")
+
+
+def _workspace(what, nbytes, dev):
+    """``nbytes`` of scratch on ``dev`` for a body past 1,024 columns; when
+    the card has no room, the error names the bytes."""
+    try:
+        return torch.empty((int(nbytes),), dtype=torch.uint8, device=dev)
+    except torch.OutOfMemoryError as e:
+        raise torch.OutOfMemoryError(
+            f"{what} kernel needs {int(nbytes)} bytes of device memory for "
+            f"its workspace: {e}") from e
 
 
 def _check_tensors(what, dev, expect):
@@ -333,12 +366,21 @@ def _launch_glm(z, p, Xb, y, mask, inv_pv, n_leap, link, step_size=None,
             f"of {ROW_TILE}, at least one chain and one leapfrog; got "
             f"{n_rows}, {n_chains}, {n_leap}")
     traced = not isinstance(code, int)
-    lib = _cuda.build_link(code.source, dp > 128) if traced else _cuda.load()
+    xwide = _cuda.glm_body(dp) == "two-pass"
+    lib = _cuda.build_link(code.source, dp) if traced \
+        else _cuda.load()
     # a traced link's entries take no link code and parameter
     link_args = () if traced else (code, link_param)
     z_out = torch.empty_like(z)
     p_out = torch.empty_like(p)
     u_out = torch.empty((n_chains,), dtype=torch.float32, device=dev)
+    work = ()
+    if xwide:
+        # the two-pass body's workspace, the last argument before the stream
+        size = lib.traced_glm_workspace_bytes if traced \
+            else lib.fused_glm_xwide_workspace_bytes
+        ws = _workspace("fused trajectory", size(n_chains, n_rows, dp), dev)
+        work = (ws.data_ptr(),)
     ptrs = (z.data_ptr(), p.data_ptr(), Xb.data_ptr(), y.data_ptr(),
             mask.data_ptr(), z_out.data_ptr(), p_out.data_ptr(),
             u_out.data_ptr())
@@ -346,16 +388,18 @@ def _launch_glm(z, p, Xb, y, mask, inv_pv, n_leap, link, step_size=None,
         stream = torch.cuda.current_stream(dev).cuda_stream
         if eps is None:
             launch = lib.traced_glm_launch if traced \
+                else lib.fused_glm_xwide_trajectory_launch if xwide \
                 else lib.fused_glm_trajectory_launch
             rc = launch(*ptrs, n_chains, n_rows, dp, int(n_leap),
                         0.5 * step_size, float(step_size), float(inv_pv),
-                        *link_args, stream)
+                        *link_args, *work, stream)
         else:
             launch = lib.traced_glm_rt_launch if traced \
+                else lib.fused_glm_xwide_trajectory_rt_launch if xwide \
                 else lib.fused_glm_trajectory_rt_launch
             rc = launch(*ptrs, eps.data_ptr(), inv_mass.data_ptr(), n_chains,
                         n_rows, dp, int(n_leap), float(inv_pv), *link_args,
-                        stream)
+                        *work, stream)
     if rc != 0:
         errors = lib.traced_glm_error_string if traced \
             else lib.fused_glm_error_string
@@ -366,8 +410,9 @@ def _launch_glm(z, p, Xb, y, mask, inv_pv, n_leap, link, step_size=None,
 
 def fused_trajectory_cuda(z, p, Xb, y, mask, inv_pv, step_size, n_leap,
                           link):
-    """Launch the fused trajectory kernel (``csrc/fused_glm_body.cuh`` and
-    ``csrc/fused_glm_wide_body.cuh``, on a built-in or a traced link) on
+    """Launch the fused trajectory kernel (``csrc/fused_glm_body.cuh``,
+    ``csrc/fused_glm_wide_body.cuh`` or ``csrc/fused_glm_xwide_body.cuh`` by
+    width, on a built-in or a traced link) on
     the card: same signature and result as
     :func:`_fused_trajectory_plain` with a float ``step_size`` and no
     ``inv_mass``. Counts its launches in ``fused_trajectory_cuda.launches``."""
@@ -670,7 +715,8 @@ def _fused_gaussian_trajectory_plain(z, p, P, mean, eps, n_leap, dim=None):
 
 def fused_gaussian_trajectory_cuda(z, p, P, mean, eps, n_leap, dim=None):
     """Launch the fused Gaussian trajectory kernel
-    (``csrc/fused_gaussian_trajectory.cu``) on the card: same signature and
+    (``csrc/fused_gaussian_trajectory.cu``, ``_wide.cu`` or ``_xwide.cu`` by
+    width) on the card: same signature and
     result as :func:`_fused_gaussian_trajectory_plain`. ``eps`` is a float
     or a 0-d f32 tensor on the card, read by the kernel from device memory.
     ``dim`` is the model's dimension (``Dp`` when not given): the kernel
@@ -698,12 +744,19 @@ def fused_gaussian_trajectory_cuda(z, p, P, mean, eps, n_leap, dim=None):
     z_out = torch.empty_like(z)
     p_out = torch.empty_like(p)
     u_out = torch.empty((n_chains,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.fused_gaussian_trajectory_launch(
-            z.data_ptr(), p.data_ptr(), P.data_ptr(), mean.data_ptr(),
+    args = (z.data_ptr(), p.data_ptr(), P.data_ptr(), mean.data_ptr(),
             eps.data_ptr(), z_out.data_ptr(), p_out.data_ptr(),
-            u_out.data_ptr(), n_chains, dp, dim, int(n_leap),
-            torch.cuda.current_stream(dev).cuda_stream)
+            u_out.data_ptr(), n_chains, dp, dim, int(n_leap))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if dp > _cuda.CLUSTER_MAX_DIM_PADDED:
+            ws = _workspace("fused Gaussian trajectory",
+                            lib.fused_gaussian_xwide_workspace_bytes(
+                                n_chains, dim), dev)
+            rc = lib.fused_gaussian_xwide_trajectory_launch(
+                *args, ws.data_ptr(), stream)
+        else:
+            rc = lib.fused_gaussian_trajectory_launch(*args, stream)
     if rc != 0:
         raise RuntimeError("fused Gaussian trajectory kernel launch failed: "
                            + lib.fused_glm_error_string(rc).decode())
@@ -739,7 +792,8 @@ def make_fused_gaussian_trajectory(precision, mean=None, step_size=0.1,
     coordinates and contribute zero to U because z starts 0 there and the
     momentum is masked by the caller, matching :func:`make_fused_hmc_step`'s
     column mask convention). ``device`` defaults to ``precision``'s when it
-    is a tensor, else the card. On the card ``dim <= 1024``."""
+    is a tensor, else the card, which takes any dimension its memory
+    holds."""
     if int(n_leap) < 1:
         raise ValueError(f"n_leap must be >= 1, got {n_leap}")
     device = resolve_device(device, precision)

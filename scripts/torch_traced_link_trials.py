@@ -94,7 +94,7 @@ def build(variants, wide):
     procs = {}
     for name, src in variants.items():
         cu = OUT / f"{name}_{'wide' if wide else '128'}.cu"
-        cu.write_text(_cuda.link_source(src, wide))
+        cu.write_text(_cuda.link_source(src, 256 if wide else 128))
         so = cu.with_suffix(".so")
         procs[name] = (subprocess.Popen(
             [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I",

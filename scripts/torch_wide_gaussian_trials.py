@@ -3,7 +3,9 @@
 Builds each given copy of
 ``mcmc_tpu_torch/csrc/fused_gaussian_trajectory_wide.cu`` (K2 past 128
 padded columns: a version from git history, a design trial, or a copy with
-clock counters such as ``scripts/trials/k2_wide_first_counters.cu``) into its
+clock counters such as ``scripts/trials/k2_wide_first_counters.cu``), or of
+``fused_gaussian_trajectory_xwide.cu`` (K2 past 1,024: its entry takes a
+workspace, which the shim allocates; ``--dims 1100,2000,4096``), into its
 own library with the package's nvcc flags (``scripts/torch_wide_glm_trials.py``
 builds and times), and runs all of them on ``chip_smoke.py`` phase 7's
 inputs: 2,048 chains, 157 leapfrogs of 0.9, ``ill_conditioned_gaussian(dim,
@@ -30,8 +32,8 @@ the last thread of each block: words 0-5 in clocks, 14 the products, 15 the
 panels) is named with ``--instr``: it is run once more with the buffer
 installed and its counters are printed per panel or per product, as
 ``--labels`` says (``name/panel`` or ``name/product``). For each variant the
-script also prints ``cudaOccupancyMaxActiveClusters`` at clusters of 1, 2
-and 4 blocks and the body's shared memory at each width.
+script also prints ``cudaOccupancyMaxActiveClusters`` at clusters of 1, 2,
+4, 5 and 8 blocks and the body's shared memory at each width.
 
 From the repository root, with a card:
 
@@ -102,6 +104,52 @@ extern "C" int trial_max_clusters(int k, int dim_padded, int dim) {{
   return n;
 }}
 """
+# the shim of the body past 1,024 columns: its entry takes a workspace (one
+# allocation, kept and grown across launches)
+XWIDE_SHIM = """#include "{src}"
+extern "C" int trial_launch(const void* z, const void* p, const void* P,
+                            const void* mean, const void* eps, void* z_out,
+                            void* p_out, void* u_out, int n_chains,
+                            int dim_padded, int dim, int n_leap,
+                            void* stream) {{
+  static void* work = nullptr;
+  static long long have = 0;
+  const long long need = fused_gaussian_xwide_workspace_bytes(n_chains, dim);
+  if (need > have) {{
+    if (work != nullptr) cudaFree(work);
+    if (cudaMalloc(&work, need) != cudaSuccess) return -1;
+    have = need;
+  }}
+  return fused_gaussian_xwide_trajectory_launch(
+      z, p, P, mean, eps, z_out, p_out, u_out, n_chains, dim_padded, dim,
+      n_leap, work, stream);
+}}
+extern "C" int trial_smem_bytes(int dim_padded, int dim) {{
+  return gauss_xwide::kSmemBytes;
+}}
+extern "C" int trial_max_clusters(int k, int dim_padded, int dim) {{
+  const auto kernel = gauss_xwide::fused_gaussian_xwide_kernel;
+  const int bytes = gauss_xwide::kSmemBytes;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes) != cudaSuccess)
+    return -1;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {{}};
+  cfg.gridDim = dim3(k * 64);
+  cfg.blockDim = dim3(gauss_xwide::kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = -1;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess)
+    return -1;
+  return n;
+}}
+"""
 # how the shim names a body's kernel, threads and shared memory: the first
 # wide body has one kernel for every width, the present one a kernel a width
 SHAPES = {
@@ -121,6 +169,9 @@ def shims(variants):
     out = {}
     for name, path in variants.items():
         text = open(path).read()
+        if "fused_gaussian_xwide_kernel" in text:
+            out[name] = XWIDE_SHIM
+            continue
         key = next(k for k in SHAPES if k in text)
         kernel, threads, nbytes = SHAPES[key]
         out[name] = (SHIM.replace("{kernel}", kernel)
@@ -167,9 +218,13 @@ def problems(dim, dev, gen):
     variances = ill_conditioned_gaussian(dim, COND, device=dev).variances
     prec = (1.0 / variances).cpu().numpy().astype(np.float64)
     rng = np.random.default_rng(dim)
-    Q, _ = np.linalg.qr(rng.standard_normal((dim, dim)))
-    dense = (Q * prec) @ Q.T
-    dense = 0.5 * (dense + dense.T)
+    # the QR and the product in float64 on the card (chip_smoke.py's
+    # dense_rotation): at 4,096 dims the host's LAPACK takes seconds
+    A = torch.tensor(rng.standard_normal((dim, dim)), dtype=torch.float64,
+                     device=dev)
+    Q, _ = torch.linalg.qr(A)
+    dense = (Q / variances.double()) @ Q.T
+    dense = (0.5 * (dense + dense.T)).cpu().numpy()
     eps = torch.tensor(STEP, dtype=torch.float32, device=dev)
     out = []
     for name, P_np, m_np in (("diagonal", prec, None),
@@ -254,9 +309,9 @@ def main():
             lib, w = libs[name], fl._round_up(dim, 128)
             print(f"{tag} {name}: shared memory "
                   f"{lib.trial_smem_bytes(w, dim)} bytes; max active "
-                  "clusters at 1 / 2 / 4 blocks "
+                  "clusters at 1 / 2 / 4 / 5 / 8 blocks "
                   + " / ".join(str(lib.trial_max_clusters(k, w, dim))
-                               for k in (1, 2, 4)))
+                               for k in (1, 2, 4, 5, 8)))
         for kind, targs in problems(dim, dev, gen):
             want = fl._fused_gaussian_trajectory_plain(*targs, N_LEAP, dim)
             outs = {}
@@ -293,6 +348,8 @@ def main():
                 print(f"  {tag} {kind} {name}:")
                 print_counters(lib, lambda: launch(lib, *targs, dim),
                                (CHAINS + 15) // 16, labels)
+            reps_calls = (args.reps, 10 if fl._round_up(dim, 128) <= 512
+                          else 5 if dim <= 1024 else 1)
             if not args.notime and kind == "dense":
                 timed = names + instr
                 fns = [(lambda lib=libs[nm]: launch(lib, *targs, dim))
@@ -301,8 +358,7 @@ def main():
                     timed = timed + ["plain"]
                     fns.append(lambda: fl._fused_gaussian_trajectory_plain(
                         *targs, N_LEAP, dim))
-                res = median_ms(fns, args.reps,
-                                10 if fl._round_up(dim, 128) <= 512 else 5)
+                res = median_ms(fns, *reps_calls)
                 for nm, (m, lo, hi) in zip(timed, res):
                     print(f"  time {tag} {kind} {nm}: {m:.4f} ms (min "
                           f"{lo:.4f}, max {hi:.4f})")

@@ -1,8 +1,11 @@
 """Variants of the wide GLM trajectory kernel, side by side, on an NVIDIA GPU.
 
 Builds each given copy of ``mcmc_tpu_torch/csrc/fused_glm_trajectory_wide.cu``
-(a version from git history, a design trial, or one with clock counters)
-into its own library with the package's nvcc flags, runs all of them on the
+(a version from git history, a design trial, or one with clock counters),
+or of the two-pass body's header ``mcmc_tpu_torch/csrc/fused_glm_xwide_body.cuh``
+(past 1,024 padded columns: ``--widths 1152,2048,3072,8192``; the shim
+allocates its workspace), into its own library with the package's nvcc
+flags, runs all of them on the
 same inputs as ``chip_smoke.py``'s wide lap (16,384 chains, 4 leapfrogs of
 0.01, prior scale 10; logistic, or every link at 384 padded columns with
 ``--links``) and prints, per width: each variant's agreement with the plain
@@ -54,7 +57,8 @@ OUT = Path("build") / "trials" / "out"
 # and one model at each other cluster size
 WIDTHS = {256: (200, 1000), 384: (300, 1000), 512: (450, 1000),
           640: (600, 700), 768: (700, 333), 896: (784, 2000),
-          1024: (1000, 200)}
+          1024: (1000, 200), 1152: (1100, 1000), 2048: (2000, 1000),
+          3072: (3072, 2000), 8192: (8100, 512)}
 SHIM = """#include "{src}"
 extern "C" int trial_launch(bool rt, const void* z, const void* p,
                             const void* X, const void* y, const void* mask,
@@ -69,6 +73,44 @@ extern "C" int trial_launch(bool rt, const void* z, const void* p,
                                link, nu, (cudaStream_t)stream);
 }}
 """
+
+# the two-pass body's shim: its launch takes a workspace (one allocation,
+# kept and grown across launches)
+XWIDE_SHIM = """#include "{src}"
+extern "C" int trial_launch(bool rt, const void* z, const void* p,
+                            const void* X, const void* y, const void* mask,
+                            const void* eps_ptr, const void* inv_mass,
+                            void* z_out, void* p_out, void* u_out,
+                            int n_chains, int n_rows, int dim_padded,
+                            int n_leap, float half_eps, float eps,
+                            float inv_pv, int link, float nu, void* stream) {{
+  static void* work = nullptr;
+  static size_t have = 0;
+  const size_t need =
+      glm_xwide::workspace_bytes(n_chains, n_rows, dim_padded);
+  if (need > have) {{
+    if (work != nullptr) cudaFree(work);
+    if (cudaMalloc(&work, need) != cudaSuccess) return -1;
+    have = need;
+  }}
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (rt)
+    return (int)glm_xwide::launch<BuiltinLinks, true>(
+        z, p, X, y, mask, eps_ptr, inv_mass, z_out, p_out, u_out, work,
+        n_chains, n_rows, dim_padded, n_leap, half_eps, eps, inv_pv, link,
+        nu, s);
+  return (int)glm_xwide::launch<BuiltinLinks, false>(
+      z, p, X, y, mask, eps_ptr, inv_mass, z_out, p_out, u_out, work,
+      n_chains, n_rows, dim_padded, n_leap, half_eps, eps, inv_pv, link, nu,
+      s);
+}}
+"""
+
+
+def shims(variants):
+    """Each variant's shim: the two-pass body's for a copy of its header."""
+    return {name: XWIDE_SHIM if "namespace glm_xwide" in open(path).read()
+            else SHIM for name, path in variants.items()}
 
 
 def bind_glm(lib):
@@ -229,7 +271,7 @@ def main():
                          text=True).stdout.strip())
     variants = dict(v.split("=", 1) for v in args.variants)
     t0 = time.perf_counter()
-    libs = build(variants)
+    libs = build(variants, shim=shims(variants))
     print(f"build {time.perf_counter() - t0:.1f} s")
     names = [n for n in variants if n != args.instr]
     if args.instr and hasattr(libs[args.instr], "trial_max_clusters"):
@@ -291,7 +333,8 @@ def main():
                        for nm in names]
                 fns.append(lambda: launch(libs[names[-1]], z, p, traj, 4,
                                           0.01, code, nu, rt=rt))
-                res = median_ms(fns, args.reps, 10 if dp < 896 else 5)
+                res = median_ms(fns, args.reps,
+                                10 if dp < 896 else 5 if dp <= 2048 else 2)
                 for nm, (m, lo, hi) in zip(names + [names[-1] + " rt"], res):
                     print(f"  time {dp} {lname} {nm}: {m:.4f} ms (min "
                           f"{lo:.4f}, max {hi:.4f})")

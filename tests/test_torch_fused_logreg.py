@@ -228,6 +228,40 @@ def test_step_accept_potential_is_f32(name, jax_fused):
                                                  zt, st0.position))
 
 
+@pytest.mark.parametrize("dim,n", [(D, N), (20, 1000)])
+def test_callable_logistic_hook_near_builtin(dim, n):
+    """The counterpart of the JAX package's
+    ``test_fused_trajectory_custom_link_hook`` (tests/test_fused_logreg.py),
+    at its sizes and at 20 columns and 1,000 rows: the logistic hook, a
+    callable restating the built-in logistic family, against
+    ``link="logistic"``. z and p are the same bits, as in the JAX package;
+    U is not (a Deviation, stated in the module docstring): the built-in
+    link sums a chain's log-likelihood as ``eta @ (w * y) - softplus(eta) @
+    w``, the callable as ``ll_terms @ w``, and the two differ by up to
+    1.9e-7 relative (measured over five seeds of models of 10 to 300
+    columns), about two units in the last place; held to 1e-6."""
+    rng = np.random.default_rng(7)
+    X = (rng.standard_normal((n, dim)) / np.sqrt(dim)).astype(np.float32)
+    eta = X @ rng.standard_normal(dim)
+    y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-eta))).astype(np.float32)
+    builtin = tfl.make_fused_trajectory(X, y, 10.0, EPS, L, block_chains=8,
+                                        link="logistic", device="cpu")
+    hook = tfl.make_fused_trajectory(X, y, 10.0, EPS, L, block_chains=8,
+                                     link=CALLABLE["logistic_hook"][1],
+                                     device="cpu")
+    dp = builtin.dim_padded
+    z = torch.zeros((8, dp))
+    p = torch.zeros((8, dp))
+    z[:, :dim] = torch.from_numpy(
+        0.1 * rng.standard_normal((8, dim)).astype(np.float32))
+    p[:, :dim] = torch.from_numpy(
+        rng.standard_normal((8, dim)).astype(np.float32))
+    zb, pb, ub = builtin(z, p)
+    zc, pc, uc = hook(z, p)
+    assert torch.equal(zb, zc) and torch.equal(pb, pc)
+    np.testing.assert_allclose(uc.numpy(), ub.numpy(), rtol=1e-6, atol=0)
+
+
 def test_callable_link_has_no_kernel():
     """A callable link the tracer cannot turn into a kernel (here one that
     reads a tensor of the data's length it captured) raises

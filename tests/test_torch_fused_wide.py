@@ -1,19 +1,24 @@
 """The fused trajectories past 128 padded columns against the JAX package's.
 
-The CUDA kernels take every multiple of 128 up to 1024 padded columns: the
-GLM trajectory (K1, and K3, its run-time-parameter entry) through a cluster
-body of one block per 128-column panel, the Gaussian trajectory (K2) by
-streaming P from L2. On the CPU the port runs their plain PyTorch versions,
-which these tests hold against the JAX package's Pallas kernels in interpret
-mode, as tests/test_torch_fused_logreg.py and tests/test_torch_fused_gaussian.py
-do at 128 columns: K1 at 256, 384 and 896 padded columns (200, 300 and 784
-of them the model's; 784 is an MNIST image's pixel count) and every link at
-384, K3 at 384, K2 at 256 and 512 on a diagonal and a dense precision, and
-one fused HMC transition at 384 fed JAX's momenta and uniforms; and two
-callable links, written once in ``jnp`` and once in torch (a complementary
-log-log Bernoulli and the JAX package's logistic hook), K1 at 384 on each
-and K3 at 384 on the first. The kernels themselves (a callable link traced
-into them) are held against these plain versions on the card in
+The CUDA kernels take every multiple of 128 padded columns, as the JAX
+package pads: the GLM trajectory (K1, and K3, its run-time-parameter entry)
+through a cluster body of one block per 128-column panel up to 1,024 and a
+two-pass cluster body past it, the Gaussian trajectory (K2) by streaming P
+from L2, past 1,024 with its columns split over a cluster. On the CPU the
+port runs their plain PyTorch versions, which these tests hold against the
+JAX package's Pallas kernels in interpret mode, as
+tests/test_torch_fused_logreg.py and tests/test_torch_fused_gaussian.py do
+at 128 columns: K1 at 256, 384, 896, 1,152 and 2,176 padded columns (200,
+300, 784, 1,100 and 2,100 of them the model's; 784 is an MNIST image's
+pixel count; 2,176 is 17 panels, more than a 16-block cluster could give
+one each) and every link at 384, K3 at 384 and 1,152, K2 at 256, 512, 1,152
+and 2,176 on a diagonal and a dense precision, and one fused HMC transition
+at 384 and at 1,152 fed JAX's momenta and uniforms; two callable links,
+written once in ``jnp`` and once in torch (a complementary log-log
+Bernoulli and the JAX package's logistic hook), K1 at 384 on each, K3 at
+384 on the first, and K1 at 1,152 on the first; and ``convert``'s carriers
+at 1,152. The kernels themselves (a callable link traced into them) are
+held against these plain versions on the card in
 tests/test_torch_kernels_cuda.py.
 
 Inputs are small (8 chains, 64 data rows, 2-3 leapfrogs) and made with
@@ -36,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from mcmc_tpu.ops import fused_logreg as jfl
+from mcmc_tpu_torch import convert
 from mcmc_tpu_torch.ops import fused_logreg as tfl
 
 
@@ -142,9 +148,11 @@ def _check_glm(got, want, dim):
     assert np.all(zt[:, dim:] == 0) and np.all(pt[:, dim:] == 0)
 
 
-@pytest.mark.parametrize("dim,dp", [(200, 256), (300, 384), (784, 896)])
+@pytest.mark.parametrize("dim,dp", [(200, 256), (300, 384), (784, 896),
+                                    (1100, 1152), (2100, 2176)])
 def test_trajectory_matches_pallas(dim, dp, jax_glm):
-    """K1's plain version, logistic, at 256, 384 and 896 padded columns."""
+    """K1's plain version, logistic, at 256, 384, 896, 1,152 and 2,176
+    padded columns."""
     X, y = _glm_data("logistic", dim)
     traj = tfl.make_fused_trajectory(X, y, 10.0, EPS, L, block_chains=8,
                                      device="cpu")
@@ -176,6 +184,17 @@ def test_callable_link_at_384(name, jax_glm):
     _check_glm(traj(torch.from_numpy(z0), torch.from_numpy(p0)), want, 300)
 
 
+def test_callable_link_past_1024(jax_glm):
+    """K1's plain version on the callable cloglog link at 1,152 padded
+    columns (1,100 of them the model's), against the JAX package's."""
+    X, y = _glm_data("cloglog", 1100)
+    traj = tfl.make_fused_trajectory(X, y, 10.0, EPS, L, block_chains=8,
+                                     link=_links("cloglog")[1], device="cpu")
+    assert traj.dim_padded == 1152
+    z0, p0, want = jax_glm("cloglog", 1100)
+    _check_glm(traj(torch.from_numpy(z0), torch.from_numpy(p0)), want, 1100)
+
+
 def test_callable_link_rt_at_384():
     """K3's plain version on the cloglog link at 384 padded columns with a
     diagonal inverse mass against the JAX package's; at inverse mass 1 the
@@ -201,19 +220,18 @@ def test_callable_link_rt_at_384():
         assert torch.equal(a, b)
 
 
-def test_trajectory_rt_at_384_matches_pallas_and_the_fixed_step():
-    """K3's plain version at 384 padded columns with a diagonal inverse
+def _check_rt(dim, dp):
+    """K3's plain version at ``dp`` padded columns with a diagonal inverse
     mass against the JAX package's run-time-parameter trajectory; at
     inverse mass 1 the bits of the fixed-step trajectory."""
-    dim = 300
     X, y = _glm_data("logistic", dim)
     jtraj = jfl.make_fused_trajectory_rt(X, y, 10.0, L, block_chains=8,
                                          interpret=True)
     ttraj = tfl.make_fused_trajectory_rt(X, y, 10.0, L, block_chains=8,
                                          device="cpu")
-    assert ttraj.dim_padded == jtraj.dim_padded == 384
-    z0, p0 = _state(dim, 384)
-    im = _inv_mass(dim, 384)
+    assert ttraj.dim_padded == jtraj.dim_padded == dp
+    z0, p0 = _state(dim, dp)
+    im = _inv_mass(dim, dp)
     want = jtraj(jnp.asarray(z0), jnp.asarray(p0), jnp.asarray(EPS),
                  jnp.asarray(im))
     z, p = torch.from_numpy(z0), torch.from_numpy(p0)
@@ -221,9 +239,19 @@ def test_trajectory_rt_at_384_matches_pallas_and_the_fixed_step():
                [np.asarray(a) for a in want], dim)
     fixed = tfl.make_fused_trajectory(X, y, 10.0, EPS, L, block_chains=8,
                                       device="cpu")
-    for a, b in zip(ttraj(z, p, torch.tensor(EPS), torch.ones(384)),
+    for a, b in zip(ttraj(z, p, torch.tensor(EPS), torch.ones(dp)),
                     fixed(z, p)):
         assert torch.equal(a, b)
+
+
+def test_trajectory_rt_at_384_matches_pallas_and_the_fixed_step():
+    """K3's plain version at 384 padded columns (``_check_rt``)."""
+    _check_rt(300, 384)
+
+
+def test_trajectory_rt_past_1024_matches_pallas_and_the_fixed_step():
+    """K3's plain version at 1,152 padded columns (``_check_rt``)."""
+    _check_rt(1100, 1152)
 
 
 def _gauss_target(kind, dim, seed=2):
@@ -238,18 +266,21 @@ def _gauss_target(kind, dim, seed=2):
 
 
 @pytest.mark.parametrize("kind", ["diagonal", "dense"])
-@pytest.mark.parametrize("dim,dp", [(250, 256), (500, 512)])
+@pytest.mark.parametrize("dim,dp", [(250, 256), (500, 512), (1100, 1152),
+                                    (2100, 2176)])
 def test_gaussian_trajectory_matches_pallas(kind, dim, dp):
-    """K2's plain version at 256 and 512 padded columns (the live widths of
-    250 and 500 dimensions are the padded widths), 3 leapfrogs at step 0.9
-    on log-spaced variances, condition number 1e3."""
+    """K2's plain version at 256, 512, 1,152 and 2,176 padded columns (the
+    live widths of 250 and 500 dimensions are the padded widths; of 1,100
+    and 2,100 the dimensions, multiples of 16), 3 leapfrogs at step 0.9 on
+    log-spaced variances, condition number 1e3."""
     P, mean = _gauss_target(kind, dim)
     jtraj = jfl.make_fused_gaussian_trajectory(P, mean, 0.9, 3,
                                                block_chains=8, interpret=True)
     ttraj = tfl.make_fused_gaussian_trajectory(P, mean, 0.9, 3,
                                                block_chains=8, device="cpu")
     assert ttraj.dim_padded == jtraj.dim_padded == dp
-    assert tfl._live_width(dim, dp) == dp
+    assert tfl._live_width(dim, dp) == {250: 256, 500: 512, 1100: 1104,
+                                        2100: 2112}[dim]
     z0, p0 = _state(dim, dp, scale=1.0)
     want = jtraj(jnp.asarray(z0), jnp.asarray(p0))
     got = ttraj(torch.from_numpy(z0), torch.from_numpy(p0))
@@ -260,12 +291,23 @@ def test_gaussian_trajectory_matches_pallas(kind, dim, dp):
 
 
 def test_fused_step_at_384_fed_jax_draws(monkeypatch):
-    """One ``make_fused_hmc_step`` transition at 384 padded columns, its
+    """One ``make_fused_hmc_step`` transition at 384 padded columns
+    (``_fed_step``)."""
+    _fed_step(300, 384, monkeypatch)
+
+
+def test_fused_step_past_1024_fed_jax_draws(monkeypatch):
+    """One ``make_fused_hmc_step`` transition at 1,152 padded columns
+    (``_fed_step``)."""
+    _fed_step(1100, 1152, monkeypatch)
+
+
+def _fed_step(dim, dp, monkeypatch):
+    """One ``make_fused_hmc_step`` transition at ``dp`` padded columns, its
     momenta and accept uniforms those JAX's step draws from its key: the
     same accept decisions and positions (the trajectory's tolerances), the
     stored potential JAX's bf16-path one within 2e-2 and JAX's f32
     ``reference_potential`` at the new positions within 1e-5."""
-    dim = 300
     X, y = _glm_data("logistic", dim)
     pos = (0.1 * np.random.default_rng(4).standard_normal((N_CHAINS, dim))
            ).astype(np.float32)
@@ -273,13 +315,13 @@ def test_fused_step_at_384_fed_jax_draws(monkeypatch):
                                     block_chains=8, interpret=True)
     tstep = tfl.make_fused_hmc_step(X, y, step_size=EPS, n_leap=L,
                                     block_chains=8, device="cpu")
-    assert tstep.dim_padded == jstep.dim_padded == 384
+    assert tstep.dim_padded == jstep.dim_padded == dp
     key = jax.random.PRNGKey(9)
     js0 = jstep.init(jnp.asarray(pos))
     js1, jinfo = jstep(key, js0)
     # the draws of JAX's step (fused_logreg.py make_fused_hmc_step: step)
     k_mom, k_acc = jax.random.split(key)
-    p0 = np.array(jax.random.normal(k_mom, (N_CHAINS, 384), jnp.float32))
+    p0 = np.array(jax.random.normal(k_mom, (N_CHAINS, dp), jnp.float32))
     u = np.array(jax.random.uniform(k_acc, (N_CHAINS,), jnp.float32))
     feed = {"randn": torch.from_numpy(p0), "rand": torch.from_numpy(u)}
     monkeypatch.setattr(torch, "randn", lambda *a, **k: feed["randn"])
@@ -296,10 +338,46 @@ def test_fused_step_at_384_fed_jax_draws(monkeypatch):
     np.testing.assert_allclose(ts1.potential.numpy(), f32, rtol=1e-5)
 
 
+def test_convert_carriers_past_1024(jax_glm):
+    """``convert``'s carriers of the JAX package's fused data and state at
+    1,152 padded columns: ``glm_data`` into the GLM factory (the same
+    trajectory as JAX's), ``gaussian_target`` into the Gaussian one (padded
+    to 1,152 with the identity past the model), and ``fused_state`` from
+    JAX's step state, its position and potential unchanged."""
+    dim, dp = 1100, 1152
+    X, y = _glm_data("logistic", dim)
+    Xt, yt = convert.glm_data(X, y, "cpu")
+    traj = tfl.make_fused_trajectory(Xt, yt, 10.0, EPS, L, block_chains=8)
+    assert traj.dim_padded == dp
+    z0, p0, want = jax_glm("logistic", dim)
+    _check_glm(traj(torch.from_numpy(z0), torch.from_numpy(p0)), want, dim)
+    P, mean = _gauss_target("diagonal", dim)
+    Pt, mt = convert.gaussian_target(P, mean, "cpu")
+    assert mt is None and tuple(Pt.shape) == (dim,)
+    g = tfl.make_fused_gaussian_trajectory(Pt, mt, block_chains=8)
+    assert g.dim_padded == dp and torch.equal(g.P[dim:, dim:],
+                                              torch.eye(dp - dim))
+    jstep = jfl.make_fused_hmc_step(X, y, step_size=EPS, n_leap=L,
+                                    block_chains=8, interpret=True)
+    pos = (0.1 * np.random.default_rng(6).standard_normal((N_CHAINS, dim))
+           ).astype(np.float32)
+    js = jstep.init(jnp.asarray(pos))
+    state = convert.fused_state(js.position, js.potential, dp, "cpu")
+    assert tuple(state.position.shape) == (N_CHAINS, dp)
+    np.testing.assert_array_equal(state.position.numpy(),
+                                  np.asarray(js.position))
+    np.testing.assert_array_equal(state.potential.numpy(),
+                                  np.asarray(js.potential))
+    short = convert.fused_state(pos, np.asarray(js.potential), dp, "cpu")
+    assert torch.equal(short.position, state.position)
+
+
 def test_kernels_refuse_past_1024_columns():
-    """The launching wrappers check the width first, naming the limit: a
-    1100-column model pads to 1152, past the kernels' 1024. The plain
-    versions take any width, so on the CPU the factories still run it."""
+    """The launching wrappers take every width that is a multiple of 128:
+    past 1,024 columns too (a 1,100-column model pads to 1,152), so there
+    the width passes and only the CPU tensors are refused; a width that is
+    no multiple of 128 is still refused, by name, first. The plain
+    versions run 1,152 on the CPU."""
     rng = np.random.default_rng(5)
     X = rng.standard_normal((N, 1100)).astype(np.float32)
     y = (rng.uniform(size=N) < 0.5).astype(np.float32)
@@ -308,16 +386,20 @@ def test_kernels_refuse_past_1024_columns():
     assert traj.dim_padded == 1152
     z = torch.zeros((2, 1152))
     args = (traj.Xb, traj.y, traj.mask, traj.inv_pv)
-    with pytest.raises(ValueError, match="up to 1024"):
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
         tfl.fused_trajectory_cuda(z, z, *args, EPS, 1, "logistic")
-    with pytest.raises(ValueError, match="up to 1024"):
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
         tfl.fused_trajectory_rt_cuda(z, z, *args, EPS, 1, "logistic",
                                      torch.ones(1152))
+    with pytest.raises(ValueError, match="dim_padded a multiple of 128"):
+        tfl.fused_trajectory_cuda(z[:, :1100], z[:, :1100],
+                                  traj.Xb[:, :1100], *args[1:], EPS, 1,
+                                  "logistic")
     zn, pn, un = traj(z, z.clone())
     assert zn.shape == (2, 1152) and bool(torch.isfinite(un).all())
     g = tfl.make_fused_gaussian_trajectory(np.ones(1100, np.float32),
                                            block_chains=1, device="cpu")
-    with pytest.raises(ValueError, match="up to 1024"):
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
         tfl.fused_gaussian_trajectory_cuda(z, z, g.P, g.mean, 0.1, 1, 1100)
     with pytest.raises(ValueError, match="dim_padded a multiple of 128"):
         tfl.fused_gaussian_trajectory_cuda(z[:, :200], z[:, :200],

@@ -139,14 +139,17 @@ def test_operands_must_start_on_16_bytes():
 def test_gaussian_live_widths():
     """Multiples of 8 up to the padded width, the suite's 100 dimensions
     served by 104, every dimension by some width; the kernels take every
-    multiple of 128 up to 1024 padded columns, and no other width."""
+    multiple of 128 padded columns, however large (past
+    ``CLUSTER_MAX_DIM_PADDED``, 1,024, on their bodies for wider models),
+    and no other width."""
     widths = _cuda.GAUSSIAN_LIVE_WIDTHS
     assert list(widths) == sorted(widths) and widths[-1] == 128
     assert all(w % 8 == 0 for w in widths)
     assert min(w for w in widths if w >= 100) == 104
-    assert _cuda.MAX_DIM_PADDED == 1024
-    assert [dp for dp in range(1, 2049) if _cuda.takes_dim_padded(dp)] == \
-        list(range(128, 1025, 128))
+    assert _cuda.CLUSTER_MAX_DIM_PADDED == 1024
+    assert [dp for dp in range(1, 8193) if _cuda.takes_dim_padded(dp)] == \
+        list(range(128, 8193, 128))
+    assert _cuda.takes_dim_padded(128 * 10 ** 6)
 
 
 def test_build_hash_covers_headers(tmp_path, monkeypatch):
@@ -168,10 +171,13 @@ def test_the_package_ships_every_file_the_build_reads():
     ``pyproject.toml``, so a wheel builds what the tree builds."""
     names = {f.name for f in _cuda.headers()}
     assert names == {"fused_glm_common.cuh", "hopper_ptx.cuh",
-                     "fused_glm_body.cuh", "fused_glm_wide_body.cuh"}
+                     "fused_glm_body.cuh", "fused_glm_wide_body.cuh",
+                     "fused_glm_xwide_body.cuh"}
     assert {f.name for f in _cuda.sources()} == {
         "fused_glm_trajectory.cu", "fused_glm_trajectory_wide.cu",
-        "fused_gaussian_trajectory.cu", "fused_gaussian_trajectory_wide.cu"}
+        "fused_glm_trajectory_xwide.cu", "fused_gaussian_trajectory.cu",
+        "fused_gaussian_trajectory_wide.cu",
+        "fused_gaussian_trajectory_xwide.cu"}
     root = Path(_cuda.__file__).resolve().parents[2]
     with open(root / "pyproject.toml", "rb") as f:
         data = tomllib.load(f)["tool"]["setuptools"]["package-data"]

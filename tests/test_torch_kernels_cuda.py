@@ -7,6 +7,10 @@ on it, and the workflow: ``fit`` (NUTS, and ChEES from a Laplace start),
 the checkpoint runner's pinned double-buffered copy, and the evidence
 estimators against the CPU.
 
+Past 1,024 padded columns the GLM kernel runs its two-pass body and the
+Gaussian kernel its cluster body (``test_xwide_*``: every link, the traced
+cloglog link, K3, the workspace's error, at 1,152 to 8,192 columns).
+
 The GLM kernel also runs links traced from torch (``ops/link_codegen.py``):
 a complementary log-log Bernoulli link and the JAX package's logistic hook
 against their plain versions at every padded width and chain counts 1 to
@@ -516,22 +520,147 @@ def test_gaussian_kernel_is_deterministic_and_reads_eps_on_the_card():
 
 @pytest.mark.cuda
 def test_widths_not_instantiated_raise():
-    """Beyond the widths the kernels take the wrappers raise, naming the
-    limit: both kernels take every multiple of 128 up to 1024 padded
-    columns, so a 1100-column model (1152 padded) is refused."""
+    """Past 1,024 padded columns the kernels launch: a 1,100-column model
+    (1,152 padded) runs both trajectories through their factories, one
+    launch each, with finite outputs and the padded columns zero; a width
+    that is no multiple of 128 is still refused, naming the rule."""
     _require_card()
     traj = tfl.make_fused_gaussian_trajectory(np.ones(1100), block_chains=1,
                                               device="cuda")
+    assert traj.dim_padded == 1152
     z = torch.zeros((8, traj.dim_padded), device="cuda")
-    with pytest.raises(ValueError, match="up to 1024"):
-        traj(z, z.clone())
+    z[:, :1100] = 1.0
+    before = tfl.fused_gaussian_trajectory_cuda.launches
+    out = traj(z, z.clone())
+    torch.cuda.synchronize()
+    assert tfl.fused_gaussian_trajectory_cuda.launches == before + 1
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+    assert torch.all(out[0][:, 1100:] == 0)
+    with pytest.raises(ValueError, match="dim_padded a multiple of 128"):
+        tfl.fused_gaussian_trajectory_cuda(z[:, :1100], z[:, :1100],
+                                           traj.P[:1100, :1100],
+                                           traj.mean[:1100], 0.1, 1, 1100)
     rng = np.random.default_rng(0)
     glm = tfl.make_fused_trajectory(
         torch.tensor(rng.standard_normal((64, 1100)), dtype=torch.float32),
         torch.zeros(64), 10.0, 0.01, 2, block_chains=1, device="cuda")
     z = torch.zeros((8, glm.dim_padded), device="cuda")
-    with pytest.raises(ValueError, match="up to 1024"):
-        glm(z, z.clone())
+    before = tfl.fused_trajectory_cuda.launches
+    out = glm(z, z.clone())
+    torch.cuda.synchronize()
+    assert tfl.fused_trajectory_cuda.launches == before + 1
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+    assert torch.all(out[0][:, 1100:] == 0)
+    with pytest.raises(ValueError, match="dim_padded a multiple of 128"):
+        tfl.fused_trajectory_cuda(z[:, :1100], z[:, :1100],
+                                  glm.Xb[:, :1100].contiguous(), glm.y,
+                                  glm.mask, glm.inv_pv, 0.01, 2, "logistic")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains", [1, 65, 300])
+@pytest.mark.parametrize("dim,n", [(1100, 1000), (1100, 130), (2000, 1000),
+                                   (2100, 333), (8100, 512)])
+def test_xwide_kernel_matches_plain(dim, n, chains):
+    """The two-pass body past 1,024 padded columns (1,152, 2,048, 2,176 and
+    8,192), for the fixed-step and the run-time entry: one chain, a second
+    warpgroup with one chain (65), a third cluster ragged (300); clusters
+    of 2 to 8 blocks (130, 333 and 512 rows make 2, 3 and 4 row tiles),
+    the last tile of 64 rows (130 and 333 rows pad to 192 and 384); padded
+    columns exactly zero; one launch per call. The tolerances of
+    ``_close_but_rare``."""
+    _require_card()
+    z, p, args = _problem("logistic", dim, n=n, chains=chains)
+    Xb, y, mask, inv_pv, eps, n_leap, link = args
+    before = (tfl.fused_trajectory_cuda.launches,
+              tfl.fused_trajectory_rt_cuda.launches)
+    got = tfl.fused_trajectory_cuda(z, p, *args)
+    want = tfl._fused_trajectory_plain(z, p, *args)
+    im = _inv_mass(z.shape[1], dim)
+    eps_t = torch.tensor(0.013, device="cuda")
+    got_rt = tfl.fused_trajectory_rt_cuda(z, p, Xb, y, mask, inv_pv, eps_t,
+                                          n_leap, link, im)
+    want_rt = tfl._fused_trajectory_plain(z, p, Xb, y, mask, inv_pv, eps_t,
+                                          n_leap, link, im)
+    torch.cuda.synchronize()
+    assert (tfl.fused_trajectory_cuda.launches,
+            tfl.fused_trajectory_rt_cuda.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    for g, w in ((got, want), (got_rt, want_rt)):
+        _close_but_rare(g, w, chains)
+        assert torch.all(g[0][:, dim:] == 0) and torch.all(g[1][:, dim:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["logistic", "poisson", "linear", "probit",
+                                  "studentt"])
+def test_xwide_kernel_links(name):
+    """Every built-in link through the two-pass body at 2,048 padded
+    columns (2,000 of them the model's), 100 chains."""
+    _require_card()
+    z, p, args = _problem(name, 2000)
+    got = tfl.fused_trajectory_cuda(z, p, *args)
+    want = tfl._fused_trajectory_plain(z, p, *args)
+    torch.cuda.synchronize()
+    _close_but_rare(got, want, 100)
+    assert torch.all(got[0][:, 2000:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains", [1, 65, 2048])
+def test_xwide_traced_link_matches_plain(chains):
+    """The traced cloglog link on the two-pass body at 2,048 padded columns
+    (its own library, built at the factory), K1 and K3 against their plain
+    versions, and K3 at inverse mass 1 bit-equal to K1."""
+    _require_card()
+    z, p, args = _traced_problem("cloglog", 2000, 1000, chains)
+    Xb, y, mask, inv_pv, eps, n_leap, link = args
+    got = tfl.fused_trajectory_cuda(z, p, *args)
+    want = tfl._fused_trajectory_plain(z, p, *args)
+    im = _inv_mass(z.shape[1], 2000)
+    eps_t = torch.tensor(eps, device="cuda")
+    got_rt = tfl.fused_trajectory_rt_cuda(z, p, Xb, y, mask, inv_pv, eps_t,
+                                          n_leap, link, im)
+    want_rt = tfl._fused_trajectory_plain(z, p, Xb, y, mask, inv_pv, eps_t,
+                                          n_leap, link, im)
+    one = tfl.fused_trajectory_rt_cuda(z, p, Xb, y, mask, inv_pv, eps_t,
+                                       n_leap, link, torch.ones_like(im))
+    torch.cuda.synchronize()
+    _close_but_rare(got, want, chains)
+    _close_but_rare(got_rt, want_rt, chains)
+    assert all(torch.equal(a, b) for a, b in zip(one, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [1100, 2000])
+def test_xwide_kernel_is_deterministic_and_rt_at_unit_mass_equal(dim):
+    """Five launches of the two-pass body give the same bits (its sums run
+    over panels, row tiles and the cluster's blocks in a fixed order); the
+    run-time entry at inverse mass 1 and the same step gives the
+    fixed-step entry's bits. At 1,152 and 2,048 padded columns."""
+    _require_card()
+    z, p, args = _problem("logistic", dim, chains=1000)
+    Xb, y, mask, inv_pv, eps, n_leap, link = args
+    a = tfl.fused_trajectory_cuda(z, p, *args)
+    ones = torch.ones((z.shape[1],), device="cuda")
+    for _ in range(4):
+        b = tfl.fused_trajectory_cuda(z, p, *args)
+        for u, v in zip(a, b):
+            assert torch.equal(u, v)
+    c = tfl.fused_trajectory_rt_cuda(z, p, Xb, y, mask, inv_pv,
+                                     torch.tensor(eps, device="cuda"), n_leap,
+                                     link, ones)
+    for u, w in zip(a, c):
+        assert torch.equal(u, w)
+
+
+@pytest.mark.cuda
+def test_xwide_workspace_error_names_its_bytes():
+    """A workspace the card cannot hold raises torch's out-of-memory error,
+    naming the bytes the body needed."""
+    _require_card()
+    with pytest.raises(torch.OutOfMemoryError, match="1125899906842624 bytes"):
+        tfl._workspace("fused trajectory", 1 << 50, torch.device("cuda"))
 
 
 @pytest.mark.cuda
@@ -697,6 +826,90 @@ def test_wide_gaussian_kernel_500_launches_bit_equal(kind):
         differ += sum((u != v).any().long() for u, v in zip(first, again))
     torch.cuda.synchronize()
     assert int(differ) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains", [1, 17, 2048])
+@pytest.mark.parametrize("dim", [1100, 2000, 4096])
+@pytest.mark.parametrize("kind", ["diagonal", "dense"])
+def test_xwide_gaussian_kernel_matches_plain(kind, dim, chains):
+    """The cluster body past 1,024 padded columns (1,152, 2,048 and 4,096;
+    clusters of 5, 8 and 8 blocks, 4,096 two slices a block): one chain,
+    one over a 16-chain tile and the suite's 2,048 (32 tiles of 64); live
+    widths 1,104, 2,000 and 4,096; the tolerances of
+    test_wide_gaussian_kernel_matches_plain; padded columns exactly zero;
+    two launches bit-equal; on the diagonal precision z and p bit-equal to
+    the plain version."""
+    _require_card()
+    _traj, args = _gaussian_problem(kind, dim, chains)
+    zp, pp, up = tfl._fused_gaussian_trajectory_plain(*args)
+    before = tfl.fused_gaussian_trajectory_cuda.launches
+    got = tfl.fused_gaussian_trajectory_cuda(*args)
+    again = tfl.fused_gaussian_trajectory_cuda(*args)
+    torch.cuda.synchronize()
+    assert tfl.fused_gaussian_trajectory_cuda.launches == before + 2
+    zk, pk, uk = got
+    for a, b in ((zk, zp), (pk, pp), (uk, up)):
+        torch.testing.assert_close(
+            a, b, rtol=1e-4, atol=1e-4 * max(1.0, float(b.abs().max())))
+    assert torch.all(zk[:, dim:] == 0) and torch.all(pk[:, dim:] == 0)
+    for u, v in zip(got, again):
+        assert torch.equal(u, v)
+    if kind == "diagonal":   # one non-zero term per product: exact
+        assert torch.equal(zk, zp) and torch.equal(pk, pp)
+
+
+@pytest.mark.cuda
+def test_xwide_gaussian_kernel_five_launches_bit_equal():
+    """Five launches at 2,000 dimensions (2,048 padded) and 2,048 chains
+    (32 clusters of 8 blocks) give the same bits."""
+    _require_card()
+    _traj, args = _gaussian_problem("dense", 2000, 2048)
+    first = tfl.fused_gaussian_trajectory_cuda(*args)
+    for _ in range(4):
+        again = tfl.fused_gaussian_trajectory_cuda(*args)
+        torch.cuda.synchronize()
+        for u, v in zip(first, again):
+            assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+def test_xwide_gaussian_kernel_and_plain_agree_past_the_live_width():
+    """With the padding contract broken past the live width (1,104 of
+    1,152 columns) the cluster body and the plain version still compute
+    one function: the live block as from clean padding, the other columns
+    as they went in."""
+    _require_card()
+    dim = 1100
+    _traj, args = _gaussian_problem("dense", dim, 9)
+    clean = tfl.fused_gaussian_trajectory_cuda(*args)
+    live = tfl._live_width(dim, 1152)
+    assert live == 1104
+    z, p, P, mean = (t.clone() for t in args[:4])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for t in (z, p):
+        t[:, live:] = torch.randn(t[:, live:].shape, device="cuda",
+                                  generator=gen)
+    mean[live:] = 2.0
+    P[live:, :] = 0.5
+    P[:, live:] = 0.5
+    zk, pk, uk = tfl.fused_gaussian_trajectory_cuda(z, p, P, mean, *args[4:])
+    zp, pp, up = tfl._fused_gaussian_trajectory_plain(z, p, P, mean,
+                                                      *args[4:])
+    torch.cuda.synchronize()
+    assert torch.equal(zk[:, :live], clean[0][:, :live])
+    assert torch.equal(pk[:, :live], clean[1][:, :live])
+    assert torch.equal(uk, clean[2])
+    for got in (zk, zp):
+        assert torch.equal(got[:, live:], z[:, live:])
+    for got in (pk, pp):
+        assert torch.equal(got[:, live:], p[:, live:])
+    torch.testing.assert_close(zk, zp, rtol=1e-4,
+                               atol=1e-4 * max(1.0, float(zp.abs().max())))
+    torch.testing.assert_close(pk, pp, rtol=1e-4,
+                               atol=1e-4 * max(1.0, float(pp.abs().max())))
+    torch.testing.assert_close(uk, up, rtol=1e-4,
+                               atol=1e-4 * max(1.0, float(up.abs().max())))
 
 
 @pytest.mark.cuda

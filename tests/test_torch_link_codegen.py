@@ -249,7 +249,8 @@ def test_generated_translation_unit(wide):
     needs, instantiated on the functor behind the library's launch
     signatures; its library's name hashes the source, so the two bodies of
     one link are two libraries and a second trace of it is the same."""
-    src = _cuda.link_source(lc.trace_link(_cloglog).source, wide)
+    dp = 256 if wide else 128
+    src = _cuda.link_source(lc.trace_link(_cloglog).source, dp)
     header = "fused_glm_wide_body.cuh" if wide else "fused_glm_body.cuh"
     assert f'#include "{header}"' in src
     assert (_cuda.CSRC / header).exists()
@@ -260,13 +261,38 @@ def test_generated_translation_unit(wide):
     ns = "glm_wide" if wide else "glm128"
     assert f"{ns}::launch<TracedLink, false>" in src
     assert f"{ns}::launch<TracedLink, true>" in src
-    other = _cuda.link_source(lc.trace_link(_cloglog).source, not wide)
+    other = _cuda.link_source(lc.trace_link(_cloglog).source, 384 - dp)
     path = _cuda.link_library_path(src)
     assert path.name.startswith("link-") and path.suffix == ".so"
     assert path.parent == _cuda.BUILD_DIR
     assert path != _cuda.link_library_path(other)
     assert path == _cuda.link_library_path(
-        _cuda.link_source(lc.trace_link(_cloglog).source, wide))
+        _cuda.link_source(lc.trace_link(_cloglog).source, dp))
+    # one library a body: every width the body runs shares its source
+    assert src == _cuda.link_source(lc.trace_link(_cloglog).source,
+                                    1024 if wide else 128)
+
+
+def test_generated_translation_unit_past_1024():
+    """Past 1,024 padded columns the traced link builds on the two-pass
+    body: its entries take the body's workspace before the stream, and
+    the unit exports the workspace's size; a library of its own."""
+    src = _cuda.link_source(lc.trace_link(_cloglog).source, 1152)
+    assert '#include "fused_glm_xwide_body.cuh"' in src
+    assert (_cuda.CSRC / "fused_glm_xwide_body.cuh").exists()
+    assert "glm_xwide::launch<TracedLink, false>" in src
+    assert "glm_xwide::launch<TracedLink, true>" in src
+    assert src.count("void* work, void* stream") == 2
+    assert src.count("work, n_chains, n_rows, dim_padded, n_leap") == 2
+    assert 'extern "C" long long traced_glm_workspace_bytes' in src
+    assert "dim_padded > kMaxDimPadded" in src
+    assert src == _cuda.link_source(lc.trace_link(_cloglog).source, 8192)
+    assert [_cuda.glm_body(dp) for dp in (128, 256, 1024, 1152)] == \
+        ["128", "cluster", "cluster", "two-pass"]
+    for dp in (128, 1024):
+        other = _cuda.link_source(lc.trace_link(_cloglog).source, dp)
+        assert "work" not in other
+        assert _cuda.link_library_path(src) != _cuda.link_library_path(other)
 
 
 def _reduction(e, y):
