@@ -60,7 +60,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel runs its warpgroup body, to this width its cluster body of one
 # block per 128-column panel (at most eight, the portable cluster size),
 # past it its two-pass body; the Gaussian kernel streams P from L2 past 128
-# and splits the columns over a cluster past this width
+# and runs its products on the tensor cores (3xTF32) past this width
 CLUSTER_MAX_DIM_PADDED = 1024
 # the live widths the Gaussian kernel is instantiated for at 128 padded
 # columns: a launch runs the smallest that holds the model's dimension
@@ -198,6 +198,10 @@ def load():
         fn.restype = ci
         lib.fused_gaussian_xwide_workspace_bytes.argtypes = [ci] * 2
         lib.fused_gaussian_xwide_workspace_bytes.restype = ll
+        # n_chains, dim, int[5] out: blocks, chain tiles, blocks a tile,
+        # the blocks the card runs at once, waves
+        lib.fused_gaussian_xwide_grid.argtypes = [ci, ci, vp]
+        lib.fused_gaussian_xwide_grid.restype = ci
         lib.fused_glm_error_string.argtypes = [ci]
         lib.fused_glm_error_string.restype = ctypes.c_char_p
         _lib = lib

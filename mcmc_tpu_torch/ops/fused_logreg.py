@@ -68,10 +68,17 @@ step size read from device memory). The Gaussian family
 (:func:`make_fused_gaussian_trajectory`, ``csrc/fused_gaussian_trajectory.cu``)
 is all f32: its gradient is one product of the chain tile with the precision
 matrix, which the kernel keeps in registers for the whole trajectory at 128
-padded columns, streams from L2 at 256 to 1,024
-(``csrc/fused_gaussian_trajectory_wide.cu``), and past 1,024 splits its
-columns over a cluster of blocks on 64 chains, each streaming its slices of
-P and the chains' ``z - m`` (``csrc/fused_gaussian_trajectory_xwide.cu``).
+padded columns and streams from L2 at 256 to 1,024
+(``csrc/fused_gaussian_trajectory_wide.cu``), as f32 FMAs. Past 1,024
+(``csrc/fused_gaussian_trajectory_xwide.cu``) its products run on the
+tensor cores in 3xTF32, each f32 operand split into a TF32 high and low
+part and three TF32 products summed in f32, over blocks of 128 chains and
+128-column slices on a grid of one wave (:func:`gaussian_xwide_grid`): an
+f32-accurate product, as the TPU kernel's is a 3-pass bf16 decomposition
+(``mcmc_tpu/ops/fused_logreg.py:344-350``), but not the plain version's bits
+even on a diagonal precision (a Deviation: the card's tests hold both to the
+plain version in float64). The plain version stays f32 at the "highest"
+matmul precision.
 The bodies past 1,024 columns take a workspace in device memory, which the
 wrappers allocate with ``torch.empty``; when the card has no room, the error
 names the bytes.
@@ -91,6 +98,7 @@ leapfrog, min(0.01, .) accept clamp, +inf guard).
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
@@ -765,6 +773,24 @@ def fused_gaussian_trajectory_cuda(z, p, P, mean, eps, n_leap, dim=None):
 
 
 fused_gaussian_trajectory_cuda.launches = 0
+
+
+def gaussian_xwide_grid(n_chains, dim):
+    """The grid the fused Gaussian trajectory kernel launches past 1,024
+    padded columns on the current card for ``n_chains`` chains of a
+    ``dim``-dimensional model: a dict of ``blocks``, chain ``tiles``,
+    ``per_tile`` (blocks a tile), ``capacity`` (the blocks the card runs at
+    once, from the occupancy query) and ``waves``."""
+    from mcmc_tpu_torch.ops import _cuda
+
+    lib = _cuda.load()
+    out = (ctypes.c_int * 5)()
+    rc = lib.fused_gaussian_xwide_grid(int(n_chains), int(dim), out)
+    if rc != 0:
+        raise RuntimeError("fused Gaussian trajectory grid query failed: "
+                           + lib.fused_glm_error_string(rc).decode())
+    return dict(zip(("blocks", "tiles", "per_tile", "capacity", "waves"),
+                    out))
 
 
 def fused_gaussian_trajectory(z, p, P, mean, eps, n_leap, dim=None):

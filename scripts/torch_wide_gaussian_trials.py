@@ -14,10 +14,14 @@ numpy's generator seeded with ``dim``, a random mean), at 250, 500, 784 and
 1,000 dims (256, 512, 896 and 1,024 padded columns). Per width, precision
 and variant it prints the per-chain scaled error against the plain version
 (99th percentile and max, ``chip_smoke.py``'s measure), whether z and p
-equal the plain version's bits (required on the diagonal), whether two
-launches are bit-equal, whether padded columns stay zero, and whether z, p
-and U equal the first variant's bits; then each variant's time (median of
-CUDA-event windows of back-to-back launches, the variants in turns).
+equal the plain version's bits (required on the diagonal to 1,024 padded
+columns), the largest scaled error of the variant and of the f32 plain
+version against the plain version in float64 (past 1,024, where the
+products are 3xTF32 on the tensor cores, the variant's must stay within 4
+times), whether two launches are bit-equal, whether padded columns stay
+zero, and whether z, p and U equal the first variant's bits; then each
+variant's time (median of CUDA-event windows of back-to-back launches, the
+variants in turns).
 Every line names the width as padded columns/dims. ``--stress N`` launches
 each variant N times back to back on each precision and prints whether
 every launch gave the first one's bits.
@@ -32,8 +36,13 @@ the last thread of each block: words 0-5 in clocks, 14 the products, 15 the
 panels) is named with ``--instr``: it is run once more with the buffer
 installed and its counters are printed per panel or per product, as
 ``--labels`` says (``name/panel`` or ``name/product``). For each variant the
-script also prints ``cudaOccupancyMaxActiveClusters`` at clusters of 1, 2,
-4, 5 and 8 blocks and the body's shared memory at each width.
+script also prints the body's shared memory at each width and what the
+card runs of it at once: for the wide body ``cudaOccupancyMaxActiveClusters``
+at clusters of 1, 2, 4, 5 and 8 blocks, for the body past 1,024 its grid at
+2,048 chains (blocks, chain tiles, blocks a tile, waves). A trial of the
+body past 1,024 is a copy of its source kept under ``build/`` with one
+constant changed (a panel's depth, the stages, how many panels a
+tensor-core sum runs over), named beside the source itself.
 
 From the repository root, with a card:
 
@@ -127,27 +136,10 @@ extern "C" int trial_launch(const void* z, const void* p, const void* P,
 extern "C" int trial_smem_bytes(int dim_padded, int dim) {{
   return gauss_xwide::kSmemBytes;
 }}
-extern "C" int trial_max_clusters(int k, int dim_padded, int dim) {{
-  const auto kernel = gauss_xwide::fused_gaussian_xwide_kernel;
-  const int bytes = gauss_xwide::kSmemBytes;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           bytes) != cudaSuccess)
-    return -1;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = k;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {{}};
-  cfg.gridDim = dim3(k * 64);
-  cfg.blockDim = dim3(gauss_xwide::kThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = -1;
-  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess)
-    return -1;
-  return n;
+// the grid of a launch at 2,048 chains: blocks, tiles, blocks a tile, the
+// blocks the card runs at once, waves
+extern "C" int trial_grid(int dim, int* out) {{
+  return fused_gaussian_xwide_grid(2048, dim, out);
 }}
 """
 # how the shim names a body's kernel, threads and shared memory: the first
@@ -186,8 +178,26 @@ def bind(lib):
     lib.trial_launch.restype = ci
     lib.trial_smem_bytes.argtypes = [ci, ci]
     lib.trial_smem_bytes.restype = ci
-    lib.trial_max_clusters.argtypes = [ci, ci, ci]
-    lib.trial_max_clusters.restype = ci
+    if hasattr(lib, "trial_grid"):
+        lib.trial_grid.argtypes = [ci, vp]
+        lib.trial_grid.restype = ci
+    else:
+        lib.trial_max_clusters.argtypes = [ci, ci, ci]
+        lib.trial_max_clusters.restype = ci
+
+
+def occupancy(lib, w, dim):
+    """What the card runs at once of a variant: for the body past 1,024
+    columns its grid at 2,048 chains, else the clusters of 1, 2, 4, 5 and 8
+    blocks that fit."""
+    if hasattr(lib, "trial_grid"):
+        out = (ctypes.c_int * 5)()
+        lib.trial_grid(dim, out)
+        return ("grid at 2,048 chains: {} blocks, {} tiles x {} blocks, {} "
+                "at once, {} wave(s)".format(*out))
+    return ("max active clusters at 1 / 2 / 4 / 5 / 8 blocks "
+            + " / ".join(str(lib.trial_max_clusters(k, w, dim))
+                         for k in (1, 2, 4, 5, 8)))
 
 
 def launch(lib, z, p, P, mean, eps, dim):
@@ -308,12 +318,16 @@ def main():
         for name in variants:
             lib, w = libs[name], fl._round_up(dim, 128)
             print(f"{tag} {name}: shared memory "
-                  f"{lib.trial_smem_bytes(w, dim)} bytes; max active "
-                  "clusters at 1 / 2 / 4 / 5 / 8 blocks "
-                  + " / ".join(str(lib.trial_max_clusters(k, w, dim))
-                               for k in (1, 2, 4, 5, 8)))
+                  f"{lib.trial_smem_bytes(w, dim)} bytes; "
+                  f"{occupancy(lib, w, dim)}")
         for kind, targs in problems(dim, dev, gen):
             want = fl._fused_gaussian_trajectory_plain(*targs, N_LEAP, dim)
+            z, p, P, mean, _eps = targs
+            exact = fl._fused_gaussian_trajectory_plain(
+                z.double(), p.double(), P.double(), mean.double(), STEP,
+                N_LEAP, dim)
+            plain_err = float(scaled_errors(
+                [t.double() for t in want], exact).max())
             outs = {}
             for name in names:
                 a = launch(libs[name], *targs, dim)
@@ -328,6 +342,11 @@ def main():
                       f"{all(torch.equal(u, v) for u, v in zip(a, b))}; "
                       "padded columns zero "
                       f"{bool((a[0][:, dim:] == 0).all() and (a[1][:, dim:] == 0).all())}")
+                f64 = float(scaled_errors([t.double() for t in a],
+                                          exact).max())
+                print(f"  {tag} {kind} {name}: largest scaled error "
+                      f"against float64 {f64:.3e}, the f32 plain "
+                      f"version's {plain_err:.3e} ({f64 / plain_err:.2f}x)")
                 outs[name] = a
             for name in names[1:]:
                 eq = [torch.equal(u, v)
@@ -362,7 +381,7 @@ def main():
                 for nm, (m, lo, hi) in zip(timed, res):
                     print(f"  time {tag} {kind} {nm}: {m:.4f} ms (min "
                           f"{lo:.4f}, max {hi:.4f})")
-            del want, outs
+            del want, exact, outs
 
 
 if __name__ == "__main__":

@@ -489,21 +489,41 @@ def test_logistic_regression_with_mass_matches_jax():
     _assert_adapted_in_spread(out, np.asarray(j_eps), np.asarray(j_T))
 
 
+# the keys of test_dense_mass_correlated_gaussian: one key's dense/diag
+# ratio spreads over 0.95-3.83, so the check pools them
+DENSE_KEYS = tuple(range(8))
+
+
 def test_dense_mass_correlated_gaussian():
-    """rho = 0.9, 4-d (tests/test_chees.py:110-128 at a smaller size):
-    dense mass adaptation recovers every covariance entry within 4 MC
-    standard errors, and beats the diagonal metric on min ESS."""
-    rho, dim = 0.9, 4
+    """rho = 0.95, 6-d, tests/test_chees.py:110-128's target, at 200 + 100
+    draws of 128 chains: dense mass adaptation recovers every covariance
+    entry within 4 MC standard errors, and beats the diagonal metric on
+    min ESS by 1.5x, pooled over DENSE_KEYS (the sum of dense's min ESS over
+    the sum of diag's).
+
+    One key decides nothing: one key's ratio spread, measured on the CPU
+    over 64 keys, over 0.95-3.83 (12 under 1.5); at rho = 0.9, 4-d, the
+    former target, over 0.67-4.99 (15 of 48 under 1.5), the dense run's
+    adapted trajectory length landing near 2.2 or near 4.4, and the JAX
+    package's ``chees`` there over 0.76-3.14 (12 keys, 4 under 1.5) with
+    the same two modes. Resampled from the 64 keys, 8 keys pool under 1.5
+    in 0.27% of draws (their 0.1% quantile 1.45); the pooled ratio of all
+    64 is 2.07."""
+    rho, dim = 0.95, 6
     cov = ((1 - rho) * np.eye(dim) + rho * np.ones((dim, dim))
            ).astype(np.float32)
     _, tlk = gaussian_pair(np.linalg.inv(cov).astype(np.float32))
     s = mcmc_tpu_torch.ChEESSettings(n_burnin_draws=200, n_keep_draws=100)
-    ess = {}
-    for mode in ("diag", "dense"):
-        out = mcmc_tpu_torch.chees(torch.zeros(dim), tlk, s, n_chains=128,
-                                   key=2, adapt_mass_matrix=mode)
-        ess[mode] = float(td.ess(out.draws).min())
-    d = out.draws
+    ess = {"diag": 0.0, "dense": 0.0}
+    dense = []
+    for key in DENSE_KEYS:
+        for mode in ("diag", "dense"):
+            out = mcmc_tpu_torch.chees(torch.zeros(dim), tlk, s,
+                                       n_chains=128, key=key,
+                                       adapt_mass_matrix=mode)
+            ess[mode] += float(td.ess(out.draws).min())
+        dense.append(out.draws)
+    d = torch.cat(dense, dim=1)
     for i in range(dim):
         for j in range(i, dim):
             _assert_moment(d[..., i] * d[..., j], float(cov[i, j]),

@@ -4,7 +4,7 @@ The CUDA kernels take every multiple of 128 padded columns, as the JAX
 package pads: the GLM trajectory (K1, and K3, its run-time-parameter entry)
 through a cluster body of one block per 128-column panel up to 1,024 and a
 two-pass cluster body past it, the Gaussian trajectory (K2) by streaming P
-from L2, past 1,024 with its columns split over a cluster. On the CPU the
+from L2, past 1,024 with its products 3xTF32 on the tensor cores. On the CPU the
 port runs their plain PyTorch versions, which these tests hold against the
 JAX package's Pallas kernels in interpret mode, as
 tests/test_torch_fused_logreg.py and tests/test_torch_fused_gaussian.py do
@@ -16,8 +16,11 @@ and 2,176 on a diagonal and a dense precision, and one fused HMC transition
 at 384 and at 1,152 fed JAX's momenta and uniforms; two callable links,
 written once in ``jnp`` and once in torch (a complementary log-log
 Bernoulli and the JAX package's logistic hook), K1 at 384 on each, K3 at
-384 on the first, and K1 at 1,152 on the first; and ``convert``'s carriers
-at 1,152. The kernels themselves (a callable link traced into them) are
+384 on the first, and K1 at 1,152 on the first; ``convert``'s carriers at
+1,152; and the arithmetic of K2's products past 1,024 padded columns, 3xTF32
+on the tensor cores, emulated (the TF32 split through an int32 view, each
+product three float32 products) at 384 against Pallas and float64. The
+kernels themselves (a callable link traced into them) are
 held against these plain versions on the card in
 tests/test_torch_kernels_cuda.py.
 
@@ -288,6 +291,110 @@ def test_gaussian_trajectory_matches_pallas(kind, dim, dp):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4,
                                    atol=2e-4)
     assert torch.all(got[0][:, dim:] == 0) and torch.all(got[1][:, dim:] == 0)
+
+
+def _tf32(x):
+    """``x`` (float32) rounded to TF32 as the kernel's ``cvt.rna.tf32.f32``
+    does: to nearest, ties away from zero, to 10 mantissa bits, through an
+    int32 view (the sign is a bit of its own, so adding half of the 13
+    dropped bits' unit to the magnitude rounds ties away)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    """The kernel's split: hi = tf32(x), lo = tf32(x - hi)."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _trajectory_3xtf32(z, p, P, mean, eps, n_leap):
+    """K2's trajectory (``_fused_gaussian_trajectory_plain``'s order of
+    updates) with every product d . P done as the kernel past 1,024 padded
+    columns does it, in float32: d_lo . P_hi + d_hi . P_lo + d_hi . P_hi,
+    each operand split into TF32 parts."""
+    P_hi, P_lo = _split(P)
+
+    def grad_of(z):
+        d_hi, d_lo = _split(z - mean)
+        return -((d_lo @ P_hi + d_hi @ P_lo) + d_hi @ P_hi)
+
+    half_eps = 0.5 * eps
+    g = grad_of(z)
+    for _ in range(n_leap):
+        p = p + half_eps * g
+        z = z + eps * p
+        g = grad_of(z)
+        p = p + half_eps * g
+    d_hi, d_lo = _split(z - mean)
+    u = 0.5 * ((z - mean) * ((d_lo @ P_hi + d_hi @ P_lo) + d_hi @ P_hi)
+               ).sum(dim=1)
+    return z, p, u
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    """The emulated split: hi keeps 10 mantissa bits, rounded to nearest
+    with ties away from zero; lo is the rest to 2^-11 of it, so hi + lo
+    is x to about 2^-22 of x."""
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -11 - 2.0 ** -23, 3.0 + 2.0 ** -10],
+                     dtype=torch.float32)
+    want = torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0,
+                         3.0 + 2.0 ** -9], dtype=torch.float32)
+    assert torch.equal(_tf32(x), want)
+    v = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        10_000).astype(np.float32))
+    hi, lo = _split(v)
+    assert torch.equal(_tf32(hi), hi) and torch.equal(_tf32(lo), lo)
+    assert torch.all((hi.view(torch.int32) & 0x1FFF) == 0)
+    rel = (hi.double() + lo.double() - v.double()).abs() / v.double().abs()
+    assert float(rel.max()) <= 2.0 ** -22
+
+
+@pytest.mark.parametrize("kind", ["diagonal", "dense"])
+def test_gaussian_trajectory_3xtf32_arithmetic(kind):
+    """The arithmetic the card's check holds K2 to past 1,024 padded
+    columns, on the CPU: 8 leapfrogs at step 0.9 on 300 dimensions (384
+    padded columns; condition number 1e3), 16 chains, with every product
+    split into TF32 parts as the kernel splits them and done as three
+    float32 products, against JAX's Pallas kernel in interpret mode at this
+    file's Gaussian tolerance (rtol, atol 2e-4), and against the same
+    trajectory in float64: its largest per-chain error relative to each
+    output's scale at most 4 times that of the float32 plain version
+    (the card's check; measured 1.37 and 1.38 times here)."""
+    dim, n_leap, chains = 300, 8, 16
+    P, mean = _gauss_target(kind, dim)
+    jtraj = jfl.make_fused_gaussian_trajectory(P, mean, 0.9, n_leap,
+                                               block_chains=chains,
+                                               interpret=True)
+    ttraj = tfl.make_fused_gaussian_trajectory(P, mean, 0.9, n_leap,
+                                               block_chains=chains,
+                                               device="cpu")
+    dp = ttraj.dim_padded
+    rng = np.random.default_rng(11)
+    z0 = np.zeros((chains, dp), np.float32)
+    p0 = np.zeros((chains, dp), np.float32)
+    z0[:, :dim] = rng.standard_normal((chains, dim))
+    p0[:, :dim] = rng.standard_normal((chains, dim))
+    z, p = torch.from_numpy(z0), torch.from_numpy(p0)
+    got = _trajectory_3xtf32(z, p, ttraj.P, ttraj.mean, 0.9, n_leap)
+    want = jtraj(jnp.asarray(z0), jnp.asarray(p0))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4,
+                                   atol=2e-4)
+    plain = tfl._fused_gaussian_trajectory_plain(z, p, ttraj.P, ttraj.mean,
+                                                 0.9, n_leap)
+    exact = tfl._fused_gaussian_trajectory_plain(
+        z.double(), p.double(), ttraj.P.double(), ttraj.mean.double(), 0.9,
+        n_leap)
+
+    def worst(out):
+        return max(float(((a.double() - b).abs().max(dim=-1).values
+                          if a.ndim > 1 else (a.double() - b).abs()).max()
+                         / b.abs().max().clamp_min(1))
+                   for a, b in zip(out, exact))
+
+    assert worst(got) <= 4 * worst(plain), (worst(got), worst(plain))
 
 
 def test_fused_step_at_384_fed_jax_draws(monkeypatch):
