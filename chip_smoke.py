@@ -15,7 +15,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the JAX package's logistic hook on the 128 body; ``_cuda.build_link``);
    prints
    the build time, ptxas's registers and spills, and gates on no ``wgmma``
-   advisory for a traced link;
+   advisory for a traced link, on no spills in the two-pass body
+   (``fused_glm_xwide_body.cuh``: its registers and spills printed for
+   each instantiation, the library's and the traced link's) and on no
+   ``CALL`` in a traced link's SASS (``cuobjdump -sass``, counted and
+   printed); both facts go into the kernels' JSON line;
 3. the GLM trajectory kernel against its plain PyTorch version at the
    flagship shapes (16384 chains, 100 dims, 1000 observations, 4 leapfrogs
    at step 0.01) for each built-in link, Student-t included: max errors
@@ -273,6 +277,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -923,11 +929,50 @@ def close_but_rare(what, got, want, chains):
     return dzp, float(rel.max())
 
 
+def ptxas_entries(log, kernel):
+    """ptxas's report of each instantiation of ``kernel`` (a substring of
+    its mangled name) in a build log: ``{"registers", "spill_stores",
+    "spill_loads"}`` (bytes) per entry function."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = {} if kernel in line else None
+            if cur is not None:
+                out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return out
+
+
+def sass_calls(so):
+    """The ``CALL`` instructions in a library's SASS (``cuobjdump -sass``):
+    a slow path the compiler left out of line. None without cuobjdump."""
+    from mcmc_tpu_torch.ops import _cuda
+
+    tool = shutil.which("cuobjdump") or str(
+        os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump"))
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=600).stdout
+    return len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?CALL\b",
+                          sass))
+
+
 def traced_builds(_cuda):
     """Print each traced link's build (nvcc seconds; ptxas's registers,
-    spills and wgmma notes) and gate on no wgmma advisory: the traced link
-    sits under no branch, so ptxas must pipeline its products as it does
-    the built-in links'."""
+    spills and wgmma notes; the CALLs in its SASS) and gate on no wgmma
+    advisory (the traced link sits under no branch, so ptxas must pipeline
+    its products as it does the built-in links') and on no CALL (every
+    quotient is ``div_rn``, which has no slow path). Returns the CALL count
+    of each library by name."""
+    calls = {}
     for path, (seconds, log) in _cuda.link_builds.items():
         print(f"  traced link {path.name}: nvcc {seconds:.1f} s")
         notes = []
@@ -938,6 +983,35 @@ def traced_builds(_cuda):
                 notes.append(line.strip())
                 print("    ptxas advisory:", line.strip())
         check(not notes, f"ptxas serialises or fences {path.name}'s wgmma")
+        calls[path.name] = sass_calls(path)
+        print(f"    SASS: {calls[path.name]} CALL instructions "
+              "(cuobjdump -sass)")
+        check(calls[path.name] in (0, None),
+              f"{path.name}'s SASS holds no slow-path CALL")
+    return calls
+
+
+def xwide_build_report(_cuda):
+    """ptxas's registers and spills of the two-pass body's instantiations
+    (the library's and the traced links'), printed and gated on no spills.
+    Returns them by library."""
+    logs = {"library": _cuda.build_log}
+    logs.update({path.name: log
+                 for path, (_s, log) in _cuda.link_builds.items()})
+    report = {}
+    for name, log in logs.items():
+        entries = ptxas_entries(log, "fused_glm_xwide_kernel")
+        if not entries:
+            continue
+        report[name] = entries
+        for e in entries:
+            print(f"  two-pass body ({name}): {e.get('registers')} "
+                  f"registers, {e.get('spill_stores')} bytes spill stores, "
+                  f"{e.get('spill_loads')} bytes spill loads")
+        check(all(e.get("spill_stores") == 0 and e.get("spill_loads") == 0
+                  for e in entries),
+              f"the two-pass body ({name}) builds without spills")
+    return report
 
 
 def glm_compare(what, fns, got, want, dim, reps=10, calls=10):
@@ -3677,7 +3751,10 @@ def main():
     for name, t in traced.items():
         print(f"  {name} traced to {len(t.ops)} aten ops, {t.sfu[0]} + "
               f"{t.sfu[1]} special-function operations an element")
-    traced_builds(_cuda)
+    # the two-pass body's ptxas report and the traced links' SASS CALLs,
+    # for the kernels' JSON line
+    build_report = {"two_pass_body_ptxas": xwide_build_report(_cuda),
+                    "traced_link_sass_calls": traced_builds(_cuda)}
     for line in _cuda.build_log.splitlines():
         if "Compiling" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -4257,6 +4334,7 @@ def main():
                             src + "fused_glm_trajectory_wide.cu",
                             src + "fused_glm_trajectory_xwide.cu"],
         "traced_link_source": "mcmc_tpu_torch/ops/link_codegen.py",
+        **build_report,
         "replaces": "mcmc_tpu/ops/fused_logreg.py:163",
         "launches": launches,
         "launches_by_link": {"logistic": launches,
@@ -4294,6 +4372,7 @@ def main():
                             src + "fused_glm_trajectory_wide.cu",
                             src + "fused_glm_trajectory_xwide.cu"],
         "traced_link_source": "mcmc_tpu_torch/ops/link_codegen.py",
+        **build_report,
         "replaces": "mcmc_tpu/ops/fused_logreg.py:498",
         "launches": rt_launches,
         "launches_by_link": {"logistic": rt_launches,

@@ -1,9 +1,9 @@
 // Fused HMC leapfrog trajectory on a GLM posterior past 1024 padded
 // columns, for Hopper (sm_90a): the package's library entries of the
 // two-pass body (fused_glm_xwide_body.cuh, whose design is described there)
-// on the five built-in links, chosen at run time by their code
-// (BuiltinLinks). Replaces the same two TPU kernels as
-// fused_glm_trajectory.cu (mcmc_tpu/ops/fused_logreg.py:
+// on the five built-in links, one instantiation a link, chosen at launch
+// by their code (glm_xwide::launch_builtin). Replaces the same two TPU
+// kernels as fused_glm_trajectory.cu (mcmc_tpu/ops/fused_logreg.py:
 // make_fused_trajectory, pallas_call :215; make_fused_trajectory_rt,
 // pallas_call :551) at the widths the cluster body cannot hold. The
 // caller allocates the body's workspace, fused_glm_xwide_workspace_bytes
@@ -24,7 +24,7 @@ int xwide_dispatch(const void* z, const void* p, const void* X, const void* y,
       link > kStudentT || (link == kStudentT && !(nu > 0.0f)) ||
       dim_padded <= kMaxDimPadded || dim_padded % glm_xwide::PW != 0)
     return (int)cudaErrorInvalidValue;
-  return (int)glm_xwide::launch<BuiltinLinks, RT>(
+  return (int)glm_xwide::launch_builtin<RT>(
       z, p, X, y, mask, eps_ptr, inv_mass, z_out, p_out, u_out, work,
       n_chains, n_rows, dim_padded, n_leap, half_eps, eps, inv_pv, link, nu,
       static_cast<cudaStream_t>(stream));

@@ -1,7 +1,7 @@
 // The PTX wrappers the fused kernels share, for Hopper (sm_90a): cp.async,
-// mbarriers (local and across a cluster), the proxy fence, the cluster's
+// mbarriers (local and across a cluster), the proxy fences, the cluster's
 // rank, barrier and address map, and bulk copies (block to block, and from
-// global memory into a block).
+// global memory into a block or multicast to the blocks of a cluster).
 //
 // Included by fused_glm_common.cuh (so by both GLM bodies) and by
 // fused_gaussian_trajectory_wide.cu. Everything is in an anonymous
@@ -80,6 +80,12 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Makes this thread's global-memory writes visible to the async proxy: to
+// bulk copies that another block starts after a barrier that orders them.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
@@ -137,6 +143,15 @@ __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
   }
 }
 
+// One arrival on the mbarrier at cluster address `bar` (this block's or
+// another's, from map_rank), with mbarrier.arrive's default semantics
+// (release at CTA scope: on an H100 a release at cluster scope cost the
+// two-pass GLM body about 7,800 clocks an item in clock counters).
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
 // A bulk copy of `bytes` from this block's shared memory at `src` to the
 // cluster address `dst`, completing the transactions of the mbarrier at
 // cluster address `bar` (in dst's block).
@@ -158,6 +173,19 @@ __device__ __forceinline__ void bulk_from_global(uint32_t dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// bulk_from_global's copy multicast to the blocks of the cluster in `mask`
+// (bit b: rank b): the bytes land at `dst` in each of their shared
+// memories and complete the transactions of each one's mbarrier at `bar`.
+__device__ __forceinline__ void bulk_multicast(uint32_t dst, const void* src,
+                                               int bytes, uint32_t bar,
+                                               uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes."
+      "multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
       : "memory");
 }
 

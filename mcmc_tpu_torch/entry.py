@@ -14,7 +14,8 @@ on the card unless ``device=`` asks for another device.
 ``dryrun_multichip(n)`` starts ``n`` ranks on this machine and runs the
 eleven sharded paths of the JAX package's dry run through
 :mod:`mcmc_tpu_torch.parallel` (``python -m mcmc_tpu_torch.entry
---dryrun-multichip N [--device cpu|cuda] [--out FILE]``).
+--dryrun-multichip N [--device cpu|cuda] [--out FILE]``), on the card
+unless ``--device cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -206,11 +207,12 @@ def dryrun_multichip(n_devices: int, device=None, timeout_s: float = 600.0):
     through the port on a mesh of them: NUTS, ChEES, MCLMC, the evidence
     ladder and block Gibbs chain-sharded; DE, SMC and the stretch ensemble
     population-sharded; AEES and PT ladder-sharded; HMC on a (chains,
-    data) grid. Raises if a rank fails or the ranks' statistics differ;
-    returns ``{"n_devices", "ok", "device", "paths", "seconds"}``."""
+    data) grid. With no ``device`` the ranks run on the card (and fail
+    without one), as every entry point does; pass ``device="cpu"`` for the
+    CPU. Raises if a rank fails or the ranks' statistics differ; returns
+    ``{"n_devices", "ok", "device", "paths", "seconds"}``."""
     from mcmc_tpu_torch.parallel import launch_local
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = resolve_device(device)
     t0 = time.perf_counter()
     ranks = launch_local(int(n_devices),
                          ["-m", "mcmc_tpu_torch.entry", "--dryrun-rank",

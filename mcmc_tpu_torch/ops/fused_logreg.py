@@ -14,7 +14,8 @@ blocks, one per 128-column panel, that sum the linear predictor through
 distributed shared memory (``csrc/fused_glm_wide_body.cuh``); wider still, a
 cluster of blocks that splits each gradient into two passes, the first
 over row tiles (eta, the link, bf16 r to device memory), the second over
-column panels (``csrc/fused_glm_xwide_body.cuh``). The kernels take every
+column panels, each pass's operand multicast to the cluster's blocks
+(``csrc/fused_glm_xwide_body.cuh``). The kernels take every
 width the JAX package pads to, any multiple of 128: only device memory
 limits it.
 

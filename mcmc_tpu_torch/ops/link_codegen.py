@@ -25,10 +25,12 @@ compiles it into the GLM bodies.
 What it emits, so that a traced link is held to its plain version (the
 same callable run by torch) and not to a built-in's fast-math bits: every
 operation rounds as torch's elementwise kernel of that operation does --
-``__fadd_rn``, ``__fsub_rn``, ``__fmul_rn`` and ``__fdiv_rn`` keep the
-compiler from contracting a product and a sum into one fused multiply-add --
-and the special functions are CUDA's accurate ones (``expf``, ``log1pf``,
-``expm1f``, ``erff``, ...; never ``__expf``). Python-float constants are
+``__fadd_rn``, ``__fsub_rn`` and ``__fmul_rn`` keep the compiler from
+contracting a product and a sum into one fused multiply-add, and every
+quotient is ``div_rn`` (``csrc/fused_glm_common.cuh``), correctly rounded as
+``__fdiv_rn`` but without its slow-path call -- and the special functions
+are CUDA's accurate ones (``expf``, ``log1pf``, ``expm1f``, ``erff``, ...;
+never ``__expf``). Python-float constants are
 written exactly, as the hex-float literal of their f32 value, and a 0-d
 tensor the callable captures is folded to its value.
 
@@ -149,11 +151,11 @@ def _pow_scalar(x, e):
     if e == 0.5:
         return f"sqrtf({x})"
     if e == -0.5:
-        return f"__fdiv_rn(1.0f, sqrtf({x}))"
+        return f"div_rn(1.0f, sqrtf({x}))"
     if e == -1.0:
-        return f"__fdiv_rn(1.0f, {x})"
+        return f"div_rn(1.0f, {x})"
     if e == -2.0:
-        return f"__fdiv_rn(1.0f, __fmul_rn({x}, {x}))"
+        return f"div_rn(1.0f, __fmul_rn({x}, {x}))"
     return f"powf({x}, {_literal(e)})"
 
 
@@ -173,7 +175,7 @@ def _softplus(x, beta=1.0, threshold=20.0):
     bx = x if float(beta) == 1.0 else f"__fmul_rn({x}, {_literal(beta)})"
     sp = f"log1pf(expf({bx}))"
     if float(beta) != 1.0:
-        sp = f"__fdiv_rn({sp}, {_literal(beta)})"
+        sp = f"div_rn({sp}, {_literal(beta)})"
     return f"(({bx}) > {_literal(threshold)} ? ({x}) : {sp})"
 
 
@@ -208,15 +210,15 @@ OPS = {
     "aten.rsub.Tensor": (lambda a, b, alpha=1: _sub(b, a, alpha), "float"),
     "aten.mul.Tensor": (_call("__fmul_rn"), "float"),
     "aten.mul.Scalar": (_call("__fmul_rn"), "float"),
-    "aten.div.Tensor": (_call("__fdiv_rn"), "float"),
-    "aten.div.Scalar": (_call("__fdiv_rn"), "float"),
+    "aten.div.Tensor": (_call("div_rn"), "float"),
+    "aten.div.Scalar": (_call("div_rn"), "float"),
     "aten.neg.default": (lambda x: f"(-({x}))", "float"),
-    "aten.reciprocal.default": (lambda x: f"__fdiv_rn(1.0f, {x})", "float"),
+    "aten.reciprocal.default": (lambda x: f"div_rn(1.0f, {x})", "float"),
     "aten.pow.Tensor_Scalar": (None, "float"),   # by its exponent, below
     "aten.pow.Scalar": (_call("powf"), "float"),
     "aten.pow.Tensor_Tensor": (_call("powf"), "float"),
     "aten.sqrt.default": (_call("sqrtf"), "float"),
-    "aten.rsqrt.default": (lambda x: f"__fdiv_rn(1.0f, sqrtf({x}))",
+    "aten.rsqrt.default": (lambda x: f"div_rn(1.0f, sqrtf({x}))",
                            "float"),
     "aten.abs.default": (_call("fabsf"), "float"),
     "aten.exp.default": (_call("expf"), "float"),
@@ -227,7 +229,7 @@ OPS = {
     "aten.log10.default": (_call("log10f"), "float"),
     "aten.log1p.default": (_call("log1pf"), "float"),
     "aten.sigmoid.default": (
-        lambda x: f"__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-({x}))))",
+        lambda x: f"div_rn(1.0f, __fadd_rn(1.0f, expf(-({x}))))",
         "float"),
     "aten.tanh.default": (_call("tanhf"), "float"),
     "aten.erf.default": (_call("erff"), "float"),
@@ -470,7 +472,8 @@ def trace_link(fn) -> TracedLink:
 
 # The device intrinsics the functor uses, as host C++ (for compiling a
 # traced functor with a host compiler; the math library names are the C
-# library's own).
+# library's own, and div_rn, the kernels' correctly rounded quotient, is
+# the host's a / b).
 HOST_SHIM = """#include <math.h>
 #include <string.h>
 #define __device__
@@ -483,5 +486,5 @@ static inline float __int_as_float(int i) {
 static inline float __fadd_rn(float a, float b) { return a + b; }
 static inline float __fsub_rn(float a, float b) { return a - b; }
 static inline float __fmul_rn(float a, float b) { return a * b; }
-static inline float __fdiv_rn(float a, float b) { return a / b; }
+static inline float div_rn(float a, float b) { return a / b; }
 """

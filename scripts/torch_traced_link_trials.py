@@ -1,25 +1,35 @@
 """Variants of the GLM trajectory on a traced link, side by side, on an NVIDIA GPU.
 
-Each variant is a link functor compiled into the 128 body or the cluster
-body through the translation unit ``mcmc_tpu_torch/ops/_cuda.py`` generates
-for a traced link (``link_source``), each into a library of its own with the
-package's nvcc flags, all compiled at once. A variant is ``name=SPEC``:
+Each variant is a link functor compiled into the body ``--dp`` needs (the
+128 body, the cluster body or the two-pass body) through the translation
+unit ``mcmc_tpu_torch/ops/_cuda.py`` generates for a traced link
+(``link_source``), each into a library of its own with the package's nvcc
+flags, all compiled at once. A variant is ``name=SPEC``:
 
 - ``traced:LINK``: the functor ``ops/link_codegen.py`` traces from LINK
   (``cloglog`` or ``logistic_hook``, as ``chip_smoke.py`` writes them);
-- ``fastdiv:LINK``: the same with each IEEE quotient ``__fdiv_rn`` replaced
-  by the approximate ``__fdividef`` (a trial: the quotient's slow path is a
-  ``CALL`` in the kernel);
+- ``fastdiv:LINK``: the same with each quotient ``div_rn`` replaced by the
+  approximate ``__fdividef`` (a trial);
+- ``ieee:LINK``: the same with each ``div_rn`` replaced by CUDA's
+  ``__fdiv_rn``, whose slow path is a ``CALL`` in the kernel (what the
+  tracer emitted before ``div_rn``);
+- ``f64div:LINK``: the same with each ``div_rn`` replaced by a quotient
+  computed in f64 alone (``F64_DIV``: no f32 path; a trial);
 - ``builtin:CODE``: a functor that calls the built-in link CODE's code
   (``link_residual<CODE>`` of ``csrc/fused_glm_common.cuh``): the library's
   arithmetic in a traced link's translation unit;
 - ``file:PATH``: a functor source (``struct TracedLink``) from a file.
 
+``SPEC@DIR`` builds the variant against the headers in DIR (a parent copy
+of ``mcmc_tpu_torch/csrc``) in place of the package's; ``SPEC%NAME`` with
+``-DNAME`` (a trial switch of a header).
+
 It runs every variant and the package's library on the logistic link at
 ``chip_smoke.py``'s shapes (16,384 chains, 4 leapfrogs of 0.01, prior scale
-10; 100 x 1,000 at 128 padded columns, 784 x 2,000 at 896), compares each
-variant with the plain version of its link (for ``builtin:0``, the bits of
-the library), times them in turns (median of CUDA-event windows of
+10; 100 x 1,000 at 128 padded columns, 300 x 1,000 at 384, 784 x 2,000 at
+896, 2,000 x 1,000 at 2,048), compares each
+variant with the plain version of its link and with the first variant's
+bits (for ``builtin:0``, the bits of the library), times them in turns (median of CUDA-event windows of
 back-to-back launches through the C entry, no Python in between), and prints
 each kernel's SASS census from ``cuobjdump`` where the toolkit has it
 (instructions, special-function ``MUFU``, ``CALL``, branches, warpgroup
@@ -51,7 +61,8 @@ from mcmc_tpu_torch.ops import _cuda, link_codegen as lc  # noqa: E402
 from mcmc_tpu_torch.ops import fused_logreg as fl  # noqa: E402
 
 OUT = Path("build") / "trials" / "traced"
-MODELS = {128: (100, 1000), 384: (300, 1000), 896: (784, 2000)}
+MODELS = {128: (100, 1000), 384: (300, 1000), 896: (784, 2000),
+          2048: (2000, 1000)}
 
 
 def cloglog(eta, y):
@@ -76,29 +87,61 @@ BUILTIN = """struct TracedLink {{
 """
 
 
+# f64div's quotient: div_rn's f64 path for every operand
+F64_DIV = """__device__ __forceinline__ float div_f64(float a, float b) {
+  const uint32_t ua = __float_as_uint(a) & 0x7fffffffu;
+  const uint32_t ub = __float_as_uint(b) & 0x7fffffffu;
+  if (ua - 1u >= 0x7f7fffffu || ub - 1u >= 0x7f7fffffu) {
+    const float s = ub == 0u ? __int_as_float(0x7f800000)
+                    : ub > 0x7f800000u ? b : ub == 0x7f800000u ? 0.0f : 1.0f;
+    return __fmul_rn(a, copysignf(s, b));
+  }
+  const double da = a, db = b;
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(db));
+  double e = fma(-db, r, 1.0);
+  r = fma(r, e, r);
+  e = fma(-db, r, 1.0);
+  r = fma(r, e, r);
+  const double q = da * r;
+  return __double2float_rn(fma(fma(-db, q, da), r, q));
+}
+"""
+
+
 def functor(spec):
+    spec = spec.split("@", 1)[0].split("%", 1)[0]
     kind, arg = spec.split(":", 1)
     if kind == "traced":
         return lc.trace_link(LINKS[arg]).source, LINKS[arg]
-    if kind == "fastdiv":
+    if kind == "f64div":
+        return F64_DIV + lc.trace_link(LINKS[arg]).source.replace(
+            "div_rn(", "div_f64("), LINKS[arg]
+    if kind in ("fastdiv", "ieee"):
         return lc.trace_link(LINKS[arg]).source.replace(
-            "__fdiv_rn(", "__fdividef("), LINKS[arg]
+            "div_rn(", "__fdividef(" if kind == "fastdiv" else "__fdiv_rn("), \
+            LINKS[arg]
     if kind == "builtin":
         names = ("logistic", "poisson", "linear", "probit")
         return BUILTIN.format(code=int(arg)), names[int(arg)]
     return Path(arg).read_text(), "logistic"
 
 
-def build(variants, wide):
+def build(variants, dp, headers=None, defines=None):
+    """Compile every variant's translation unit at once (``headers`` maps
+    a variant's name to the header directory it builds against,
+    ``defines`` to a macro it defines)."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src in variants.items():
-        cu = OUT / f"{name}_{'wide' if wide else '128'}.cu"
-        cu.write_text(_cuda.link_source(src, 256 if wide else 128))
+        inc = (headers or {}).get(name) or str(_cuda.CSRC)
+        cu = OUT / f"{name}_{dp}.cu"
+        cu.write_text(_cuda.link_source(src, dp))
         so = cu.with_suffix(".so")
         procs[name] = (subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I",
-             str(_cuda.CSRC), "-o", str(so), str(cu)],
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS,
+             *([f"-D{defines[name]}"] if name in (defines or {}) else []),
+             "-shared", "-I", inc, "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs = {}
     for name, (proc, so) in procs.items():
@@ -109,7 +152,8 @@ def build(variants, wide):
                 print(f"  [{name}] {line.strip()}")
         if proc.returncode != 0:
             raise SystemExit(f"build of {name} failed:\n{log}")
-        libs[name] = (_cuda._bind_link(ctypes.CDLL(str(so))), so)
+        libs[name] = (_cuda._bind_link(ctypes.CDLL(str(so)),
+                                       _cuda.glm_body(dp)), so)
     return libs
 
 
@@ -152,9 +196,12 @@ def main():
                          text=True).stdout.strip())
     specs = dict(v.split("=", 1) for v in args.variants)
     made = {name: functor(spec) for name, spec in specs.items()}
-    wide = args.dp > 128
     t0 = time.perf_counter()
-    libs = build({n: m[0] for n, m in made.items()}, wide)
+    libs = build({n: m[0] for n, m in made.items()}, args.dp,
+                 {n: sp.split("@", 1)[1] for n, sp in specs.items()
+                  if "@" in sp},
+                 {n: sp.split("%", 1)[1] for n, sp in specs.items()
+                  if "%" in sp})
     print(f"build {time.perf_counter() - t0:.1f} s")
     for name, (_, so) in libs.items():
         print(f"  {name}: {sass_census(so)}")
@@ -176,11 +223,21 @@ def main():
             *(o.data_ptr() for o in outs), C, traj.Xb.shape[0], dp, 4, 0.005,
             0.01, traj.inv_pv)
     lib0 = _cuda.load()
-    calls = {"library logistic": lambda: lib0.fused_glm_trajectory_launch(
-        *base, 0, 0.0, stream)}
+    work = ()
+    if _cuda.glm_body(dp) == "two-pass":
+        ws = torch.empty((lib0.fused_glm_xwide_workspace_bytes(
+            C, traj.Xb.shape[0], dp),), dtype=torch.uint8, device=dev)
+        work = (ws.data_ptr(),)
+        calls = {"library logistic":
+                 lambda: lib0.fused_glm_xwide_trajectory_launch(
+                     *base, 0, 0.0, *work, stream)}
+    else:
+        calls = {"library logistic": lambda: lib0.fused_glm_trajectory_launch(
+            *base, 0, 0.0, stream)}
     for name, (lib, _) in libs.items():
-        calls[name] = (lambda lib=lib: lib.traced_glm_launch(*base, stream))
-    ref = None
+        calls[name] = (lambda lib=lib: lib.traced_glm_launch(*base, *work,
+                                                             stream))
+    ref, first = None, None
     for name, call in calls.items():
         rc = call()
         torch.cuda.synchronize()
@@ -189,6 +246,8 @@ def main():
             raise SystemExit(f"{name}: launch failed ({rc})")
         if ref is None:
             ref = got
+        elif first is None:
+            first = (name, got)
         link = made[name][1] if name in made else "logistic"
         want = fl._fused_trajectory_plain(z, p, traj.Xb, traj.y, traj.mask,
                                           traj.inv_pv, 0.01, 4, link)
@@ -197,6 +256,9 @@ def main():
         same = all(torch.equal(a, b) for a, b in zip(got, ref))
         print(f"{name}: max |dz|, |dp| against its plain version {err:.3e}; "
               f"bit-equal to the library's logistic: {same}")
+        if first is not None and name != first[0]:
+            eq = [torch.equal(a, b) for a, b in zip(got, first[1])]
+            print(f"  {name} against {first[0]}: z, p, U bit-equal {eq}")
     names = list(calls)
     times = {k: [] for k in names}
     for r in range(args.reps):

@@ -18,11 +18,14 @@ turns). ptxas's registers, spills and notes are printed for each build.
 
 A variant that also defines ``extern "C" int trial_set_prof(void*)`` (a
 copy with ``clock64()`` counters that stores 16 int64 for the first and the
-last thread of each warpgroup of every block, the tile count at index 11)
-is named with ``--instr``: it is run once more with a buffer installed and its
-counters are printed per 128-row tile, labelled by ``--labels``; it also
-reports ``cudaOccupancyMaxActiveClusters`` if it defines
-``trial_max_clusters``.
+last thread of each warpgroup of every block, the count it divides by at
+index 11: 128-row tiles in the cluster body's copies, items in the two-pass
+body's, ``scripts/trials/glm_xwide_counters.cuh``) is named with
+``--instr`` (several, separated by commas): it is run once more with a
+buffer installed and its counters are printed per tile or item, labelled
+by ``--labels``; it also reports ``cudaOccupancyMaxActiveClusters`` if it
+defines ``trial_max_clusters``. ``--defines name=A+B`` compiles a variant
+with ``-DA -DB`` (a trial copy's switches).
 
 From the repository root, with a card:
 
@@ -33,6 +36,16 @@ From the repository root, with a card:
         parent=build/trials/parent/wide.cu \\
         now=mcmc_tpu_torch/csrc/fused_glm_trajectory_wide.cu \\
         --widths 256,384,896
+
+and past 1,024, the two-pass body against a parent copy of its header
+(with the parent's headers beside it) and its counters copy:
+
+    python3 scripts/torch_wide_glm_trials.py \\
+        parent=build/trials/parent_csrc/fused_glm_xwide_body.cuh \\
+        now=mcmc_tpu_torch/csrc/fused_glm_xwide_body.cuh \\
+        prof=scripts/trials/glm_xwide_counters.cuh --instr prof \\
+        --labels "wait full,products,release,refill,link,update,idle,\\
+cluster barrier,all,empty wait" --widths 1152,2048,3072,8192
 """
 
 import argparse
@@ -107,10 +120,21 @@ extern "C" int trial_launch(bool rt, const void* z, const void* p,
 """
 
 
+# the same for a copy whose header instantiates the body once per built-in
+# link (its entry glm_xwide::launch_builtin)
+XWIDE_BUILTIN_SHIM = XWIDE_SHIM.replace(
+    "launch<BuiltinLinks, true>", "launch_builtin<true>").replace(
+    "launch<BuiltinLinks, false>", "launch_builtin<false>")
+
+
 def shims(variants):
     """Each variant's shim: the two-pass body's for a copy of its header."""
-    return {name: XWIDE_SHIM if "namespace glm_xwide" in open(path).read()
-            else SHIM for name, path in variants.items()}
+    out = {}
+    for name, path in variants.items():
+        text = open(path).read()
+        out[name] = SHIM if "namespace glm_xwide" not in text else \
+            XWIDE_BUILTIN_SHIM if "launch_builtin" in text else XWIDE_SHIM
+    return out
 
 
 def bind_glm(lib):
@@ -224,6 +248,16 @@ def responses(name, X, y, beta, dim):
                         device=X.device)
 
 
+def blocks(n_chains, n_rows, dp):
+    """At most the blocks of a launch: the cluster body's dp / 128 a
+    128-chain tile, the two-pass body's min(8, row tiles, dp / 128) (a
+    cluster of it may hold more chains)."""
+    k = dp // 128
+    c = k if dp <= _cuda.CLUSTER_MAX_DIM_PADDED \
+        else min(8, (n_rows + 127) // 128, k)
+    return c * ((n_chains + 127) // 128)
+
+
 def print_counters(lib, run, n_blocks, labels):
     """Run once with the variant's counters installed; print their mean
     (and 10th, 90th percentiles) per tile over the recorded threads."""
@@ -236,10 +270,12 @@ def print_counters(lib, run, n_blocks, labels):
     torch.cuda.synchronize()
     lib.trial_set_prof(None)
     per_thread = prof.double().reshape(-1, n_words)
+    # threads that counted (the buffer may hold more blocks than ran)
+    per_thread = per_thread[per_thread[:, 11] > 0]
     tiles = per_thread[:, 11:12]
     per = per_thread[:, :len(labels)] / tiles
-    print(f"  clocks per tile ({per.shape[0]} threads, "
-          f"{int(tiles[0, 0])} tiles each):")
+    print(f"  clocks per tile or item ({per.shape[0]} threads, "
+          f"{int(tiles[0, 0])} each):")
     for i, label in enumerate(labels):
         if label and label != "-":
             col = per[:, i]
@@ -257,8 +293,10 @@ def main():
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--links", action="store_true",
                     help="every built-in link at 384 padded columns")
-    ap.add_argument("--instr", default=None,
-                    help="the variant with clock counters")
+    ap.add_argument("--instr", default="",
+                    help="the variants with clock counters (commas)")
+    ap.add_argument("--defines", action="append", default=[],
+                    help="name=A+B: compile variant name with -DA -DB")
     ap.add_argument("--labels", default="",
                     help="comma-separated names of the counters")
     ap.add_argument("--notime", action="store_true")
@@ -271,11 +309,14 @@ def main():
                          text=True).stdout.strip())
     variants = dict(v.split("=", 1) for v in args.variants)
     t0 = time.perf_counter()
-    libs = build(variants, shim=shims(variants))
+    defines = {k: v.split("+") for k, v in
+               (d.split("=", 1) for d in args.defines)}
+    libs = build(variants, shim=shims(variants), defines=defines)
     print(f"build {time.perf_counter() - t0:.1f} s")
-    names = [n for n in variants if n != args.instr]
-    if args.instr and hasattr(libs[args.instr], "trial_max_clusters"):
-        fn = libs[args.instr].trial_max_clusters
+    instr = [n for n in args.instr.split(",") if n]
+    names = [n for n in variants if n not in instr]
+    if instr and hasattr(libs[instr[0]], "trial_max_clusters"):
+        fn = libs[instr[0]].trial_max_clusters
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
         print("max active clusters by k:", {k: fn(k) for k in range(2, 9)})
     dev = torch.device("cuda")
@@ -321,11 +362,12 @@ def main():
                 eq = [torch.equal(u, v)
                       for u, v in zip(outs[names[0]], outs[name])]
                 print(f"  {name} against {names[0]}: z, p, U bit-equal {eq}")
-            if args.instr and lname == "logistic":
-                lib = libs[args.instr]
+            for name in instr if lname == "logistic" else ():
+                lib = libs[name]
+                print(f"  counters of {name}:")
                 print_counters(
                     lib, lambda: launch(lib, z, p, traj, 4, 0.01, code, nu),
-                    (dp // 128) * ((C + 127) // 128),
+                    blocks(C, traj.Xb.shape[0], dp),
                     args.labels.split(","))
             if not args.notime:
                 fns = [(lambda lib=libs[nm]: launch(lib, z, p, traj, 4, 0.01,

@@ -692,6 +692,171 @@ def test_xwide_workspace_error_names_its_bytes():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dim,n", [(1100, 1000), (2000, 1200), (2100, 333),
+                                   (1100, 130)])
+def test_xwide_blocks_with_fewer_items(dim, n):
+    """The two-pass body's operands are multicast to the cluster, so every
+    block walks the same items and a block with a smaller share runs its
+    last rounds without products: 1,152's 9 panels over 8 blocks (one block
+    two panels), 1,200 rows' 10 row tiles over 8 blocks (two blocks two
+    tiles), 17 panels over 3 blocks and 9 over 2; 200 chains (no multiple
+    of 128). Both entries against their plain versions, padded columns
+    zero, a second launch bit-equal."""
+    _require_card()
+    z, p, args = _problem("logistic", dim, n=n, chains=200)
+    Xb, y, mask, inv_pv, eps, n_leap, link = args
+    got = tfl.fused_trajectory_cuda(z, p, *args)
+    again = tfl.fused_trajectory_cuda(z, p, *args)
+    want = tfl._fused_trajectory_plain(z, p, *args)
+    im = _inv_mass(z.shape[1], dim)
+    eps_t = torch.tensor(0.013, device="cuda")
+    got_rt = tfl.fused_trajectory_rt_cuda(z, p, Xb, y, mask, inv_pv, eps_t,
+                                          n_leap, link, im)
+    want_rt = tfl._fused_trajectory_plain(z, p, Xb, y, mask, inv_pv, eps_t,
+                                          n_leap, link, im)
+    torch.cuda.synchronize()
+    for g, w in ((got, want), (got_rt, want_rt)):
+        _close_but_rare(g, w, 200)
+        assert torch.all(g[0][:, dim:] == 0) and torch.all(g[1][:, dim:] == 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_xwide_more_clusters_than_resident():
+    """4,096 chains at 2,048 padded columns: 32 clusters of 8 blocks, more
+    than the card holds at once (one 200 KB block an SM), so they run in
+    waves; against the plain version."""
+    _require_card()
+    z, p, args = _problem("logistic", 2000, chains=4096)
+    got = tfl.fused_trajectory_cuda(z, p, *args)
+    want = tfl._fused_trajectory_plain(z, p, *args)
+    torch.cuda.synchronize()
+    _close_but_rare(got, want, 4096)
+    assert torch.all(got[0][:, 2000:] == 0)
+
+
+@pytest.mark.cuda
+def test_xwide_500_launches_keep_their_bits():
+    """500 back-to-back launches of the two-pass body (2,048 padded
+    columns, 256 chains: two clusters of 8) give the first launch's bits:
+    no stage of the ring is refilled before every block released it."""
+    _require_card()
+    z, p, args = _problem("logistic", 2000, chains=256)
+    first = tfl.fused_trajectory_cuda(z, p, *args)
+    differ = []
+    for i in range(1, 500):
+        out = tfl.fused_trajectory_cuda(z, p, *args)
+        if not all(torch.equal(a, b) for a, b in zip(first, out)):
+            differ.append(i)
+    assert not differ, differ[:10]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["logistic", "poisson", "linear", "probit",
+                                  "studentt", "cloglog (traced)"])
+def test_xwide_every_link_and_rt_at_unit_mass_at_3072(name):
+    """The main path's width past 1,024: 3,072 padded columns (the model's
+    own) on 2,000 rows, clusters of 8, 300 chains; every built-in link and
+    the traced cloglog link against the plain version, and the run-time
+    entry at inverse mass 1 bit-equal to the fixed-step entry."""
+    _require_card()
+    if name == "cloglog (traced)":
+        z, p, args = _traced_problem("cloglog", 3072, 2000, 300)
+    else:
+        z, p, args = _problem(name, 3072, n=2000, chains=300)
+    Xb, y, mask, inv_pv, eps, n_leap, link = args
+    got = tfl.fused_trajectory_cuda(z, p, *args)
+    want = tfl._fused_trajectory_plain(z, p, *args)
+    one = tfl.fused_trajectory_rt_cuda(
+        z, p, Xb, y, mask, inv_pv, torch.tensor(eps, device="cuda"), n_leap,
+        link, torch.ones((z.shape[1],), device="cuda"))
+    torch.cuda.synchronize()
+    _close_but_rare(got, want, 300)
+    assert all(torch.equal(a, b) for a, b in zip(got, one))
+
+
+_QUOTIENT_TU = """#include "fused_glm_common.cuh"
+__global__ void quotients(const unsigned* a, const unsigned* b,
+                          unsigned* mine, unsigned* ieee, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float x = __uint_as_float(a[i]), y = __uint_as_float(b[i]);
+    mine[i] = __float_as_uint(div_rn(x, y));
+    ieee[i] = __float_as_uint(__fdiv_rn(x, y));
+  }
+}
+extern "C" int run(const void* a, const void* b, void* mine, void* ieee,
+                   long long n) {
+  quotients<<<1056, 256>>>((const unsigned*)a, (const unsigned*)b,
+                           (unsigned*)mine, (unsigned*)ieee, n);
+  return (int)cudaGetLastError();
+}
+"""
+
+# f32 bit patterns the quotient must get right: signed zeros, infinities,
+# NaNs (quiet, signalling, negative), subnormals, FLT_MIN, FLT_MAX and
+# ordinary values
+_QUOTIENT_SPECIALS = [
+    0x00000000, 0x80000000, 0x7f800000, 0xff800000, 0x7fc00000, 0x7fffffff,
+    0xffc00000, 0x7f800001, 0x00000001, 0x80000001, 0x007fffff, 0x00400000,
+    0x80400000, 0x00800000, 0x80800000, 0x7f7fffff, 0xff7fffff, 0x3f800000,
+    0xbf800000, 0x40400000, 0x3eaaaaab, 0x00000003, 0x4b000001, 0x34000000]
+
+
+@pytest.mark.cuda
+def test_traced_quotient_bit_equal_to_fdiv_rn(tmp_path):
+    """``div_rn`` (``csrc/fused_glm_common.cuh``), the quotient a traced
+    link's functor calls, against ``__fdiv_rn`` bit for bit, in a tiny
+    kernel built with the package's nvcc flags: 2^26 pairs of random f32
+    bit patterns (every exponent: overflow, underflow to subnormals and
+    zero, NaNs), 2^24 pairs of random values in [0.5, 4) and [-4, -0.5)
+    (the ordinary range, near every rounding boundary), 2^24 of such a
+    value over random bits, and every pair of the special values."""
+    _require_card()
+    import ctypes
+    import subprocess
+
+    from mcmc_tpu_torch.ops import _cuda
+
+    src = tmp_path / "quotient.cu"
+    src.write_text(_QUOTIENT_TU)
+    so = tmp_path / "quotient.so"
+    r = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I",
+                        str(_cuda.CSRC), "-o", str(so), str(src)],
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stdout + r.stderr
+    lib = ctypes.CDLL(str(so))
+    lib.run.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+    lib.run.restype = ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def bits(n):
+        return torch.randint(-2 ** 31, 2 ** 31, (n,), generator=gen,
+                             dtype=torch.int64, device="cuda").to(torch.int32)
+
+    def ordinary(n):
+        v = 0.5 + 3.5 * torch.rand((n,), generator=gen, device="cuda")
+        sign = torch.randint(0, 2, (n,), generator=gen, device="cuda")
+        return torch.where(sign == 1, -v, v).view(torch.int32)
+
+    sp = torch.tensor(np.array(_QUOTIENT_SPECIALS, np.uint32).view(np.int32),
+                      device="cuda")
+    a = torch.cat([bits(1 << 26), ordinary(1 << 24), ordinary(1 << 24),
+                   sp.repeat_interleave(len(sp))])
+    b = torch.cat([bits(1 << 26), ordinary(1 << 24), bits(1 << 24),
+                   sp.repeat(len(sp))])
+    mine, ieee = torch.empty_like(a), torch.empty_like(a)
+    assert lib.run(a.data_ptr(), b.data_ptr(), mine.data_ptr(),
+                   ieee.data_ptr(), a.numel()) == 0
+    torch.cuda.synchronize()
+    bad = (mine != ieee).nonzero().flatten()
+    assert bad.numel() == 0, [
+        (hex(int(a[i]) & 0xffffffff), hex(int(b[i]) & 0xffffffff),
+         hex(int(mine[i]) & 0xffffffff), hex(int(ieee[i]) & 0xffffffff))
+        for i in bad[:8].tolist()]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("chains", [1, 65, 100, 129, 300])
 @pytest.mark.parametrize("dim,n", [(200, 1000), (300, 130), (300, 50),
                                    (450, 1000), (600, 700), (700, 333),

@@ -182,6 +182,21 @@ def test_emitted_op_matches_torch(name, host_links):
     np.testing.assert_array_equal(r, r_plain)
 
 
+@pytest.mark.parametrize("name", ["div", "reciprocal", "pow_neg", "rsqrt",
+                                  "sigmoid", "softplus_beta", "cloglog"])
+def test_quotients_emit_div_rn(name):
+    """Every quotient of a traced link is the kernels' correctly rounded
+    ``div_rn`` (``csrc/fused_glm_common.cuh``: no slow-path call), never
+    CUDA's ``__fdiv_rn``; the host shim defines it as ``a / b``, so the
+    functors above compile and match torch with it."""
+    src = lc.trace_link(OP_LINKS[name]).source
+    assert "div_rn(" in src and "__fdiv_rn" not in src
+    assert "static inline float div_rn(float a, float b) { return a / b; }" \
+        in lc.HOST_SHIM
+    assert "div_rn(float a, float b)" in \
+        (_cuda.CSRC / "fused_glm_common.cuh").read_text()
+
+
 def test_op_table_is_covered():
     """Every aten op of the table that torch's front end reaches from the
     links above is traced by at least one of them (the comparisons,
