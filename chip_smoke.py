@@ -496,7 +496,8 @@ MALA_REF = {"chains": 256, "warm": 1000, "keep": 500, "leap": 4,
 SYNC_PROBE_LENGTHS = (2, 6)
 # SoftAbs on Neal's funnel, a short run for the sync count: torch's eigh
 # reads its info back, EIGH_SYNCS host syncs per metric evaluation, and a
-# draw evaluates the metric leap * (fp + dim) times
+# draw evaluates the metric leap * (fp + 1) times (the derivative cube of
+# the metric's fast path in one evaluation)
 SOFTABS_ROW = {"chains": 256, "dim": 3, "leap": 2, "fp": 2, "step": 0.5,
                "n": 5}
 EIGH_SYNCS = 1
@@ -2246,7 +2247,7 @@ def suite_rows(dev):
     torch.cuda.synchronize()
     el = time.perf_counter() - t0
     syncs, setup = entry_syncs_per_draw(run)
-    evals = r["leap"] * (r["fp"] + r["dim"])
+    evals = r["leap"] * (r["fp"] + 1)
     print(f"rmhmc softabs funnel: {r['chains']} chains, {2 * r['n']} draws "
           f"in {el:.3f} s ({1e3 * el / (2 * r['n']):.1f} ms a draw), accept "
           f"{float(out.accept_rate.mean()):.4f}; {syncs} host syncs per draw "

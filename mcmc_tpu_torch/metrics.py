@@ -29,6 +29,21 @@ are independent, so each column is each chain's own).
 
 On the card ``torch.linalg.eigh`` reads its ``info`` back (it has no
 ``_ex`` form): one host synchronisation per metric evaluation.
+
+The sampler's fast path: nested ``torch.func`` transforms cost milliseconds
+of host dispatch per call whatever the size (hundreds of small launches for
+one directional derivative of the 3-d funnel's metric;
+``scripts/torch_softabs_metric_cost.py`` times them on the card), and RM-HMC
+evaluates the metric ``n_leap (n_fp + 1)`` times a transition. So the returned ``metric_fn`` also carries
+``metric_fn.tensor(x)`` (G alone) and ``metric_fn.tensor_and_derivative(x)``
+(G and the cube ``(c, i, a, b) = dG_ab / dx_i``), which
+:func:`mcmc_tpu_torch.rmhmc` calls in its place. Both take the Hessian (and
+its ``d`` directional derivatives, in one ``vmap``) from a CUDA graph on
+the card, captured at the first call for each shape (:func:`_graphed`), and
+decompose it once with ``eigh``; the cube applies the Daleckii-Krein rule to
+all ``d`` tangents at once, where ``d`` calls of ``torch.func.jvp`` on
+``metric_fn`` decompose the same Hessian ``d`` times. The values are those
+of ``metric_fn`` and its JVPs, the same operations in another order.
 """
 
 from __future__ import annotations
@@ -68,17 +83,7 @@ class _SoftAbsMap(torch.autograd.Function):
 
     @staticmethod
     def forward(H, alpha):
-        # a non-finite Hessian (a point where the log-kernel overflows) gets
-        # NaN, as the JAX package's eigh returns it; torch's eigh would
-        # raise on it, so it decomposes the identity there instead
-        finite = torch.isfinite(H).all(dim=-1).all(dim=-1)
-        eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
-        lam, Q = torch.linalg.eigh(torch.where(finite[..., None, None], H,
-                                               eye))
-        lam = torch.where(finite[..., None], lam, torch.nan)
-        Q = torch.where(finite[..., None, None], Q, torch.nan)
-        G = (Q * _softabs_f(lam, alpha)[..., None, :]) @ Q.transpose(-1, -2)
-        return G, lam, Q
+        return _softabs_eig(H, alpha)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -90,22 +95,77 @@ class _SoftAbsMap(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, dH, _dalpha):
         lam, Q = ctx.saved_tensors
-        f = _softabs_f(lam, ctx.alpha)
-        fp = _softabs_fprime(lam, ctx.alpha)
-        dlam = lam[..., :, None] - lam[..., None, :]
-        # relative coincidence threshold; below it the divided difference
-        # is replaced by its limit (f'(l_i) + f'(l_j)) / 2
-        alam = torch.abs(lam)
-        thr = 1e-6 * (alam[..., :, None] + alam[..., None, :] + 1.0)
-        apart = torch.abs(dlam) > thr
-        safe = torch.where(apart, dlam, 1.0)
-        J = torch.where(apart, (f[..., :, None] - f[..., None, :]) / safe,
-                        0.5 * (fp[..., :, None] + fp[..., None, :]))
-        Qt = Q.transpose(-1, -2)
-        dG = Q @ (J * (Qt @ dH @ Q)) @ Qt
-        # symmetrize away the eigh round-off asymmetry
-        dG = 0.5 * (dG + dG.transpose(-1, -2))
-        return dG, None, None
+        return _daleckii_krein(lam, Q, dH, ctx.alpha), None, None
+
+
+def _softabs_eig(H, alpha):
+    """``(G, lambda, Q)`` of a batch of symmetric Hessians ``(..., d, d)``:
+    ``eigh``, then each eigenvalue through :func:`_softabs_f`."""
+    # a non-finite Hessian (a point where the log-kernel overflows) gets
+    # NaN, as the JAX package's eigh returns it; torch's eigh would raise
+    # on it, so it decomposes the identity there instead
+    finite = torch.isfinite(H).all(dim=-1).all(dim=-1)
+    eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+    lam, Q = torch.linalg.eigh(torch.where(finite[..., None, None], H, eye))
+    lam = torch.where(finite[..., None], lam, torch.nan)
+    Q = torch.where(finite[..., None, None], Q, torch.nan)
+    G = (Q * _softabs_f(lam, alpha)[..., None, :]) @ Q.transpose(-1, -2)
+    return G, lam, Q
+
+
+def _daleckii_krein(lam, Q, dH, alpha):
+    """The derivative ``dG`` of the SoftAbs map along the tangent ``dH``
+    at ``H = Q diag(lam) Q^T`` (module docstring); ``dH`` may carry more
+    batch dimensions than ``lam`` and ``Q``, which broadcast."""
+    f = _softabs_f(lam, alpha)
+    fp = _softabs_fprime(lam, alpha)
+    dlam = lam[..., :, None] - lam[..., None, :]
+    # relative coincidence threshold; below it the divided difference is
+    # replaced by its limit (f'(l_i) + f'(l_j)) / 2
+    alam = torch.abs(lam)
+    thr = 1e-6 * (alam[..., :, None] + alam[..., None, :] + 1.0)
+    apart = torch.abs(dlam) > thr
+    safe = torch.where(apart, dlam, 1.0)
+    J = torch.where(apart, (f[..., :, None] - f[..., None, :]) / safe,
+                    0.5 * (fp[..., :, None] + fp[..., None, :]))
+    Qt = Q.transpose(-1, -2)
+    dG = Q @ (J * (Qt @ dH @ Q)) @ Qt
+    # symmetrize away the eigh round-off asymmetry
+    return 0.5 * (dG + dG.transpose(-1, -2))
+
+
+def _graphed(fn):
+    """``fn(x) -> tuple of tensors``, replayed on the card from a CUDA
+    graph captured at the first call for each shape, dtype and device of
+    ``x`` (one warm-up call on a side stream first, as CUDA graphs need);
+    elsewhere ``fn`` itself. ``fn`` must launch the same work for every
+    ``x`` of a shape and read nothing back to the host. Returns copies of
+    the graph's outputs, which the next replay overwrites."""
+    graphs = {}
+
+    def call(x):
+        if x.device.type != "cuda":
+            return fn(x)
+        key = (tuple(x.shape), x.dtype, x.device)
+        if key not in graphs:
+            with torch.cuda.device(x.device):
+                static_x = x.detach().clone()
+                main = torch.cuda.current_stream()
+                side = torch.cuda.Stream()
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    fn(static_x)
+                main.wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    static_out = fn(static_x)
+            graphs[key] = (graph, static_x, static_out)
+        graph, static_x, static_out = graphs[key]
+        static_x.copy_(x)
+        graph.replay()
+        return tuple(t.clone() for t in static_out)
+
+    return call
 
 
 def softabs_metric(log_kernel, alpha=1.0):
@@ -120,7 +180,10 @@ def softabs_metric(log_kernel, alpha=1.0):
     Returns a batched ``metric_fn(params (c, d)) -> (c, d, d)`` (a single
     ``(d,)`` gives ``(d, d)``) whose forward derivative, as
     ``torch.func.jvp`` takes it, stays finite at coincident Hessian
-    eigenvalues (module docstring).
+    eigenvalues (module docstring). It carries the sampler's fast path,
+    ``metric_fn.tensor`` and ``metric_fn.tensor_and_derivative`` (module
+    docstring), which on the card capture ``log_kernel``'s derivatives in
+    a CUDA graph: there ``log_kernel`` must read nothing back to the host.
     """
     alpha = float(alpha)
     if not alpha > 0.0:
@@ -140,4 +203,29 @@ def softabs_metric(log_kernel, alpha=1.0):
     def metric_fn(x):
         return _SoftAbsMap.apply(hess_fn(x), alpha)[0]
 
+    def hess_and_cube(x):
+        # H, and its derivative along each coordinate: (c, i, a, b)
+        eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+        return torch.func.vmap(
+            lambda e: torch.func.jvp(hess_fn, (x,), (e.expand_as(x),)),
+            out_dims=(None, 1))(eye)
+
+    hess_graphed = _graphed(lambda x: (hess_fn(x),))
+    cube_graphed = _graphed(hess_and_cube)
+
+    def tensor(x):
+        """G at the batch ``x (c, d)``: ``metric_fn(x)`` (module
+        docstring)."""
+        return _softabs_eig(hess_graphed(x)[0], alpha)[0]
+
+    def tensor_and_derivative(x):
+        """G at the batch ``x (c, d)`` and its derivative cube ``(c, i, a,
+        b) = dG_ab / dx_i``: what ``d`` JVPs of ``metric_fn`` give, from
+        one Hessian and one ``eigh`` (module docstring)."""
+        H, dH = cube_graphed(x)
+        G, lam, Q = _softabs_eig(H, alpha)
+        return G, _daleckii_krein(lam[:, None], Q[:, None], dH, alpha)
+
+    metric_fn.tensor = tensor
+    metric_fn.tensor_and_derivative = tensor_and_derivative
     return metric_fn

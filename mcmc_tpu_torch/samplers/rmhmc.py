@@ -7,6 +7,9 @@ the derivative cube the reference requires by hand (``Cube_t*
 tensor_deriv_out``, examples/eigen/rmhmc_normal.cpp:78-111) is ``d`` calls
 of ``torch.func.jvp(metric_fn, (x,), (e_i,))`` with the basis vector
 broadcast over the chains, stacked as ``(c, i, a, b) = dG_ab / dx_i``.
+A metric that carries ``metric_fn.tensor_and_derivative(x) -> (G, cube)``
+and ``metric_fn.tensor(x) -> G`` (:func:`mcmc_tpu_torch.softabs_metric`)
+is called through them instead: the cube from one evaluation.
 
 As in the JAX package (src/rmhmc.cpp:199-238):
 
@@ -30,7 +33,9 @@ The kernel is batched over chains; its inverses, Cholesky factors and
 log-determinants are batched ``inv_ex``, ``cholesky_ex`` and ``slogdet``
 calls, none of which reads a result back to the host. A metric whose
 evaluation syncs (SoftAbs's ``eigh``) makes the kernel sync as often as it
-evaluates the metric (``step.counts["metric_evaluations"]``). A transition
+evaluates the metric (``step.counts["metric_evaluations"]``: ``n_leap (n_fp
++ d)`` a transition, ``n_leap (n_fp + 1)`` with the cube in one
+evaluation). A transition
 is a draw of its random numbers from the run's one ``torch.Generator``
 (``step.draw``: the momentum's normals and the accept uniform) followed by a
 function of those draws (``step.transition``).
@@ -86,11 +91,17 @@ def build_rmhmc_kernel(prob: common.Problem, metric_fn, cfg: RMHMCSettings):
             return bounds_mod.inv_transform(z, *bnds)
         return z
 
+    with_cube = getattr(metric_fn, "tensor_and_derivative", None)
+    tensor_fn = getattr(metric_fn, "tensor", metric_fn)
+
     def box_tensor(z):
         """G and dG at the constrained point (reference src/rmhmc.cpp:
         152-165: the metric and its derivatives are the user's, evaluated
         at x, no Jacobian chaining): ``(c, d, d)`` and ``(c, i, a, b)``."""
         x = to_constrained(z)
+        if with_cube is not None:
+            counts["metric_evaluations"] += 1
+            return with_cube(x)
         eye = torch.eye(dim, dtype=x.dtype, device=x.device)
         g, cols = None, []
         for i in range(dim):
@@ -101,7 +112,7 @@ def build_rmhmc_kernel(prob: common.Problem, metric_fn, cfg: RMHMCSettings):
 
     def box_tensor_only(z):
         counts["metric_evaluations"] += 1
-        return metric_fn(to_constrained(z))
+        return tensor_fn(to_constrained(z))
 
     def inv(m):
         return torch.linalg.inv_ex(m)[0]

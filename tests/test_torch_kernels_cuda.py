@@ -1265,6 +1265,33 @@ def test_sampler_on_the_card_repeats_under_one_seed(name):
 
 
 @pytest.mark.cuda
+def test_softabs_graphed_metric_matches_eager():
+    """``softabs_metric``'s fast path replays CUDA graphs of the funnel's
+    Hessian and its cube on the card: at two batch sizes and over three
+    points each (the graph's input refilled each replay), ``tensor`` and
+    ``tensor_and_derivative`` give what ``metric_fn`` and its ``d`` JVPs
+    give, within 1e-6 of each one's scale (float32)."""
+    _require_card()
+    import mcmc_tpu_torch
+    from mcmc_tpu_torch.models import neals_funnel
+
+    m = mcmc_tpu_torch.softabs_metric(neals_funnel(3, 3.0), 1.0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    eye = torch.eye(3, device="cuda")
+    for c in (5, 256):
+        for _ in range(3):
+            x = torch.randn(c, 3, device="cuda", generator=gen)
+            G, cube = m.tensor_and_derivative(x)
+            want = torch.stack([torch.func.jvp(m, (x,), (eye[i].expand_as(
+                x),))[1] for i in range(3)], dim=1)
+            assert float((cube - want).abs().max()) <= 1e-6 * float(
+                want.abs().max())
+            for got in (G, m.tensor(x)):
+                assert float((got - m(x)).abs().max()) <= 1e-6 * float(
+                    G.abs().max())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", ["pt", "aees", "aees_capped", "smc",
                                   "stretch", "demcz"])
 def test_tempering_and_ensemble_on_the_card_repeat_under_one_seed(name):

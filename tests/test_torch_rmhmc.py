@@ -148,9 +148,11 @@ def test_rmhmc_run_fed_jax_draws(name):
     accept decisions at every transition and the final state within
     ``RUN_RTOL``; ``n_leap_steps`` leapfrogs a transition, and the metric
     evaluated ``n_leap (n_fp + d)`` times (each derivative JVP evaluates
-    it once; the last leapfrog's tensor serves the accept test)."""
+    it once; the last leapfrog's tensor serves the accept test), or
+    ``n_leap (n_fp + 1)`` times where the metric gives its derivative cube
+    in one evaluation (SoftAbs)."""
     _, _, tstep, (states, infos, draws) = _rmhmc_case(name)
-    d = states[0].position.shape[1]
+    d = 1 if name.startswith("softabs") else states[0].position.shape[1]
     n_leap, n_fp = (3, 3) if name.startswith("fisher") else (1, 2)
     before = dict(tstep.counts)
     with torch.no_grad():
@@ -251,6 +253,34 @@ def test_softabs_derivative_finite_and_exact_at_degeneracy():
 
     assert float((torch.func.jacfwd(naive)(x0[0]) - fd[0]).abs().max()) > 0.1
     assert not bool(torch.isfinite(torch.func.jacfwd(naive)(x0[1])).all())
+
+
+def _softabs_hooks_case(dtype):
+    m = mcmc_tpu_torch.softabs_metric(tmodels.neals_funnel(3, 3.0), 1.0)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (6, 3))).to(dtype)
+    return m, x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_softabs_cube_in_one_evaluation(dtype, monkeypatch):
+    """The sampler's fast path (``metric_fn.tensor``,
+    ``metric_fn.tensor_and_derivative``) gives what ``metric_fn`` and its
+    ``d`` JVPs give, bit for bit on the CPU, and decomposes the Hessian
+    once for the whole cube, where the ``d`` JVPs decompose it ``d`` times
+    (3 ``eigh`` calls on the funnel: the cost, 33 ms a JVP on the card,
+    that ran ``examples_torch/rmhmc_funnel_softabs.py`` past 600 s)."""
+    m, x = _softabs_hooks_case(dtype)
+    calls = []
+    eigh = torch.linalg.eigh
+    monkeypatch.setattr(torch.linalg, "eigh",
+                        lambda H: calls.append(1) or eigh(H))
+    G, cube = m.tensor_and_derivative(x)
+    assert len(calls) == 1
+    want = _jac(m, x)
+    assert len(calls) == 1 + x.shape[1]
+    assert torch.equal(cube, want.permute(0, 3, 1, 2))
+    assert torch.equal(G, m(x)) and torch.equal(m.tensor(x), G)
 
 
 def test_softabs_symmetric_spd_on_the_funnel():
